@@ -1,0 +1,167 @@
+"""Build and bind the hand-written CUDA kernels of `csrc/`.
+
+Each `csrc/<name>.cu` is compiled by nvcc, at first use, into its own
+shared library with a plain C interface and loaded with ctypes:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
+         -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
+
+The build goes into `build/kernels/` at the repository root, one nvcc
+process per source, all started together.  The file name carries a hash of
+the sources, the flags and the nvcc path, so an edited source is rebuilt
+and an unchanged one is loaded as it is.  A missing nvcc raises: nothing
+falls back to the plain PyTorch versions.
+
+Every exported function takes device pointers and the CUDA stream as
+`void*`, launches on that stream (PyTorch's current stream), does not
+synchronise, and returns `cudaGetLastError()`; `launch` raises when that is
+not 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P, _I, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_ulonglong)
+
+# source stem -> (exported C function, its argtypes); the stream comes last
+SIGNATURES = {
+    # cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y,
+    # out_dim, out_rows, n, p, stream
+    "spmv_ell": ("spmv_ell", (_P, _P, _I, _L, _P, _P, _P, _P, _P,
+                              _L, _L, _I, _U, _P)),
+    # v1, n1, v2, n2, w, b, N, rows_per_block, nblocks, p, partial, out,
+    # stream
+    "gram_mod": ("gram_mod", (_P, _I, _P, _I, _P, _I, _L, _L, _I, _U,
+                              _P, _P, _P)),
+    # grams, n, p, check, winv, d, npiv, rhs, state, stream
+    "semi_inverse": ("semi_inverse", (_P, _I, _U, _I, _P, _P, _P, _P, _P,
+                                      _P)),
+    # v, p_blk, av, rhs, d, N, n, p, state, stream
+    "orthogonalize": ("orthogonalize", (_P, _P, _P, _P, _P, _L, _I, _U, _P,
+                                        _P)),
+}
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    nvcc = shutil.which("nvcc")
+    if nvcc is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        nvcc = "/usr/local/cuda/bin/nvcc"
+    if nvcc is None:
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels of block_lanczos_tpu_torch are "
+            "built from source at first use (put the CUDA toolkit's bin/ on "
+            "PATH), or run on the CPU with device='cpu'")
+    return nvcc
+
+
+def _library_path(name: str, nvcc: str) -> Path:
+    h = hashlib.sha256()
+    for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(nvcc.encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build(names=None) -> dict:
+    """Compile the named kernels (default: all) that are not built yet,
+    one nvcc process each, in parallel.  Returns {name: library path}."""
+    names = list(SIGNATURES if names is None else names)
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: _library_path(name, nvcc) for name in names}
+    procs = {}
+    for name, out in paths.items():
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name} (nvcc exit {proc.returncode})\n"
+                          f"{log.decode(errors='replace')}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return paths
+
+
+def load_all() -> float:
+    """Build (where needed) and load every kernel; returns the seconds it
+    took.  Later `launch` calls then find the libraries loaded."""
+    t0 = time.perf_counter()
+    with _lock:
+        missing = [n for n in SIGNATURES if n not in _loaded]
+        if missing:
+            for name, path in build(missing).items():
+                _loaded[name] = _bind(name, path)
+    return time.perf_counter() - t0
+
+
+def _bind(name: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    fn_name, argtypes = SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    lib.bl_error_string.argtypes = [ctypes.c_int]
+    lib.bl_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _library(name: str) -> ctypes.CDLL:
+    lib = _loaded.get(name)
+    if lib is None:
+        load_all()
+        lib = _loaded[name]
+    return lib
+
+
+def check_operands(name: str, *tensors) -> None:
+    """Raise unless every tensor is a contiguous int32 tensor on one CUDA
+    device: the kernels take raw pointers and check nothing themselves."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev \
+                or t.dtype != torch.int32 or not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous int32 tensors on one "
+                             f"CUDA device (got {t.dtype} on {t.device})")
+
+
+def launch(name: str, *args) -> None:
+    """Call kernel `name`'s C entry point on PyTorch's current stream and
+    raise if the launch was refused."""
+    lib = _library(name)
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = getattr(lib, SIGNATURES[name][0])(*args, stream)
+    if rc != 0:
+        msg = lib.bl_error_string(rc).decode(errors="replace")
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"error {rc} ({msg})")

@@ -1,0 +1,139 @@
+"""Solver command-line interface of the port (narrow field, one device).
+
+Flag-compatible with the JAX package's CLI for the part this port covers
+(reference: sequential/lanczos_modp.c:124-194):
+
+    lanczos-modp-torch --matrix M.mtx --prime 65537 --n 4
+                       [--output-file K.mtx] [--right | --left]
+                       [--stop-after N] [--no-checks] [--sync-every K]
+                       [--device cuda|cpu]
+
+Runs on the CUDA device by default and exits with an error when there is
+none; `--device cpu` runs the plain PyTorch versions of the kernels.
+Primes above 2^30 - 35 (the wide field), p = 2 with n % 32 == 0 (the GF(2)
+bitsliced path) and the mesh, overlap, checkpoint and salvage flags are
+refused with exit code 2: this port does not cover them yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+from block_lanczos_tpu_torch.ops.gfp import PRIME_CAP
+from block_lanczos_tpu_torch.utils import mmio
+from block_lanczos_tpu_torch.utils.verbosity import VerbosityEngine
+
+# flags of the JAX package's CLI that select paths this port does not have
+REFUSED_FLAGS = {
+    "devices": "--devices", "grid": "--grid", "overlap": "--overlap",
+    "checkpoint": "--checkpoint", "load_checkpoint": "--load-checkpoint",
+    "salvage": "--salvage", "salvage_restarts": "--salvage-restarts",
+}
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="lanczos-modp-torch",
+        description="block Lanczos kernel vectors of a sparse matrix mod p "
+                    "(PyTorch + CUDA, narrow field, one device)")
+    ap.add_argument("--matrix", required=True,
+                    help="MatrixMarket file containing the sparse matrix")
+    ap.add_argument("--prime", required=True, type=int,
+                    help="compute modulo P (P <= 2^30 - 35)")
+    ap.add_argument("--n", type=int, default=1,
+                    help="blocking factor [default 1]")
+    ap.add_argument("--output-file",
+                    help="store the block of kernel vectors")
+    ap.add_argument("--right", action="store_true",
+                    help="compute right kernel vectors")
+    ap.add_argument("--left", action="store_true",
+                    help="compute left kernel vectors [default]")
+    ap.add_argument("--stop-after", type=int, default=-1,
+                    help="stop the algorithm after N iterations")
+    ap.add_argument("--no-checks", action="store_true",
+                    help="disable per-iteration invariant checks")
+    ap.add_argument("--sync-every", type=int, default=None, metavar="K",
+                    help="iterations per host sync; default: adaptive "
+                         "doubling up to 1024")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="run on the CUDA device [default] or on the CPU "
+                         "(plain PyTorch versions of the kernels)")
+    unsupported = ap.add_argument_group(
+        "not supported by this port yet (refused with exit code 2)")
+    unsupported.add_argument("--devices", type=int, default=None)
+    unsupported.add_argument("--grid", type=int, nargs=2, default=None,
+                             metavar=("R", "C"))
+    unsupported.add_argument("--overlap", action="store_true")
+    unsupported.add_argument("--checkpoint", nargs="?", const=60.0,
+                             type=float, default=None, metavar="SECONDS")
+    unsupported.add_argument("--load-checkpoint", action="store_true")
+    unsupported.add_argument("--salvage", action="store_true")
+    unsupported.add_argument("--salvage-restarts", type=int, default=None,
+                             metavar="K")
+    return ap
+
+
+def _refusal(args) -> str | None:
+    for dest, flag in REFUSED_FLAGS.items():
+        if getattr(args, dest) not in (None, False):
+            return f"{flag} is not supported by this port yet"
+    if args.prime > PRIME_CAP:
+        return (f"p > 2**30 - 35 (got {args.prime}): the wide field is not "
+                "supported by this port yet")
+    if args.prime == 2 and args.n % 32 == 0:
+        return ("p = 2 with n % 32 == 0 selects the GF(2) bitsliced path: "
+                "not supported by this port yet")
+    return None
+
+
+def main(argv=None) -> int:
+    args = build_parser().parse_args(argv)
+    reason = _refusal(args)
+    if reason is not None:
+        print(reason, file=sys.stderr)
+        return 2
+    if args.output_file and args.stop_after > 0:
+        print("--stop-after and --output-file are mutually exclusive",
+              file=sys.stderr)
+        return 1
+    right = args.right and not args.left
+
+    from block_lanczos_tpu_torch.models.lanczos import BlockLanczos
+
+    try:
+        M = mmio.load_mtx(args.matrix, args.prime, verbose=True)
+    except (OSError, ValueError) as e:
+        print(f"cannot load matrix {args.matrix}: {e}", file=sys.stderr)
+        return 1
+    print(f"  - {M.nrows} x {M.ncols} with {M.nnz} nz", file=sys.stderr)
+
+    try:
+        solver = BlockLanczos(M, n=args.n, right=right,
+                              check_invariants=not args.no_checks,
+                              sync_every=args.sync_every, device=args.device)
+    except (RuntimeError, ValueError) as e:
+        print(e, file=sys.stderr)
+        return 1
+
+    verb = VerbosityEngine(solver.expected_iterations)
+
+    def on_iteration(slv, iteration, v, p_blk, start):
+        verb.n_iterations = max(iteration - 1, 0)
+        if iteration > 0:
+            verb.tick(start)
+
+    res = solver.solve(stop_after=args.stop_after, verbose=True,
+                       on_iteration=on_iteration)
+    print()
+    if args.output_file:
+        print(f"Saving result in {args.output_file}")
+        mmio.write_kernel_mtx(args.output_file, res.kernel, solver.n_eff,
+                              args.n)
+    else:
+        print("Not saving result (no --output given)")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,80 @@
+"""The port's Gram product against the JAX package's, bit for bit.
+
+`gram_mod` (CPU tensors: the plain version of the gram_mod kernel) is held
+against the XLA path `dense.gram_mod` and against the Pallas TPU kernel
+`pallas_gram.gram_mod_pallas`, run as a Pallas kernel on the CPU under
+`force_tpu_interpret_mode()`, at the size classes of the JAX package's own
+Pallas test (single block, multi-block, fold boundary, large a*b).
+Tolerance zero.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from block_lanczos_tpu.ops import dense as jdense
+from block_lanczos_tpu.ops.gfp import GFp as JGFp
+from block_lanczos_tpu.ops.pallas_gram import gram_mod_pallas
+from block_lanczos_tpu_torch.ops import dense as tdense
+
+P = 1073741789
+SIZES = [(100, 4, 4), (5000, 8, 4), (70_000, 8, 8), (9_000, 40, 32)]
+
+
+def _blocks(N, a, b, p, seed):
+    rng = np.random.default_rng(seed)
+    V = rng.integers(0, p, size=(N, a), dtype=np.int64)
+    W = rng.integers(0, p, size=(N, b), dtype=np.int64)
+    V[0], W[0] = p - 1, p - 1       # the largest residues
+    return V, W
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x).astype(np.int32))
+
+
+@pytest.mark.parametrize("N,a,b", SIZES)
+def test_gram_matches_xla_and_pallas(N, a, b):
+    V, W = _blocks(N, a, b, P, N + a + b)
+    f = JGFp.make(P)
+    Vj, Wj = jnp.asarray(V.astype(np.uint32)), jnp.asarray(W.astype(np.uint32))
+    xla = np.asarray(jdense.gram_mod(f, Vj, Wj))
+    with pltpu.force_tpu_interpret_mode():
+        pallas = np.asarray(gram_mod_pallas(f, Vj, Wj))
+    np.testing.assert_array_equal(pallas, xla)
+    # the port, with [V1 | V2] split as the solver's [v | Av] is
+    h = a // 2
+    got = tdense.gram_mod(_t(V[:, :h]), _t(V[:, h:]), _t(W), P)
+    assert got.dtype == torch.int32 and got.shape == (a, b)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), xla)
+    whole = tdense.gram_mod(_t(V), None, _t(W), P)
+    np.testing.assert_array_equal(whole.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("p", [2, 3, 65537])
+def test_gram_small_primes_match_xla(p):
+    V, W = _blocks(777, 8, 4, p, p)
+    f = JGFp.make(p)
+    want = np.asarray(jdense.gram_mod(f, jnp.asarray(V.astype(np.uint32)),
+                                      jnp.asarray(W.astype(np.uint32))))
+    got = tdense.gram_mod(_t(V[:, :4]), _t(V[:, 4:]), _t(W), p)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+@pytest.mark.parametrize("p", [2, P])
+def test_matmul_mod_matches_xla(p):
+    rng = np.random.default_rng(p)
+    X = rng.integers(0, p, size=(300, 8), dtype=np.int64)
+    B = rng.integers(0, p, size=(8, 8), dtype=np.int64)
+    want = np.asarray(jdense.matmul_mod(JGFp.make(p),
+                                        jnp.asarray(X.astype(np.uint32)),
+                                        jnp.asarray(B.astype(np.uint32))))
+    got = tdense.matmul_mod(_t(X), _t(B), p)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+
+
+def test_gram_rejects_ragged_blocks():
+    with pytest.raises(ValueError):
+        tdense.gram_mod(_t(np.zeros((5, 2))), None, _t(np.zeros((4, 2))), P)

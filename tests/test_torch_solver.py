@@ -1,0 +1,169 @@
+"""The port's solver against the JAX package's, bit for bit (CPU tensors,
+so the plain versions of the four kernels).
+
+  * the orthogonalize step against `orthogonalize_device`;
+  * 5 whole iterations from the same v0 against JAX `iteration_step`, all
+    ten outputs equal at every iteration;
+  * a resume through `convert.state_from_numpy` from a JAX state after 3
+    iterations, against the JAX solver continuing from the same state;
+  * the host loop's halt, stop-after and invariant-failure behaviour.
+"""
+
+import os
+from functools import partial
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from block_lanczos_tpu.models import lanczos as jl
+from block_lanczos_tpu.ops import gfp as jgfp
+from block_lanczos_tpu.utils import mmio as jmmio
+from block_lanczos_tpu_torch.convert import state_from_numpy
+from block_lanczos_tpu_torch.models import lanczos as tl
+from block_lanczos_tpu_torch.ops import semi_inverse as tsi
+from block_lanczos_tpu_torch.utils import mmio as tmmio
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+P = 1073741789
+
+
+def _golden(name, prime):
+    path = os.path.join(GOLDEN, f"{name}.mtx")
+    return jmmio.load_mtx(path, prime), tmmio.load_mtx(path, prime)
+
+
+def _np(a):
+    return np.asarray(a).astype(np.int64)
+
+
+def test_orthogonalize_matches_jax():
+    rng = np.random.default_rng(4)
+    N, n = 50, 4
+    f = jgfp.GFp.make(P)
+    v, Av, pb = (rng.integers(0, P, (N, n), dtype=np.int64) for _ in range(3))
+    B = rng.integers(0, P, (n, n - 1), dtype=np.int64)
+    vtAv = np.zeros((n, n), np.int64)
+    for k in range(n - 1):                          # rank-deficient Gram
+        vtAv = (vtAv + np.outer(B[:, k], B[:, k]) % P) % P
+    vtAAv = (vtAv * 3) % P
+    grams = torch.from_numpy(np.concatenate([vtAv, vtAAv]).astype(np.int32))
+    state = tsi.new_state("cpu")
+    si = tsi.semi_inverse(grams, P, state)
+    assert int(si.d.sum()) < n
+    u = lambda a: jnp.asarray(np.asarray(a).astype(np.uint32))  # noqa: E731
+    want_v, want_p = jl.orthogonalize_device(
+        f, u(v), u(Av), u(pb), u(si.d), u(vtAv), u(vtAAv), u(si.winv))
+    tv, tp = (torch.from_numpy(a.astype(np.int32)) for a in (v, pb))
+    tl.orthogonalize(tv, tp, torch.from_numpy(Av.astype(np.int32)), si.rhs,
+                     si.d, P, state)
+    np.testing.assert_array_equal(tv.numpy(), _np(want_v))
+    np.testing.assert_array_equal(tp.numpy(), _np(want_p))
+    assert state.tolist() == [0, 1, 1, 0]
+    # a latched stop freezes v and p, counts the probe once, then nothing
+    state[tsi.STOP] = 1
+    before = tv.clone()
+    for _ in range(3):
+        tl.orthogonalize(tv, tp, torch.from_numpy(Av.astype(np.int32)),
+                         si.rhs, si.d, P, state)
+    assert torch.equal(tv, before)
+    assert state.tolist() == [1, 1, 2, 1]
+
+
+def test_five_iterations_match_jax():
+    jM, tM = _golden("left_pbig_n4", P)
+    n = 4
+    js = jl.BlockLanczos(jM, n=n)
+    ts = tl.BlockLanczos(tM, n=n, device="cpu")
+    step = jax.jit(partial(jl.iteration_step, js.f, js.mp_rows, js.np_rows,
+                           True))
+    jv = js.initial_block()
+    jp = jnp.zeros((js.np_rows, n), jnp.uint32)
+    tv = ts.initial_block()
+    np.testing.assert_array_equal(tv.numpy(), _np(jv))
+    tp = torch.zeros((ts.np_rows, n), dtype=torch.int32)
+    state = tsi.new_state("cpu")
+    for it in range(5):
+        want = step(js.first_op, js.second_op, jv, jp)
+        got = tl.iteration_step(ts.f, ts.mp_rows, ts.np_rows, True,
+                                ts.first_op, ts.second_op, tv, tp, state)
+        assert len(got) == len(want) == 10
+        for k, (g, w) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(
+                g.numpy().astype(np.int64), _np(w),
+                err_msg=f"iteration {it}, output {k}")
+        jv, jp = want[0], want[1]
+    assert state.tolist() == [0, 1, 5, 0]
+
+
+def test_resume_from_jax_state():
+    jM, tM = _golden("left_p65537_n4", 65537)
+    n = 4
+    js = jl.BlockLanczos(jM, n=n, sync_every=1)
+    captured = {}
+
+    def grab(solver, iteration, v, p_blk, start):
+        captured.update(v=np.asarray(v), p=np.asarray(p_blk),
+                        iteration=iteration)
+
+    first = js.solve(stop_after=3, on_iteration=grab)
+    assert first.iterations == 3 and captured["iteration"] == 3
+    jax_state = {k: captured[k] for k in ("v", "p", "iteration")}
+    want = js.solve(resume_state=jax_state)
+    ts = tl.BlockLanczos(tM, n=n, device="cpu")
+    got = ts.solve(resume_state=state_from_numpy(jax_state, "cpu"))
+    assert got.iterations == want.iterations
+    assert got.v_nonzero and got.product_zero
+    np.testing.assert_array_equal(got.kernel, want.kernel)
+
+
+def test_state_from_numpy_unpermutes_rowmap():
+    v = np.arange(12, dtype=np.uint32).reshape(6, 2)
+    rowmap = np.array([2, 0, -1, 1, -1, 3])
+    st = state_from_numpy({"v": v, "p": v, "iteration": 7,
+                           "rowmap": rowmap}, "cpu")
+    assert st["iteration"] == 7 and st["v"].dtype == torch.int32
+    np.testing.assert_array_equal(st["v"].numpy(),
+                                  v[[1, 3, 0, 5]].astype(np.int32))
+
+
+def test_stop_after_and_iteration_counts():
+    _, tM = _golden("left_p65537_n4", 65537)
+    ts = tl.BlockLanczos(tM, n=4, device="cpu", sync_every=4)
+    res = ts.solve(stop_after=6)
+    assert res.iterations == 6 and res.stopped_by_limit
+    assert res.v_nonzero is None
+    full = tl.BlockLanczos(tM, n=4, device="cpu", sync_every=7).solve()
+    adaptive = tl.BlockLanczos(tM, n=4, device="cpu").solve()
+    assert full.iterations == adaptive.iterations == 20
+    np.testing.assert_array_equal(full.kernel, adaptive.kernel)
+
+
+def test_failed_invariant_raises_with_the_reference_message(monkeypatch):
+    _, tM = _golden("left_p65537_n4", 65537)
+    real = tl.gram_mod
+
+    def skewed_gram(V1, V2, W, p, out=None):
+        g = real(V1, V2, W, p, out)
+        g[-1, 0] = (g[-1, 0] + 1) % p      # vtAAv no longer symmetric
+        return g
+
+    monkeypatch.setattr(tl, "gram_mod", skewed_gram)
+    with pytest.raises(AssertionError, match="vtAAv not symmetric"):
+        tl.BlockLanczos(tM, n=4, device="cpu").solve()
+    # with the checks off the solve runs on (to whatever end)
+    tl.BlockLanczos(tM, n=4, device="cpu",
+                    check_invariants=False).solve(stop_after=3)
+
+
+def test_entry_points_need_cuda_unless_asked_for_the_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the no-CUDA refusal is not testable")
+    _, tM = _golden("left_p65537_n4", 65537)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tl.BlockLanczos(tM, n=4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tl.resolve_device("cuda")
+    assert tl.resolve_device("cpu").type == "cpu"

@@ -1,0 +1,157 @@
+"""The port's host utilities against the JAX package's copies, and the
+package's import boundary.
+
+  * xoshiro256+ stream, MatrixMarket reader/writer, generator and checker
+    give the same numbers and bytes as the JAX package's;
+  * importing every module of block_lanczos_tpu_torch pulls in neither
+    jax nor any module of block_lanczos_tpu (a subprocess guard);
+  * without nvcc the kernel build raises instead of falling back.
+"""
+
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import block_lanczos_tpu_torch
+from block_lanczos_tpu.utils import gen as jgen
+from block_lanczos_tpu.utils import mmio as jmmio
+from block_lanczos_tpu.utils import rng as jrng
+from block_lanczos_tpu_torch import kernels
+from block_lanczos_tpu_torch.utils import checker, gen, mmio, rng
+
+GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize("prime", [2, 3, 65537, 1073741789])
+def test_xoshiro_stream_matches_jax(prime):
+    a, b = rng.Xoshiro256Plus(), jrng.Xoshiro256Plus()
+    np.testing.assert_array_equal(a.fill_mod(3000, prime),
+                                  b.fill_mod(3000, prime))
+    assert a.next64() == b.next64()
+    seed = (1, 2, 3, 4)
+    np.testing.assert_array_equal(
+        rng.Xoshiro256Plus(seed).fill_mod(100, prime),
+        jrng.Xoshiro256Plus(seed).fill_mod(100, prime))
+
+
+def test_mmio_roundtrip_matches_jax(tmp_path):
+    path = str(tmp_path / "m.mtx")
+    i = np.array([0, 3, 2, 2, 4])
+    j = np.array([1, 0, 2, 3, 4])
+    x = np.array([5, -1, 1 << 31, -(1 << 31), 7])     # two's complement
+    jmmio.write_coo_mtx(path, 5, 6, i, j, x)
+    jpath = str(tmp_path / "j.mtx")
+    mmio.write_coo_mtx(jpath, 5, 6, i, j, x)
+    with open(path, "rb") as a, open(jpath, "rb") as b:
+        assert a.read() == b.read()
+    for p in (2, 65537, 1073741789):
+        got, want = mmio.load_mtx(path, p), jmmio.load_mtx(path, p)
+        assert (got.nrows, got.ncols, got.nnz) == (want.nrows, want.ncols,
+                                                   want.nnz)
+        for a, b in ((got.i, want.i), (got.j, want.j), (got.x, want.x)):
+            np.testing.assert_array_equal(a, b)
+    chunks = list(mmio.iter_mtx_triplets(path, chunk=2))
+    want_chunks = list(jmmio.iter_mtx_triplets(path, chunk=2))
+    assert len(chunks) == len(want_chunks) == 3
+    for c, w in zip(chunks, want_chunks):
+        for a, b in zip(c, w):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_kernel_writer_and_reader_match_jax(tmp_path):
+    v = np.random.default_rng(0).integers(0, 1 << 30, (37, 3)).astype(
+        np.uint32)
+    mmio.write_kernel_mtx(str(tmp_path / "a.mtx"), v, 37, 3)
+    jmmio.write_kernel_mtx(str(tmp_path / "b.mtx"), v, 37, 3)
+    assert (tmp_path / "a.mtx").read_bytes() == (tmp_path / "b.mtx").read_bytes()
+    nr, nc, data = mmio.read_array_mtx(str(tmp_path / "a.mtx"))
+    assert (nr, nc) == (37, 3)
+    np.testing.assert_array_equal(data, v.astype(np.int64))
+    for bad in ("coordinate", "real"):
+        text = (tmp_path / "a.mtx").read_text().replace(
+            "array integer" if bad == "coordinate" else "integer",
+            "coordinate integer" if bad == "coordinate" else bad, 1)
+        (tmp_path / "c.mtx").write_text(text)
+        with pytest.raises(ValueError):
+            mmio.read_array_mtx(str(tmp_path / "c.mtx"))
+
+
+def test_load_rejects_out_of_range_indices(tmp_path):
+    path = tmp_path / "bad.mtx"
+    path.write_text("%%MatrixMarket matrix coordinate integer general\n"
+                    "3 3 2\n1 1 5\n4 2 1\n")
+    with pytest.raises(ValueError, match="row index 4"):
+        mmio.load_mtx(str(path), 65537)
+
+
+def test_generator_matches_jax(tmp_path):
+    for args in ((50, 40, 5, 3), (300, 200, 15, 42)):
+        for a, b in zip(gen.random_sparse(*args), jgen.random_sparse(*args)):
+            np.testing.assert_array_equal(a, b)
+    gen.write_random_mtx(str(tmp_path / "a.mtx"), 30, 20, 4, seed=9)
+    jgen.write_random_mtx(str(tmp_path / "b.mtx"), 30, 20, 4, seed=9)
+    assert (tmp_path / "a.mtx").read_bytes() == (tmp_path / "b.mtx").read_bytes()
+
+
+def test_checker_accepts_goldens_and_rejects_garbage():
+    for name, prime, right in (("left_p65537_n4", 65537, False),
+                               ("right_pbig_n2", 1073741789, True),
+                               ("left_p2_n4", 2, False)):
+        mtx = os.path.join(GOLDEN, f"{name}.mtx")
+        kern = os.path.join(GOLDEN, f"{name}.kernel.mtx")
+        assert checker.check_kernel_file(mtx, kern, prime, right=right)
+        _, _, data = mmio.read_array_mtx(kern)
+        bad = data.astype(np.uint32)
+        bad[0, 0] = (bad[0, 0] + 1) % prime
+        with pytest.raises(checker.CheckFailure):
+            checker.check_kernel_block(mtx, bad, prime, right=right)
+        with pytest.raises(checker.CheckFailure):
+            checker.check_kernel_block(mtx, np.zeros_like(bad), prime,
+                                       right=right)
+        with pytest.raises(checker.CheckFailure):
+            checker.check_kernel_block(mtx, np.full_like(bad, prime), prime,
+                                       right=right)
+    mtx = os.path.join(GOLDEN, "left_p65537_n4.mtx")
+    kern = os.path.join(GOLDEN, "left_p65537_n4.kernel.mtx")
+    assert checker.main(["--matrix", mtx, "--kernel", kern,
+                         "--prime", "65537"]) == 0
+    assert checker.main(["--matrix", mtx, "--kernel", kern,
+                         "--prime", "65521"]) == 1
+
+
+def test_package_imports_no_jax():
+    """Every module of the port imports without JAX or the JAX package."""
+    mods = [m.name for m in pkgutil.walk_packages(
+        block_lanczos_tpu_torch.__path__, "block_lanczos_tpu_torch.")]
+    assert "block_lanczos_tpu_torch.utils.cli" in mods and len(mods) >= 15
+    code = (
+        "import importlib, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'block_lanczos_tpu' or m.startswith('block_lanczos_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("clean")
+
+
+def test_kernel_build_needs_nvcc(monkeypatch):
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is present; the missing-compiler path is not "
+                    "testable here")
+    monkeypatch.setattr(kernels, "_loaded", {})
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        kernels.load_all()
+    assert set(kernels.SIGNATURES) == {"spmv_ell", "gram_mod",
+                                       "semi_inverse", "orthogonalize"}
+    for name in kernels.SIGNATURES:
+        assert (kernels.CSRC / f"{name}.cu").exists()
