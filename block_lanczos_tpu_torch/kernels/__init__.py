@@ -10,7 +10,9 @@ The build goes into `build/kernels/` at the repository root, one nvcc
 process per source, all started together.  The file name carries a hash of
 the sources, the flags and the nvcc path, so an edited source is rebuilt
 and an unchanged one is loaded as it is.  A missing nvcc raises: nothing
-falls back to the plain PyTorch versions.
+falls back to the plain PyTorch versions.  `variant` runs a kernel built
+with other `-D` macros for a block of code; only the design measurements
+of `utils/kernel_sweeps.py` use it.
 
 Every exported function takes device pointers and the CUDA stream as
 `void*`, launches on that stream (PyTorch's current stream), does not
@@ -20,6 +22,7 @@ not 0.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -43,16 +46,16 @@ _P, _I, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 # source stem -> (exported C function, its argtypes); the stream comes last
 SIGNATURES = {
     # cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y,
-    # out_dim, out_rows, n, p, stream
+    # out_dim, out_rows, n, p, mu, stream
     "spmv_ell": ("spmv_ell", (_P, _P, _I, _L, _P, _P, _P, _P, _P,
-                              _L, _L, _I, _U, _P)),
+                              _L, _L, _I, _U, _U, _P)),
     # v1, n1, v2, n2, w, b, N, rows_per_block, nblocks, p, partial, out,
     # stream
     "gram_mod": ("gram_mod", (_P, _I, _P, _I, _P, _I, _L, _L, _I, _U,
                               _P, _P, _P)),
-    # grams, n, p, check, winv, d, npiv, rhs, state, stream
-    "semi_inverse": ("semi_inverse", (_P, _I, _U, _I, _P, _P, _P, _P, _P,
-                                      _P)),
+    # grams, n, p, mu, check, winv, d, npiv, rhs, state, stream
+    "semi_inverse": ("semi_inverse", (_P, _I, _U, _U, _I, _P, _P, _P, _P,
+                                      _P, _P)),
     # v, p_blk, av, rhs, d, N, n, p, state, stream
     "orthogonalize": ("orthogonalize", (_P, _P, _P, _P, _P, _L, _I, _U, _P,
                                         _P)),
@@ -74,29 +77,35 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def _library_path(name: str, nvcc: str) -> Path:
+def _flags(defines) -> list:
+    return [*NVCC_FLAGS, *(f"-D{k}={v}" for k, v in sorted(defines.items()))]
+
+
+def _library_path(name: str, nvcc: str, defines=None) -> Path:
     h = hashlib.sha256()
     for src in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(_flags(defines or {})).encode())
     h.update(nvcc.encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names=None) -> dict:
+def build(names=None, defines=None) -> dict:
     """Compile the named kernels (default: all) that are not built yet,
-    one nvcc process each, in parallel.  Returns {name: library path}."""
+    one nvcc process each, in parallel, with `-D<macro>=<value>` for each
+    item of `defines` (default none).  Returns {name: library path}."""
     names = list(SIGNATURES if names is None else names)
+    defines = defines or {}
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    paths = {name: _library_path(name, nvcc) for name in names}
+    paths = {name: _library_path(name, nvcc, defines) for name in names}
     procs = {}
     for name, out in paths.items():
         if out.exists():
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+        cmd = [nvcc, *_flags(defines), "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT), tmp, out)
@@ -111,6 +120,25 @@ def build(names=None) -> dict:
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
     return paths
+
+
+def ptxas_report(names=None) -> str:
+    """What ptxas says of each named kernel (default: all): registers,
+    shared memory, spills.  Compiles a cubin per source with the build's
+    target and -O3 plus `-Xptxas -v`, into BUILD_DIR, and returns the text."""
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = []
+    for name in list(SIGNATURES if names is None else names):
+        # the build's target, -std and -O3, minus -shared / -fPIC
+        cmd = [nvcc, *NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
+               "-I", str(CSRC), "-o", str(BUILD_DIR / f"{name}.cubin"),
+               str(CSRC / f"{name}.cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}:\n{res.stderr}")
+        out.append(f"--- {name}\n{res.stdout}{res.stderr}")
+    return "\n".join(out)
 
 
 def load_all() -> float:
@@ -134,6 +162,25 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
     lib.bl_error_string.argtypes = [ctypes.c_int]
     lib.bl_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@contextlib.contextmanager
+def variant(name: str, **defines):
+    """Within the block, `launch(name, ...)` runs kernel `name` as built
+    with `-D<macro>=<value>` for each keyword; the block gets the library
+    (for entry points of such a build beyond SIGNATURES)."""
+    lib = _bind(name, build([name], defines)[name])
+    with _lock:
+        saved = _loaded.get(name)
+        _loaded[name] = lib
+    try:
+        yield lib
+    finally:
+        with _lock:
+            if saved is None:
+                del _loaded[name]
+            else:
+                _loaded[name] = saved
 
 
 def _library(name: str) -> ctypes.CDLL:

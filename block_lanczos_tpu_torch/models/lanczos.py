@@ -37,7 +37,9 @@ from block_lanczos_tpu_torch.ops import spmm
 from block_lanczos_tpu_torch.ops.dense import gram_mod, matmul_mod
 from block_lanczos_tpu_torch.ops.gfp import GFp, np_matmul_mod
 from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
-                                                      MAX_N, STOP, new_state,
+                                                      MAX_N, STOP,
+                                                      empty_outputs,
+                                                      new_state,
                                                       semi_inverse)
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
@@ -166,7 +168,7 @@ def iteration_step(f: GFp, mp_rows: int, np_rows: int, check: bool,
 
     first_op:  v (Np) -> tmp (Mp)   [Mt for left kernel, M for right]
     second_op: tmp (Mp) -> Av (Np)
-    ws: optional dict of reusable buffers ("tmp", "av", "grams").
+    ws: optional dict of reusable buffers ("tmp", "av", "grams", "si").
     Returns (v, p_blk, tmp, Av, vtAv, vtAAv, winv, d, stop, inv_ok), the
     JAX package's iteration_step outputs, with stop/inv_ok the latched
     state after this iteration.
@@ -176,7 +178,7 @@ def iteration_step(f: GFp, mp_rows: int, np_rows: int, check: bool,
     tmp = spmm.spmv(first_op, v, out_rows=mp_rows, out=ws.get("tmp"))
     Av = spmm.spmv(second_op, tmp, out_rows=np_rows, out=ws.get("av"))
     grams = gram_mod(v, Av, Av, f.p, out=ws.get("grams"))
-    si = semi_inverse(grams, f.p, state, check)
+    si = semi_inverse(grams, f.p, state, check, out=ws.get("si"))
     orthogonalize(v, p_blk, Av, si.rhs, si.d, f.p, state)
     ws.update(tmp=tmp, av=Av, grams=grams, si=si)
     return (v, p_blk, tmp, Av, grams[:n], grams[n:], si.winv, si.d,
@@ -356,6 +358,7 @@ class BlockLanczos:
                                    device=self.device)
             ws["grams"] = torch.empty((2 * self.n, self.n), dtype=torch.int32,
                                       device=self.device)
+            ws["si"] = empty_outputs(self.n, self.device)
         k_seen = [0]
 
         def multi_step(k: int):

@@ -16,11 +16,13 @@ slice of the port).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
 PRIME_CAP = 0x3FFFFFDD  # 2^30 - 35, same cap as the reference
+LAZY_FOLD = 8  # csrc/modp.cuh: raw products summed between two reductions
 
 
 def _invmod_int(a: int, m: int) -> int:
@@ -54,6 +56,16 @@ class GFp:
 
     def invmod(self, a: int) -> int:
         return _invmod_int(int(a), self.p)
+
+
+@functools.lru_cache(maxsize=None)
+def barrett_mu(p: int) -> int:
+    """floor(2^64 / p): the constant that csrc/modp.cuh::barrett_reduce
+    takes with p, computed once per prime."""
+    p = int(p)
+    if not 2 <= p < 1 << 63:
+        raise ValueError(f"Barrett reduction needs 2 <= p < 2^63 (got {p})")
+    return (1 << 64) // p
 
 
 # ---------------------------------------------------------------------------
@@ -112,3 +124,86 @@ def np_matmul_mod(p: int, A, B):
     for k in range(K):  # products < 2^60; one addition then reduce: exact
         C = (C + A[..., k:k + 1] * B[k]) % np.uint64(p)
     return C.astype(np.uint32)
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of the kernels' arithmetic (csrc/modp.cuh), step for step, so the
+# CPU tests can hold it against `%` and `pow`.
+# ---------------------------------------------------------------------------
+
+_M32 = np.uint64(0xFFFFFFFF)
+_S32 = np.uint64(32)
+
+
+def umul64hi_np(a, b) -> np.ndarray:
+    """The high word of the 128-bit product of uint64 arrays (CUDA's
+    __umul64hi), from 32-bit halves; no intermediate exceeds 2^64."""
+    a, b = np.asarray(a, np.uint64), np.asarray(b, np.uint64)
+    a_lo, a_hi, b_lo, b_hi = a & _M32, a >> _S32, b & _M32, b >> _S32
+    lh, hl = a_lo * b_hi, a_hi * b_lo
+    mid = ((a_lo * b_lo) >> _S32) + (lh & _M32) + (hl & _M32)  # < 3 * 2^32
+    return a_hi * b_hi + (lh >> _S32) + (hl >> _S32) + (mid >> _S32)
+
+
+def barrett_reduce_np(x, p: int) -> np.ndarray:
+    """x mod p for uint64 x, as csrc/modp.cuh::barrett_reduce computes it:
+    q = hi(x * mu), r = x - q * p in [0, 2p), one conditional subtract."""
+    x = np.asarray(x, np.uint64)
+    P = np.uint64(p)
+    q = umul64hi_np(x, np.uint64(barrett_mu(p)))
+    r = x - q * P
+    assert (r < 2 * P).all(), "Barrett remainder out of [0, 2p)"
+    return r - P * (r >= P)
+
+
+def short_barrett(p: int) -> tuple[int, int]:
+    """(k, mu_k): the bit length of p and floor(2^(2k) / p), as
+    csrc/modp.cuh::short_barrett derives them from mu on the device."""
+    k = int(p).bit_length()
+    return k, barrett_mu(p) >> (64 - 2 * k)
+
+
+def reduce_short_np(x, p: int) -> np.ndarray:
+    """x mod p for uint64 x < 2^(2k+1), as csrc/modp.cuh::reduce_short
+    computes it: 32x32-bit multiplies, r = x - q * p in [0, 4p), two
+    conditional subtracts."""
+    x = np.asarray(x, np.uint64)
+    k, mu_k = short_barrett(p)
+    assert (x < np.uint64(1 << (2 * k + 1))).all(), "x >= 2^(2k+1)"
+    P = np.uint64(p)
+    q1 = x >> np.uint64(k - 1)
+    assert (q1 < np.uint64(1 << 32)).all()
+    q = (q1 * np.uint64(mu_k)) >> np.uint64(k + 1)
+    r = x - q * P
+    assert (r < 4 * P).all(), "short Barrett remainder out of [0, 4p)"
+    r = r - 2 * P * (r >= 2 * P)
+    return r - P * (r >= P)
+
+
+def inv_fermat_np(a, p: int) -> np.ndarray:
+    """a^(p-2) mod p for residues 0 < a < p, as csrc/modp.cuh::inv_fermat
+    computes it: right-to-left square-and-multiply on short-Barrett products
+    (p = 2: the exponent is 0 and the result 1)."""
+    base = np.asarray(a, np.uint64).copy()
+    r = np.ones_like(base)
+    e = p - 2
+    while e:
+        if e & 1:
+            r = reduce_short_np(r * base, p)
+        base = reduce_short_np(base * base, p)
+        e >>= 1
+    return r
+
+
+def lazy_dot_int(p: int, a, b) -> int:
+    """sum a[k] * b[k] mod p over residues, as the kernels sum it: raw
+    products added to a u64 accumulator that is reduced once every
+    LAZY_FOLD products and at the end.  Python ints; asserts that the
+    accumulator never leaves u64."""
+    acc = 0
+    for k, (x, y) in enumerate(zip(a, b)):
+        acc += int(x) * int(y)
+        assert acc < 1 << 64, "lazy sum left u64"
+        if k % LAZY_FOLD == LAZY_FOLD - 1:
+            acc = int(barrett_reduce_np(acc, p))
+    return int(barrett_reduce_np(acc, p))

@@ -29,7 +29,7 @@ import torch
 
 from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.ops.dense import matmul_mod
-from block_lanczos_tpu_torch.ops.gfp import GFp, modinv
+from block_lanczos_tpu_torch.ops.gfp import GFp, barrett_mu, modinv
 
 MAX_N = 64  # csrc/semi_inverse.cu SI_MAXN
 
@@ -176,28 +176,38 @@ def semi_inverse_plain(grams: torch.Tensor, p: int, state: torch.Tensor,
                        npiv.reshape(1).to(torch.int32), rhs)
 
 
+def empty_outputs(n: int, device) -> SemiInverse:
+    """Output buffers for `semi_inverse(..., out=)`."""
+    return SemiInverse(
+        torch.empty((n, n), dtype=torch.int32, device=device),
+        torch.empty(n, dtype=torch.int32, device=device),
+        torch.empty(1, dtype=torch.int32, device=device),
+        torch.empty((2 * n, 2 * n), dtype=torch.int32, device=device))
+
+
 def semi_inverse(grams: torch.Tensor, p: int, state: torch.Tensor,
-                 check: bool = True) -> SemiInverse:
+                 check: bool = True, out: SemiInverse | None = None
+                 ) -> SemiInverse:
     """(winv, d, npiv, rhs) of grams = [vtAv ; vtAAv] (2n, n), updating
     the solver state in place.  CUDA tensors launch the semi_inverse
-    kernel; CPU tensors take semi_inverse_plain."""
+    kernel; CPU tensors take semi_inverse_plain.  `out` (CUDA only) is an
+    optional preallocated result (`empty_outputs`)."""
     n = grams.shape[1]
     if grams.shape[0] != 2 * n or state.shape != (4,):
         raise ValueError("semi_inverse needs (2n, n) grams and a 4-state")
+    if out is not None and [tuple(t.shape) for t in out] != \
+            [(n, n), (n,), (1,), (2 * n, 2 * n)]:
+        raise ValueError(f"out must be semi_inverse outputs for n = {n}")
     if grams.device.type == "cpu":
         return semi_inverse_plain(grams, p, state, check)
     if n > MAX_N:
         raise ValueError(f"the semi_inverse kernel supports n <= {MAX_N} "
                          f"(got {n})")
-    kernels.check_operands("semi_inverse", grams, state)
-    dev = grams.device
-    out = SemiInverse(
-        torch.empty((n, n), dtype=torch.int32, device=dev),
-        torch.empty(n, dtype=torch.int32, device=dev),
-        torch.empty(1, dtype=torch.int32, device=dev),
-        torch.empty((2 * n, 2 * n), dtype=torch.int32, device=dev))
-    kernels.launch("semi_inverse", grams.data_ptr(), n, p, int(bool(check)),
-                   out.winv.data_ptr(), out.d.data_ptr(),
+    if out is None:
+        out = empty_outputs(n, grams.device)
+    kernels.check_operands("semi_inverse", grams, state, *out)
+    kernels.launch("semi_inverse", grams.data_ptr(), n, p, barrett_mu(p),
+                   int(bool(check)), out.winv.data_ptr(), out.d.data_ptr(),
                    out.npiv.data_ptr(), out.rhs.data_ptr(), state.data_ptr())
     semi_inverse.launches += 1
     return out

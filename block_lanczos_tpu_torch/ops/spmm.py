@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from block_lanczos_tpu_torch import kernels
-from block_lanczos_tpu_torch.ops.gfp import GFp
+from block_lanczos_tpu_torch.ops.gfp import GFp, barrett_mu
 
 
 @dataclasses.dataclass(frozen=True)
@@ -220,7 +220,7 @@ def spmv(op: HybridOp, x: torch.Tensor, out_rows: int | None = None,
                    op.ell, op.out_dim, op.rowptr.data_ptr(),
                    op.sp_cols.data_ptr(), op.sp_vals.data_ptr(),
                    x.data_ptr(), out.data_ptr(), op.out_dim, out_rows, n,
-                   op.p)
+                   op.p, barrett_mu(op.p))
     spmv.launches += 1
     return out
 

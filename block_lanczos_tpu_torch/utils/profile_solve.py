@@ -84,8 +84,10 @@ def main(argv=None) -> int:
         dev_us = getattr(evt, "device_time_total", None)
         if dev_us is None:
             dev_us = evt.cuda_time_total
-        if dev_us and evt.key.split("(")[0].endswith("_kernel"):
-            per_kernel[evt.key.split("(")[0]] = dev_us / iters / 1e3
+        # "spmv_ell_kernel(...)" or "void spmv_ell_kernel<4>(...)"
+        name = (evt.key.split("(")[0].split() or [""])[-1].split("<")[0]
+        if dev_us and name.endswith("_kernel"):
+            per_kernel[name] = per_kernel.get(name, 0.0) + dev_us / iters / 1e3
     per_launch = {}
     for name, ms in per_kernel.items():
         w = "gram_mod" if name.startswith("gram_") else name[:-len("_kernel")]

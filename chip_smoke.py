@@ -12,7 +12,11 @@ failure:
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes (the bench matrix, n = 4 and n = 32) and at edge
      shapes (p = 2 and 3, n = 1, an empty spill, one long spill row, N not a
-     multiple of the block, singular and zero Grams): exact equality, since
+     multiple of the block, singular and zero Grams; for spmv_ell the lazy
+     sums' worst case, every value and x at p - 1 on rows longer than the
+     fold in slab and spill, at every vector width n in {1, 2, 3, 4, 8, 32,
+     64} and off 16-byte alignment; for semi_inverse full rank up to n = 64,
+     n = 1, 31, 33, p = 2 and 3, a failing check): exact equality, since
      the arithmetic is exact; time each (CUDA events, median);
   3. solve the 8 narrow goldens on the card: every kernel file must be
      byte-identical to its golden;
@@ -27,7 +31,9 @@ failure:
      every kernel ran in every iteration;
   6. print the kernels JSON line, the card line, and the result line.
 
-Scratch files go to build/chip_smoke/ in the checkout.
+Scratch files go to build/chip_smoke/ in the checkout.  Design
+measurements (the kernels' shapes and layouts) are in
+block_lanczos_tpu_torch/utils/kernel_sweeps.py, not here.
 """
 
 import json
@@ -150,7 +156,7 @@ def main() -> int:
     from block_lanczos_tpu_torch.models import lanczos as L
     from block_lanczos_tpu_torch.ops import dense, spmm
     from block_lanczos_tpu_torch.ops import semi_inverse as si_mod
-    from block_lanczos_tpu_torch.ops.gfp import GFp
+    from block_lanczos_tpu_torch.ops.gfp import LAZY_FOLD, GFp
     from block_lanczos_tpu_torch.utils import checker, gen, mmio
 
     prime = gen.BENCH_PRIME
@@ -249,6 +255,27 @@ def main() -> int:
     assert op.spill_nnz == 0
     xb = rand_block(rng, 71, 3, p, dev)
     rec.agree("empty spill", spmm.spmv(op, xb, 341), spmm.spmv_plain(op, xb, 341))
+    # worst case of the lazy sums: every value and every x at p - 1, rows
+    # longer than the fold interval in the slab (forced ell 2 * fold + 3)
+    # and in the spill (up to 600 entries), at every vector width (n % 4,
+    # n % 2, odd) and with x and y off their 16-byte alignment
+    fold = LAZY_FOLD
+    i = np.concatenate([np.repeat(np.arange(300), 2 * fold + 5),
+                        np.full(600, 7), np.arange(40) * 3])
+    j = rng.integers(0, 250, i.size)
+    op = spmm.make_hybrid_op(f, i, j, np.full(i.size, p - 1), 300, 250,
+                             ell=2 * fold + 3).to(dev)
+    assert op.spill_nnz > 600 + 300
+    for n in (1, 2, 3, 4, 8, 32, 64):
+        for skew in (0, 1):
+            xf = torch.full((250 * n + skew,), p - 1, dtype=torch.int32,
+                            device=dev)
+            yf = torch.empty((307 * n + skew,), dtype=torch.int32, device=dev)
+            xb = xf[skew:].view(250, n)
+            yb = yf[skew:].view(307, n)
+            rec.agree(f"all p-1 n={n} misaligned={skew}",
+                      spmm.spmv(op, xb, 307, out=yb),
+                      spmm.spmv_plain(op, xb, 307))
     print(f"  spmv_ell: {rec.cases} cases equal", flush=True)
 
     # gram_mod
@@ -309,12 +336,18 @@ def main() -> int:
     rec.set_bound(4 * (2 * 16 + 16 + 4 + 1 + 4 * 16 + 4), 2 * 6 * 4 ** 3)
     rec.note = ("latency-bound: the 2n pivot steps run one after another in "
                 "one CTA, so neither bytes nor operations bound it; bound_ms "
-                "is their floor all the same")
+                "is their floor all the same (PERF.md gives the chain's)")
     print(f"  semi_inverse n=4: {rec.ms:.4f} ms, plain {rec.plain_ms:.4f} ms,"
           f" bound {rec.bound_ms:.6f} ms ({rec.bound_by}), library_ms: none; "
           f"{rec.note}", flush=True)
+    # edge cases: full rank up to n = 64, n = 1, 31, 33, p = 2 and 3,
+    # singular and zero Grams, a failing check; the kernel's CTA shape by n
+    # (1 to 32 warps) covers each of its barrier paths
     for pe, n, rank in ((prime, 8, 3), (2, 4, 2), (3, 4, 2), (65537, 1, 1),
-                        (prime, 32, 17), (prime, 64, 40), (3, 16, 0)):
+                        (prime, 32, 17), (prime, 64, 40), (3, 16, 0),
+                        (prime, 64, 66), (2, 64, 70), (3, 33, 35),
+                        (prime, 31, 33), (prime, 33, 20), (prime, 1, 1),
+                        (2, 1, 1), (2, 31, 0), (65537, 4, 0), (3, 8, 9)):
         U = low_rank_sym(rng, n, rank, pe)
         UA = rng.integers(0, pe, size=(n, n), dtype=np.int64)
         UA = (UA + UA.T) % pe
@@ -323,6 +356,12 @@ def main() -> int:
         got, s_k = si_case(f"p={pe} n={n} rank<={rank}", grams, pe)
         if rank == 0:
             assert int(got.npiv[0]) == 0 and int(s_k[0]) == 1, "zero Gram"
+        if rank > n and pe == prime:
+            assert int(got.npiv[0]) == n, "expected a full-rank Gram"
+    bad = grams.clone()        # the last case's Grams, p = 3, n = 8
+    bad[n, n - 1] = (bad[n, n - 1] + 1) % 3    # vtAAv no longer symmetric
+    _, s_k = si_case("p=3 n=8 failing check", bad, 3)
+    assert int(s_k[1]) == 0, "the check should fail"
     print(f"  semi_inverse: {rec.cases} cases equal", flush=True)
 
     # orthogonalize, with a singular Gram's d so the masks are exercised

@@ -5,11 +5,15 @@ package's import boundary.
     give the same numbers and bytes as the JAX package's;
   * importing every module of block_lanczos_tpu_torch pulls in neither
     jax nor any module of block_lanczos_tpu (a subprocess guard);
-  * without nvcc the kernel build raises instead of falling back.
+  * without nvcc the kernel build raises instead of falling back;
+  * a kernel built with other -D macros (the design measurements of
+    utils/kernel_sweeps.py) is a library of its own, and that tool reads
+    the semi_inverse kernel's timeline slots where the kernel writes them.
 """
 
 import os
 import pkgutil
+import re
 import shutil
 import subprocess
 import sys
@@ -155,3 +159,33 @@ def test_kernel_build_needs_nvcc(monkeypatch):
                                        "semi_inverse", "orthogonalize"}
     for name in kernels.SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").exists()
+
+
+def test_kernel_variant_builds_are_kept_apart():
+    base = kernels._library_path("spmv_ell", "nvcc")
+    assert kernels._library_path("spmv_ell", "nvcc", {}) == base
+    variants = {kernels._library_path("spmv_ell", "nvcc", {"LAZY_FOLD": k})
+                for k in (4, 16)}
+    assert len(variants | {base}) == 3
+    assert kernels._flags({"B": 1, "A": 2})[-2:] == ["-DA=2", "-DB=1"]
+    assert kernels._flags({}) == list(kernels.NVCC_FLAGS)
+
+
+def test_kernel_sweeps_timeline_slots_match_the_kernel():
+    from block_lanczos_tpu_torch.utils import kernel_sweeps as ks
+    src = (kernels.CSRC / "semi_inverse.cu").read_text()
+    names = re.search(r"enum \{(.*?)SI_T_STEP1", src, re.S).group(1)
+    names = [w.strip().removeprefix("SI_T_").lower()
+             for w in names.split(",") if w.strip()]
+    assert names == ["start", *ks.PHASES, "ns_start", "ns_end"]
+    assert [ks.T_START, ks.T_END, ks.T_NS_START, ks.T_NS_END] == [
+        names.index(k) for k in ("start", "end", "ns_start", "ns_end")]
+    assert int(re.search(r"SI_T_STEP1 = (\d+)", src).group(1)) == ks.T_STEP1
+    assert int(re.search(r"SI_T_NSUB = (\d+)", src).group(1)) == ks.T_NSUB
+    assert int(re.search(r"#define SI_MAXN (\d+)", src).group(1)) == ks.T_MAXN
+    assert "SI_T_STEP2 = SI_T_STEP1 + SI_MAXN" in src
+    assert "SI_T_SUB = SI_T_STEP2 + SI_MAXN" in src
+    assert "SI_T_SLOTS = SI_T_SUB + 5 * SI_T_NSUB" in src
+    parts = re.findall(r"SI_STAMP_PART\(j, (\d)\);", src)
+    assert [int(k) for k in parts] == list(range(len(ks.PARTS))) == [
+        0, 1, 2, 3, 4]
