@@ -5,18 +5,18 @@
 // associative, so results are bit-exact whatever the summation order,
 // thread split or block order.
 //
-// Three ways to reduce:
-//   * `mulmod`: every product reduced % p before it is summed, so a u64 sum
-//     of addends < 2^30 stays exact for up to 2^34 terms.  `%` by a runtime
-//     p is a long software sequence on the GPU (no integer divider).
-//     gram_mod.cu and orthogonalize.cu still use it.
-//   * `barrett_reduce` with the constant mu = floor(2^64 / p), which the
-//     host computes once per prime (ops/gfp.py::barrett_mu) and passes with
-//     p: one 64x64 high multiply, one multiply, one subtract and one
-//     conditional subtract, exact for EVERY u64 input.  It lets a kernel sum
-//     raw products lazily and reduce once per LAZY_FOLD of them.
+// No kernel reduces with `%`: a runtime 64-bit `%` is a long software
+// sequence on the GPU (there is no integer divider).  Two reductions, both
+// driven by the constant mu = floor(2^64 / p) that the host computes once
+// per prime (ops/gfp.py::barrett_mu) and passes with p:
+//   * `barrett_reduce`: one 64x64 high multiply, one multiply, one subtract
+//     and one conditional subtract, exact for EVERY u64 input.  It lets a
+//     kernel sum raw products lazily and reduce once per LAZY_FOLD of them
+//     (spmv_ell, gram_mod and orthogonalize on the CUDA cores), or reduce a
+//     recombined sum of tensor-core limb products once (mma_u8.cuh);
 //   * `reduce_short`, for a product of two residues or a sum of two such
-//     products: 32x32-bit multiplies only, constants derived from mu.
+//     products: 32x32-bit multiplies only, constants derived from mu
+//     (semi_inverse's dependent chains).
 // Each has a NumPy mirror in ops/gfp.py that the CPU tests hold against %.
 #pragma once
 
@@ -24,10 +24,6 @@
 
 typedef unsigned long long u64;
 typedef unsigned int u32;
-
-__device__ __forceinline__ u64 mulmod(u64 a, u64 b, u64 p) {
-  return (a * b) % p;
-}
 
 // x mod p for any u64 x, given mu = floor(2^64 / p) and 2 <= p < 2^63.
 //

@@ -49,16 +49,15 @@ SIGNATURES = {
     # out_dim, out_rows, n, p, mu, stream
     "spmv_ell": ("spmv_ell", (_P, _P, _I, _L, _P, _P, _P, _P, _P,
                               _L, _L, _I, _U, _U, _P)),
-    # v1, n1, v2, n2, w, b, N, rows_per_block, nblocks, p, partial, out,
-    # stream
-    "gram_mod": ("gram_mod", (_P, _I, _P, _I, _P, _I, _L, _L, _I, _U,
-                              _P, _P, _P)),
+    # v1, n1, v2, n2, w, b, N, p, mu, scratch, out, stream
+    "gram_mod": ("gram_mod", (_P, _I, _P, _I, _P, _I, _L, _U, _U, _P, _P,
+                              _P)),
     # grams, n, p, mu, check, winv, d, npiv, rhs, state, stream
     "semi_inverse": ("semi_inverse", (_P, _I, _U, _U, _I, _P, _P, _P, _P,
                                       _P, _P)),
-    # v, p_blk, av, rhs, d, N, n, p, state, stream
-    "orthogonalize": ("orthogonalize", (_P, _P, _P, _P, _P, _L, _I, _U, _P,
-                                        _P)),
+    # v, p_blk, av, rhs, d, N, n, p, mu, state, stream
+    "orthogonalize": ("orthogonalize", (_P, _P, _P, _P, _P, _L, _I, _U, _U,
+                                        _P, _P)),
 }
 
 _lock = threading.Lock()

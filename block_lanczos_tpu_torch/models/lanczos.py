@@ -35,7 +35,7 @@ import torch
 from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.ops import spmm
 from block_lanczos_tpu_torch.ops.dense import gram_mod, matmul_mod
-from block_lanczos_tpu_torch.ops.gfp import GFp, np_matmul_mod
+from block_lanczos_tpu_torch.ops.gfp import GFp, barrett_mu, np_matmul_mod
 from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
                                                       MAX_N, STOP,
                                                       empty_outputs,
@@ -106,6 +106,10 @@ def state_rows(state: dict, name: str) -> np.ndarray:
 # The orthogonalize kernel and its plain version
 # ---------------------------------------------------------------------------
 
+# n >= ORTHO_MMA_MIN_N runs on the tensor cores (csrc/orthogonalize.cu)
+ORTHO_MMA_MIN_N = 9
+
+
 def orthogonalize_plain(v, p_blk, Av, rhs, d, p: int, state) -> None:
     """Plain PyTorch version of the orthogonalize kernel (in place, with
     the same halt and k_done/frozen bookkeeping)."""
@@ -135,10 +139,13 @@ def orthogonalize(v, p_blk, Av, rhs, d, p: int, state) -> None:
         raise ValueError("orthogonalize: inconsistent block shapes")
     if v.device.type == "cpu":
         return orthogonalize_plain(v, p_blk, Av, rhs, d, p, state)
+    if n > MAX_N:
+        raise ValueError(f"the orthogonalize kernel supports n <= {MAX_N} "
+                         f"(got {n})")
     kernels.check_operands("orthogonalize", v, p_blk, Av, rhs, d, state)
     kernels.launch("orthogonalize", v.data_ptr(), p_blk.data_ptr(),
                    Av.data_ptr(), rhs.data_ptr(), d.data_ptr(), N, n, p,
-                   state.data_ptr())
+                   barrett_mu(p), state.data_ptr())
     orthogonalize.launches += 1
 
 

@@ -5,7 +5,11 @@ the concatenation (the solver's [v | Av]^T * Av, models/lanczos.py:137 of
 the JAX package).  It wraps the `gram_mod` CUDA kernel (csrc/gram_mod.cu),
 the port of the Pallas kernel ops/pallas_gram.py::gram_mod_pallas and of
 its XLA twin ops/dense.py::gram_mod; `gram_mod_plain` is its plain
-PyTorch version, which the wrapper takes for CPU tensors only.
+PyTorch version, which the wrapper takes for CPU tensors only.  The kernel
+is one launch: its CTAs add their partials into a u64 scratch that the
+wrapper allocates (zeroed) once per device and that the kernel leaves
+zeroed again, so a call allocates nothing unless `out` is omitted.
+Calls that share a device must run on one stream (they share the scratch).
 
 `matmul_mod` is plain PyTorch, for the n x n products of the tests and the
 plain paths.  All inputs are residues in [0, p); every product is formed in
@@ -17,10 +21,13 @@ from __future__ import annotations
 import torch
 
 from block_lanczos_tpu_torch import kernels
+from block_lanczos_tpu_torch.ops.gfp import barrett_mu
 
-_GRAM_THREADS = 256           # csrc/gram_mod.cu GRAM_THREADS
-_GRAM_MAX_OUTPUTS = 256 * 32  # GRAM_THREADS * GRAM_MAX_PER_THREAD
-_GRAM_MAX_BLOCKS = 132 * 8    # 8 CTAs per SM of an H100
+GRAM_MAX_A, GRAM_MAX_B = 128, 64  # csrc/gram_mod.cu GRAM_MAX_A, GRAM_MAX_B
+GRAM_MMA_MIN_N = 8  # csrc/gram_mod.cu: b >= it runs on the tensor cores
+# u64 words of the kernel's scratch: the (a, b) sums, then its ticket
+_GRAM_SCRATCH = GRAM_MAX_A * GRAM_MAX_B + 1
+_scratch: dict = {}
 
 
 def matmul_mod(X: torch.Tensor, B: torch.Tensor, p: int) -> torch.Tensor:
@@ -63,20 +70,21 @@ def gram_mod(V1: torch.Tensor, V2: torch.Tensor | None, W: torch.Tensor,
     n1, b = V1.shape[1], W.shape[1]
     n2 = 0 if V2 is None else V2.shape[1]
     a = n1 + n2
-    if a * b > _GRAM_MAX_OUTPUTS:
-        raise ValueError(f"gram_mod supports a*b <= {_GRAM_MAX_OUTPUTS}")
-    nblocks = max(1, min(_GRAM_MAX_BLOCKS, -(-N // 64)))
-    rows_per_block = max(1, -(-N // nblocks))
-    partial = torch.empty((nblocks, a, b), dtype=torch.int32, device=W.device)
+    if not (1 <= n1 and a <= GRAM_MAX_A and 1 <= b <= GRAM_MAX_B):
+        raise ValueError(f"gram_mod supports a <= {GRAM_MAX_A} and "
+                         f"b <= {GRAM_MAX_B} (got a = {a}, b = {b})")
     if out is None:
         out = torch.empty((a, b), dtype=torch.int32, device=W.device)
     elif out.shape != (a, b):
         raise ValueError(f"out must be ({a}, {b})")
     kernels.check_operands("gram_mod", *blocks, out)
+    scratch = _scratch.get(W.device)
+    if scratch is None:
+        scratch = _scratch[W.device] = torch.zeros(
+            _GRAM_SCRATCH, dtype=torch.int64, device=W.device)
     kernels.launch("gram_mod", V1.data_ptr(), n1,
                    0 if V2 is None else V2.data_ptr(), n2, W.data_ptr(), b,
-                   N, rows_per_block, nblocks, p, partial.data_ptr(),
-                   out.data_ptr())
+                   N, p, barrett_mu(p), scratch.data_ptr(), out.data_ptr())
     gram_mod.launches += 1
     return out
 

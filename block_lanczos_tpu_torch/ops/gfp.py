@@ -195,15 +195,112 @@ def inv_fermat_np(a, p: int) -> np.ndarray:
     return r
 
 
-def lazy_dot_int(p: int, a, b) -> int:
-    """sum a[k] * b[k] mod p over residues, as the kernels sum it: raw
-    products added to a u64 accumulator that is reduced once every
-    LAZY_FOLD products and at the end.  Python ints; asserts that the
-    accumulator never leaves u64."""
-    acc = 0
+def lazy_dot_int(p: int, a, b, base: int = 0) -> int:
+    """(base + sum a[k] * b[k]) mod p over residues, as the kernels sum it:
+    raw products added to a u64 accumulator that starts at the reduced
+    base and is reduced once every LAZY_FOLD products and at the end.
+    Python ints; asserts that the accumulator never leaves u64."""
+    assert 0 <= base < p
+    acc = base
     for k, (x, y) in enumerate(zip(a, b)):
         acc += int(x) * int(y)
         assert acc < 1 << 64, "lazy sum left u64"
         if k % LAZY_FOLD == LAZY_FOLD - 1:
             acc = int(barrett_reduce_np(acc, p))
     return int(barrett_reduce_np(acc, p))
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core paths (csrc/mma_u8.cuh): u8 limbs, s32 shift classes
+# ---------------------------------------------------------------------------
+
+MMA_FOLD_ROWS = 8192  # csrc/mma_u8.cuh: rows between two recombinations
+LIMB_CLASSES = 7      # shift classes s = i + j of four u8 limbs each
+_LIMB_MAX = 255
+
+
+def limb_weights_np(p: int) -> list:
+    """2^(8s) mod p for s = 0..6, as csrc/mma_u8.cuh::limb_weights forms
+    them: c0 = 1 mod p, then c_s = (c_{s-1} << 8) mod p by Barrett."""
+    c = [int(barrett_reduce_np(1, p))]
+    for _ in range(1, LIMB_CLASSES):
+        c.append(int(barrett_reduce_np(c[-1] << 8, p)))
+    return c
+
+
+def limb_classes_np(A, B) -> np.ndarray:
+    """The tensor cores' s32 sums of A @ B over u8 limbs: S[s] = sum over
+    i + j = s of A_i @ B_j, A_i the i-th byte of A's residues.  Returns
+    (7, M, N) int64 and asserts that every class fits s32, as the bound of
+    csrc/mma_u8.cuh (4 K 255^2 < 2^31, K <= 8256) guarantees."""
+    A, B = np.asarray(A, np.int64), np.asarray(B, np.int64)
+    assert ((A >= 0) & (A < 1 << 30)).all() and \
+        ((B >= 0) & (B < 1 << 30)).all(), "residues must be below 2^30"
+    K = A.shape[1]
+    assert 4 * K * _LIMB_MAX ** 2 < 1 << 31, "contraction too long for s32"
+    la = [(A >> (8 * i)) & 0xFF for i in range(4)]
+    lb = [(B >> (8 * j)) & 0xFF for j in range(4)]
+    S = np.zeros((LIMB_CLASSES, A.shape[0], B.shape[1]), np.int64)
+    for i in range(4):
+        for j in range(4):
+            S[i + j] += la[i] @ lb[j]
+    assert ((S >= 0) & (S < 1 << 31)).all(), "an s32 class overflowed"
+    return S
+
+
+def limb_recombine_np(S, p: int, base=None) -> np.ndarray:
+    """(base + sum_s S[s] * (2^(8s) mod p)) mod p, as
+    csrc/mma_u8.cuh::limb_recombine forms it: one u64 sum (asserted below
+    2^64 on Python ints), then one barrett_reduce."""
+    c = limb_weights_np(p)
+    x = np.zeros(S.shape[1:], object) if base is None \
+        else np.asarray(base, np.uint64).astype(object)
+    assert all(0 <= int(v) < p for v in x.flat), "base must be reduced"
+    for s in range(LIMB_CLASSES):
+        x = x + S[s].astype(object) * c[s]
+    assert all(int(v) < 1 << 64 for v in x.flat), "the u64 sum wrapped"
+    return barrett_reduce_np(x.astype(np.uint64), p)
+
+
+def limb_matmul_np(A, B, p: int, base=None) -> np.ndarray:
+    """(base + A @ B) mod p through the tensor-core arithmetic: one
+    contraction of K <= 8256 (orthogonalize: K = 2n)."""
+    return limb_recombine_np(limb_classes_np(A, B), p, base)
+
+
+def mma_gram_np(X, W, p: int, fold_rows: int = MMA_FOLD_ROWS) -> np.ndarray:
+    """X^T W mod p as the tensor-core Gram sums it over rows: shift-class
+    sums over at most fold_rows rows, recombined into a running residue."""
+    X, W = np.asarray(X), np.asarray(W)
+    acc = np.zeros((X.shape[1], W.shape[1]), np.uint64)
+    for r0 in range(0, X.shape[0], fold_rows):
+        S = limb_classes_np(X[r0:r0 + fold_rows].T, W[r0:r0 + fold_rows])
+        acc = limb_recombine_np(S, p, acc)
+    return acc
+
+
+def warp_reduce_scatter_np(vals, p: int) -> np.ndarray:
+    """The gram_mod row path's warp reduction, step for step.  vals[lane,
+    o] holds 16 values below p per lane (lane L's block is L & 1: the even
+    lanes hold V1^T W, the odd ones V2^T W).  Four shuffle steps over lanes
+    of one parity (offsets 16, 8, 4, 2) each halve the values a lane holds,
+    adding mod p with one conditional subtract (u32: both addends < p <
+    2^30); lane L ends with output L >> 1 of its block, summed over the 16
+    lanes of its parity."""
+    val = np.array(vals, np.int64)
+    assert val.shape == (32, 16) and ((val >= 0) & (val < p)).all()
+    lanes = np.arange(32)
+    off = 16
+    while off >= 2:
+        upper = (lanes & off) != 0
+        half = off >> 1
+        new = val.copy()
+        for i in range(half):
+            send = np.where(upper, val[:, i], val[:, i + half])
+            keep = np.where(upper, val[:, i + half], val[:, i])
+            s = keep + send[lanes ^ off]
+            assert (s < 1 << 32).all()
+            new[:, i] = np.where(s >= p, s - p, s)
+        val = new
+        off >>= 1
+    return val[:, 0]

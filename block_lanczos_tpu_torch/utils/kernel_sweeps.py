@@ -1,6 +1,7 @@
-"""Design measurements of the spmv_ell and semi_inverse kernels on the card.
+"""Design measurements of the four kernels on the card.
 
     python -m block_lanczos_tpu_torch.utils.kernel_sweeps
+    python -m block_lanczos_tpu_torch.utils.kernel_sweeps --kernels gram_mod
 
 What chose the two kernels' shapes, on the bench matrix (utils/gen.py's
 BENCH_* configuration, the one chip_smoke.py and profile_solve use), as
@@ -18,7 +19,14 @@ held equal to the default build's:
   * semi_inverse's timeline, built with SI_TIMELINE: thread 0's clock64()
     cycles for each phase of one launch, per pivot step, and for the parts
     of phase 2's first three steps, at the default CTA shape for n in {1,
-    4, 8, 32, 64}.  The stamps themselves add a little to the launch.
+    4, 8, 32, 64}.  The stamps themselves add a little to the launch;
+  * gram_mod ([v | Av]^T Av) and orthogonalize at n in {4, 8, 16, 32, 64}
+    as built, then built with their CTA shapes (GRAM_THREADS x
+    GRAM_ROWS_PER_THREAD, ORTHO_THREADS x ORTHO_ROWS_PER_THREAD) at n = 4,
+    with the n at which the tensor-core path takes over (GRAM_MMA_MIN_N,
+    ORTHO_MMA_MIN_N) forced to each of 4, 8, 16, 32, 64, and with the
+    shapes of EXTRA (gram_mod's rows per load round, rows per tensor-core
+    stage and stages in flight; orthogonalize's warps per tensor-core CTA).
 Each variant is an nvcc build of its own into build/kernels/ (all started
 together); the solver never runs them.  Needs a CUDA device and nvcc;
 prints one JSON line last.
@@ -40,6 +48,20 @@ THREADS = (128, 256, 512)
 WARPS = (1, 2, 4, 8, 16, 32)
 SI_NS = (1, 2, 4, 8, 16, 32, 64)
 TIMELINE_NS = (1, 4, 8, 32, 64)
+DENSE_NS = (4, 8, 16, 32, 64)
+MMA_MIN_NS = (4, 8, 16, 32, 64)
+GRAM_SHAPES = tuple((t, r) for t in (128, 256, 512) for r in (1, 4, 16))
+ORTHO_SHAPES = tuple((t, r) for t in (128, 256, 512) for r in (1, 2, 4))
+GRAM_MACROS = ("GRAM_THREADS", "GRAM_ROWS_PER_THREAD", "GRAM_MMA_MIN_N")
+ORTHO_MACROS = ("ORTHO_THREADS", "ORTHO_ROWS_PER_THREAD", "ORTHO_MMA_MIN_N")
+# (macro, values, n) beyond the CTA shape and the threshold: gram_mod's
+# rows per row-path load round, its tensor-core path's rows per stage and
+# stages in flight; orthogonalize's warps per tensor-core CTA
+EXTRA = {"gram_mod": (("GRAM_UNROLL", (2, 8), (4,)),
+                      ("GRAM_MMA_ROWS", (32, 64), (16, 32, 64)),
+                      ("GRAM_MMA_STAGES", (3, 4), (16, 32, 64))),
+         "orthogonalize": (("ORTHO_MMA_WARPS", (2, 4), (16, 32, 64)),)}
+KERNELS = ("spmv_ell", "semi_inverse", "gram_mod", "orthogonalize")
 # csrc/semi_inverse.cu's SI_TIMELINE slots
 (T_START, T_LOADED, T_PHASE1, T_P2INIT, T_PHASE2, T_WINV, T_CHECK, T_RHS,
  T_END, T_NS_START, T_NS_END) = range(11)
@@ -193,6 +215,80 @@ def semi_inverse_sweeps(grams_by_n, p, dev) -> dict:
     return {"cta_warps": cta, "timeline": timeline}
 
 
+def _dense_sweep(name, timed, shapes, macros, extra=()) -> dict:
+    """A kernel's default build at every n of DENSE_NS, its CTA shapes at
+    n = 4, the tensor-core threshold forced to each of MMA_MIN_NS, and each
+    (macro, values, ns) of `extra`; macros names (threads per CTA, rows per
+    thread, threshold)."""
+    from block_lanczos_tpu_torch import kernels
+    threads, rows, min_n = macros
+    out = {"default": {f"n={n}": timed(n) for n in DENSE_NS}, "shape_n4": {},
+           "mma_min_n": {}}
+    for macro, values, ns in extra:
+        for val in values:
+            with kernels.variant(name, **{macro: val}):
+                out[f"{macro}={val}"] = {f"n={n}": timed(n) for n in ns}
+    for t, r in shapes:
+        with kernels.variant(name, **{threads: t, rows: r}):
+            out["shape_n4"][f"threads={t} rows={r}"] = timed(4)
+    for m in MMA_MIN_NS:
+        with kernels.variant(name, **{min_n: m}):
+            out["mma_min_n"][f"min_n={m}"] = {f"n={n}": timed(n)
+                                               for n in DENSE_NS}
+    return out
+
+
+def gram_sweeps(s, rng, dev) -> dict:
+    from block_lanczos_tpu_torch.ops import dense
+    p = s.f.p
+    blocks = {n: (_rand(rng, s.np_rows, n, p, dev),
+                  _rand(rng, s.np_rows, n, p, dev)) for n in DENSE_NS}
+    want = {n: dense.gram_mod(v, av, av, p).clone()
+            for n, (v, av) in blocks.items()}
+
+    def timed(n):
+        v, av = blocks[n]
+        _equal(f"gram_mod n={n}", [dense.gram_mod(v, av, av, p)], [want[n]])
+        return device_ms(lambda: dense.gram_mod(v, av, av, p), "gram_mod")
+
+    return _dense_sweep("gram_mod", timed, GRAM_SHAPES, GRAM_MACROS,
+                        EXTRA["gram_mod"])
+
+
+def ortho_sweeps(s, rng, dev) -> dict:
+    import torch
+
+    from block_lanczos_tpu_torch.models import lanczos as L
+    from block_lanczos_tpu_torch.ops.semi_inverse import new_state
+    p = s.f.p
+    inputs = {}
+    for n in DENSE_NS:
+        rhs = torch.zeros((2 * n, 2 * n), dtype=torch.int32, device=dev)
+        rhs[:n] = _rand(rng, n, 2 * n, p, dev)
+        rhs[n:, :n] = _rand(rng, n, n, p, dev)
+        d = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+        inputs[n] = (*(_rand(rng, s.np_rows, n, p, dev) for _ in range(3)),
+                     rhs, d)
+
+    def once(n):
+        v, pb, av, rhs, d = inputs[n]
+        vk, pk, st = v.clone(), pb.clone(), new_state(dev)
+        L.orthogonalize(vk, pk, av, rhs, d, p, st)
+        return [vk, pk, st]
+
+    want = {n: once(n) for n in DENSE_NS}
+
+    def timed(n):
+        _equal(f"orthogonalize n={n}", once(n), want[n])
+        v, pb, av, rhs, d = inputs[n]
+        vk, pk, st = v.clone(), pb.clone(), new_state(dev)
+        return device_ms(lambda: L.orthogonalize(vk, pk, av, rhs, d, p, st),
+                         "orthogonalize")
+
+    return _dense_sweep("orthogonalize", timed, ORTHO_SHAPES, ORTHO_MACROS,
+                        EXTRA["orthogonalize"])
+
+
 def _timeline(st, n) -> dict:
     cycles = st[T_END] - st[T_START]
     ghz = cycles / max(st[T_NS_END] - st[T_NS_START], 1)
@@ -213,7 +309,42 @@ def _timeline(st, n) -> dict:
             "phase2_parts": parts}
 
 
-def main() -> int:
+def _variants(names) -> list:
+    """(kernel, defines) of every build the named sweeps use."""
+    out = []
+    if "spmv_ell" in names:
+        out += [("spmv_ell", {"LAZY_FOLD": f, "SPMV_THREADS": t})
+                for f in FOLDS for t in THREADS]
+    if "semi_inverse" in names:
+        out += [("semi_inverse", {"SI_WARPS": w}) for w in WARPS]
+        out += [("semi_inverse", {"SI_TIMELINE": 1})]
+    for name, macros, shapes in (("gram_mod", GRAM_MACROS, GRAM_SHAPES),
+                                 ("orthogonalize", ORTHO_MACROS,
+                                  ORTHO_SHAPES)):
+        if name in names:
+            out += [(name, {macros[0]: t, macros[1]: r}) for t, r in shapes]
+            out += [(name, {macros[2]: m}) for m in MMA_MIN_NS]
+    for name, extra in EXTRA.items():
+        if name in names:
+            out += [(name, {macro: val}) for macro, values, _ in extra
+                    for val in values]
+    return out
+
+
+def _print_dense(name, res) -> None:
+    print(f"  {name} default: " + ", ".join(
+        f"{k} {ms:.4f}" for k, ms in res["default"].items()))
+    for k, ms in res["shape_n4"].items():
+        print(f"  {name} n=4 {k}: {ms:.4f}")
+    for k, by_n in [*res["mma_min_n"].items(),
+                    *((k, v) for k, v in res.items() if "=" in k)]:
+        print(f"  {name} {k}: " + ", ".join(
+            f"{nk} {ms:.4f}" for nk, ms in by_n.items()))
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
     from block_lanczos_tpu_torch import kernels
@@ -222,15 +353,18 @@ def main() -> int:
     from block_lanczos_tpu_torch.utils import gen
     from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ", ".join(KERNELS))
+    names = ap.parse_args(argv).kernels.split(",")
+    if not set(names) <= set(KERNELS):
+        raise SystemExit(f"--kernels takes a subset of {KERNELS}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_sweeps needs a CUDA device")
     card = _card()
     dev = torch.device("cuda")
-    variants = ([("spmv_ell", {"LAZY_FOLD": f, "SPMV_THREADS": t})
-                 for f in FOLDS for t in THREADS]
-                + [("semi_inverse", {"SI_WARPS": w}) for w in WARPS]
-                + [("semi_inverse", {"SI_TIMELINE": 1})])
-    with ThreadPoolExecutor(len(variants)) as pool:
+    variants = _variants(names)
+    with ThreadPoolExecutor(max(1, len(variants))) as pool:
         list(pool.map(lambda v: kernels.build([v[0]], v[1]), variants))
     kernels.load_all()
 
@@ -242,30 +376,42 @@ def main() -> int:
     s = L.BlockLanczos(M, n=4, device=dev)
     p = s.f.p
     rng = np.random.default_rng(7)
-    grams_by_n = {}
-    for n in SI_NS:
-        if n in (4, 32):
-            v = _rand(rng, s.np_rows, n, p, dev)
-            av = spmm.spmv(s.second_op, spmm.spmv(s.first_op, v, s.mp_rows),
-                           s.np_rows)
-            grams_by_n[n] = dense.gram_mod(v, av, av, p)
-        else:
-            grams_by_n[n] = _full_rank_grams(rng, n, p, dev)
-
-    res = {"card": card, "spmv_ell": spmv_sweeps(s, M, rng, dev),
-           "semi_inverse": semi_inverse_sweeps(grams_by_n, p, dev)}
+    res = {"card": card}
     print(f"card: {card}; device ms per launch (torch.profiler, {REPS} "
           f"launches)")
-    sp = res["spmv_ell"]
-    for k, ms in sp["by_direction"].items():
-        print(f"  spmv_ell {k}: {ms:.4f}")
-    for k, lay in sp["layout"].items():
-        print(f"  spmv_ell Mt*v n=4 {k} layout (ell {lay['ell']}, spill "
-              f"{lay['spill']}): {lay['ms']:.4f}")
-    for k, by_n in sp["fold_threads"].items():
-        print(f"  spmv_ell {k}: " + ", ".join(
-            f"{nk} {ms:.4f}" for nk, ms in by_n.items()))
-    si = res["semi_inverse"]
+    if "spmv_ell" in names:
+        res["spmv_ell"] = sp = spmv_sweeps(s, M, rng, dev)
+        for k, ms in sp["by_direction"].items():
+            print(f"  spmv_ell {k}: {ms:.4f}")
+        for k, lay in sp["layout"].items():
+            print(f"  spmv_ell Mt*v n=4 {k} layout (ell {lay['ell']}, spill "
+                  f"{lay['spill']}): {lay['ms']:.4f}")
+        for k, by_n in sp["fold_threads"].items():
+            print(f"  spmv_ell {k}: " + ", ".join(
+                f"{nk} {ms:.4f}" for nk, ms in by_n.items()))
+    if "semi_inverse" in names:
+        grams_by_n = {}
+        for n in SI_NS:
+            if n in (4, 32):
+                v = _rand(rng, s.np_rows, n, p, dev)
+                av = spmm.spmv(s.second_op,
+                               spmm.spmv(s.first_op, v, s.mp_rows), s.np_rows)
+                grams_by_n[n] = dense.gram_mod(v, av, av, p)
+            else:
+                grams_by_n[n] = _full_rank_grams(rng, n, p, dev)
+        res["semi_inverse"] = si = semi_inverse_sweeps(grams_by_n, p, dev)
+        _print_semi_inverse(si)
+    if "gram_mod" in names:
+        res["gram_mod"] = gram_sweeps(s, rng, dev)
+        _print_dense("gram_mod", res["gram_mod"])
+    if "orthogonalize" in names:
+        res["orthogonalize"] = ortho_sweeps(s, rng, dev)
+        _print_dense("orthogonalize", res["orthogonalize"])
+    print(json.dumps(res))
+    return 0
+
+
+def _print_semi_inverse(si) -> None:
     for nk, by_w in si["cta_warps"].items():
         print(f"  semi_inverse {nk}: " + ", ".join(
             f"{w} {ms:.4f}" for w, ms in by_w.items()))
@@ -280,8 +426,6 @@ def main() -> int:
         for j, parts in enumerate(tl["phase2_parts"]):
             print(f"    phase 2 step {j}: " + ", ".join(
                 f"{k} {c}" for k, c in parts.items()))
-    print(json.dumps(res))
-    return 0
 
 
 if __name__ == "__main__":

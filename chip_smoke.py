@@ -16,8 +16,16 @@ failure:
      sums' worst case, every value and x at p - 1 on rows longer than the
      fold in slab and spill, at every vector width n in {1, 2, 3, 4, 8, 32,
      64} and off 16-byte alignment; for semi_inverse full rank up to n = 64,
-     n = 1, 31, 33, p = 2 and 3, a failing check): exact equality, since
-     the arithmetic is exact; time each (CUDA events, median);
+     n = 1, 31, 33, p = 2 and 3, a failing check; for gram_mod and
+     orthogonalize every n in {1, 3, 4, 8, 16, 31, 32, 33, 64}, on either
+     side of their tensor-core thresholds, every residue p - 1 (for
+     gram_mod over more than one tensor-core fold of 8192 rows a CTA),
+     N = 1 and N a multiple of no tile, misaligned views; gram_mod with V2
+     that is W, another block or None; orthogonalize with d all 0, all 1
+     and mixed under running, stopped, failed-invariant and frozen
+     states): exact equality, since the arithmetic is exact; time each
+     (CUDA events, median), and print gram_mod's and orthogonalize's
+     n = 32 times and bounds beside the card;
   3. solve the 8 narrow goldens on the card: every kernel file must be
      byte-identical to its golden;
   4. the main path at full size: generate the bench matrix (300000 x
@@ -52,6 +60,12 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
 # Integer multiply-adds run on the CUDA cores; the published table has no
 # integer rate there, so they are counted against its float32 rate.
 CORE_OPS_PER_S = 67e12
+# The tensor-core paths (n >= the kernels' threshold) do 16 u8 limb
+# products per residue product, counted against the published int8 rate.
+INT8_TC_OPS_PER_S = 1979e12
+MAIN_NS = (1, 3, 4, 8, 16, 31, 32, 33, 64)
+EDGE_ROWS = 20_011          # a multiple of no tile, CTA or fold size
+FOLD_ROWS = 2_500_003       # > 8192 rows per CTA: crosses the tensor-core fold
 TIMING_REPS = 30
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -116,14 +130,17 @@ class KernelRecord:
             row["note"] = self.note
         return row
 
-    def set_bound(self, nbytes, nops):
-        """The least time for the work: the larger of its bytes over the
-        memory rate and its operations over the core rate."""
-        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        o_ms = nops / CORE_OPS_PER_S * 1e3
-        self.bound_ms = max(b_ms, o_ms)
-        self.bound_by = "bytes" if b_ms >= o_ms else "operations"
+    def set_bound(self, nbytes, nops, ops_per_s=CORE_OPS_PER_S):
+        self.bound_ms, self.bound_by = bound(nbytes, nops, ops_per_s)
         return self.bound_ms
+
+
+def bound(nbytes, nops, ops_per_s=CORE_OPS_PER_S):
+    """The least time for the work, and what sets it: the larger of its
+    bytes over the memory rate and its operations over their peak rate."""
+    b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    o_ms = nops / ops_per_s * 1e3
+    return max(b_ms, o_ms), ("bytes" if b_ms >= o_ms else "operations")
 
 
 def rand_block(rng, rows, n, p, device):
@@ -141,6 +158,196 @@ def low_rank_sym(rng, n, rank, p):
     for k in range(rank):
         U = (U + np.outer(B[:, k], B[:, k]) % p) % p
     return U
+
+
+def skewed(t, skew=1):
+    """A copy of t whose storage starts `skew` int32 words past a 16-byte
+    boundary (so the kernels must take their scalar paths)."""
+    import torch
+    flat = torch.empty(t.numel() + skew, dtype=t.dtype, device=t.device)
+    view = flat[skew:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def full_block(rows, n, value, device):
+    import torch
+    return torch.full((rows, n), value, dtype=torch.int32, device=device)
+
+
+def gram_bound(N, n, mma):
+    """[v | Av]^T Av with V2 = W: v and Av read once, G written; N 2n n
+    multiply-adds (16 u8 limb products each on the tensor cores)."""
+    nbytes = 4 * (2 * N * n + 2 * n * n)
+    macs = N * 2 * n * n
+    return (bound(nbytes, 2 * 16 * macs, INT8_TC_OPS_PER_S) if mma
+            else bound(nbytes, 2 * macs))
+
+
+def ortho_bound(N, n, mma):
+    """v, p, Av read, v and p written, rhs and d read; 3 n^2 multiply-adds
+    per row (2n for a v' column, n for a p' column)."""
+    nbytes = 4 * (5 * N * n + 3 * n * n + n + 4)
+    macs = 3 * N * n * n
+    return (bound(nbytes, 2 * 16 * macs, INT8_TC_OPS_PER_S) if mma
+            else bound(nbytes, 2 * macs))
+
+
+def check_gram(rec, rng, p, rows, dev):
+    """gram_mod against gram_mod_plain: the main path's [v | Av]^T Av and
+    V2 != W and V2 = None at every n of MAIN_NS (on either side of the
+    tensor-core threshold), the worst case (every residue p - 1) across
+    the lazy folds and the tensor-core fold, small primes, N = 1, odd
+    shapes and misaligned views.  Times n = 4 and n = 32 at `rows` rows
+    and returns {n: (ms, plain_ms, (bound_ms, bound_by))}."""
+    from block_lanczos_tpu_torch.ops import dense
+
+    def case(what, V1, V2, W, pe):
+        rec.agree(what, dense.gram_mod(V1, V2, W, pe),
+                  dense.gram_mod_plain(V1, V2, W, pe))
+
+    timed = {}
+    for n in MAIN_NS:
+        N = rows if n in (4, 32) else EDGE_ROWS
+        v, av = rand_block(rng, N, n, p, dev), rand_block(rng, N, n, p, dev)
+        case(f"[v|Av]^T Av n={n} N={N}", v, av, av, p)
+        case(f"V2 != W n={n} N={N}", v, rand_block(rng, N, n, p, dev), av, p)
+        case(f"V2 = None n={n} N={N}", v, None, av, p)
+        if n in (4, 32):
+            ms = median_ms(lambda: dense.gram_mod(v, av, av, p))
+            plain = median_ms(lambda: dense.gram_mod_plain(v, av, av, p),
+                              reps=3)
+            timed[n] = (ms, plain,
+                        gram_bound(N, n, n >= dense.GRAM_MMA_MIN_N))
+    for n, N in ((4, EDGE_ROWS), (8, EDGE_ROWS), (16, FOLD_ROWS),
+                 (32, FOLD_ROWS)):
+        full = full_block(N, n, p - 1, dev)
+        case(f"all p-1 n={n} N={N}", full, full, full, p)
+        case(f"all p-1 V2 != W n={n} N={N}", full, full.clone(), full, p)
+        del full
+    for pe in (2, 3, 65537):
+        for n in (1, 4, 32):
+            v = rand_block(rng, EDGE_ROWS, n, pe, dev)
+            av = rand_block(rng, EDGE_ROWS, n, pe, dev)
+            case(f"p={pe} n={n}", v, av, av, pe)
+            full = full_block(EDGE_ROWS, n, pe - 1, dev)
+            case(f"all p-1 p={pe} n={n}", full, full, full, pe)
+    for n in (1, 3, 4, 32, 64):
+        v, av = rand_block(rng, 1, n, p, dev), rand_block(rng, 1, n, p, dev)
+        case(f"N=1 n={n}", v, av, av, p)
+    for n in (4, 8, 32):
+        v = skewed(rand_block(rng, EDGE_ROWS, n, p, dev))
+        av = skewed(rand_block(rng, EDGE_ROWS, n, p, dev))
+        case(f"misaligned n={n}", v, av, av, p)
+        case(f"misaligned V2 != W n={n}", v, skewed(av), av, p)
+    for N, n1, n2, b, pe in ((1, 1, 1, 1, p), (1001, 4, 4, 4, 2),
+                             (70_001, 8, 8, 8, 3), (9_001, 40, 0, 32, p),
+                             (4097, 1, 0, 1, 65537), (5003, 20, 12, 17, p),
+                             (333, 64, 64, 64, p), (777, 3, 5, 2, p),
+                             (2001, 6, 6, 6, p), (3001, 5, 0, 5, 3)):
+        V1 = rand_block(rng, N, n1, pe, dev)
+        V2 = rand_block(rng, N, n2, pe, dev) if n2 else None
+        W = rand_block(rng, N, b, pe, dev)
+        case(f"N={N} a={n1 + n2} b={b} p={pe}", V1, V2, W, pe)
+    return timed
+
+
+def check_ortho(rec, rng, p, rows, dev, si_mod, L, grams_by_n):
+    """orthogonalize against orthogonalize_plain: the main path's n = 4 and
+    32 with a real, rank-deficient semi_inverse right-hand side, running
+    and halted; every n of MAIN_NS with d all 0, all 1 and mixed, under a
+    running, halted (stop), failed-invariant and frozen state; the worst
+    case (every residue p - 1), small primes, N = 1 and misaligned views.
+    v and p rows differ, so a row written before another thread read it
+    would show.  Times n = 4 and n = 32 at `rows` rows and returns
+    {n: (ms, plain_ms, (bound_ms, bound_by))}."""
+    import torch
+
+    def case(what, v, pb, av, rhs, d, pe, state, skew=0):
+        st_k = torch.tensor(state, dtype=torch.int32, device=dev)
+        st_p = st_k.clone()
+        vk = skewed(v, skew) if skew else v.clone()
+        pk = skewed(pb, skew) if skew else pb.clone()
+        avk = skewed(av, skew) if skew else av
+        vp, pp = v.clone(), pb.clone()
+        L.orthogonalize(vk, pk, avk, rhs, d, pe, st_k)
+        L.orthogonalize_plain(vp, pp, av, rhs, d, pe, st_p)
+        rec.agree(what + " v", vk, vp)
+        rec.agree(what + " p", pk, pp)
+        rec.agree(what + " state", st_k, st_p)
+        if state[0] or not state[1]:
+            rec.agree(what + " frozen v", vk, v)
+            rec.agree(what + " frozen p", pk, pb)
+
+    def rhs_block(n, pe, value=None):
+        """[[top], [bottom-left, 0]] as semi_inverse lays it out."""
+        rhs = torch.zeros((2 * n, 2 * n), dtype=torch.int32, device=dev)
+        if value is None:
+            rhs[:n] = rand_block(rng, n, 2 * n, pe, dev)
+            rhs[n:, :n] = rand_block(rng, n, n, pe, dev)
+        else:
+            rhs[:n] = value
+            rhs[n:, :n] = value
+        return rhs
+
+    def d_of(kind, n):
+        d = {"0": np.zeros(n), "1": np.ones(n),
+             "mixed": rng.integers(0, 2, n)}[kind]
+        if kind == "mixed" and n > 1:
+            d[:2] = (0, 1)
+        return torch.from_numpy(d.astype(np.int32)).to(dev)
+
+    running, halted, inv_fail, frozen = ([0, 1, 0, 0], [1, 1, 0, 0],
+                                         [0, 0, 0, 0], [1, 1, 5, 1])
+    timed = {}
+    for n in (4, 32):
+        v, av, _ = grams_by_n[n]
+        pb = rand_block(rng, v.shape[0], n, p, dev)
+        U = low_rank_sym(rng, n, n - 1, p)
+        grams = torch.from_numpy(
+            np.concatenate([U, U]).astype(np.int32)).to(dev)
+        si = si_mod.semi_inverse(grams, p, si_mod.new_state(dev))
+        assert int(si.d.sum()) < n, "expected a rank-deficient d"
+        for state in (running, halted):
+            case(f"bench n={n} state={state}", v, pb, av, si.rhs, si.d, p,
+                 state)
+        st = si_mod.new_state(dev)
+        vk, pk = v.clone(), pb.clone()
+        ms = median_ms(
+            lambda: L.orthogonalize(vk, pk, av, si.rhs, si.d, p, st))
+        plain = median_ms(
+            lambda: L.orthogonalize_plain(vk, pk, av, si.rhs, si.d, p,
+                                          si_mod.new_state(dev)), reps=3)
+        timed[n] = (ms, plain,
+                    ortho_bound(v.shape[0], n, n >= L.ORTHO_MMA_MIN_N))
+    for n in MAIN_NS:
+        v, pb, av = (rand_block(rng, EDGE_ROWS, n, p, dev) for _ in range(3))
+        rhs = rhs_block(n, p)
+        for kind in ("0", "1", "mixed"):
+            states = (running, halted, inv_fail, frozen) \
+                if kind == "mixed" else (running,)
+            for state in states:
+                case(f"n={n} d={kind} state={state}", v, pb, av, rhs,
+                     d_of(kind, n), p, state)
+    for n in (1, 4, 8, 16, 32, 64):
+        full = full_block(EDGE_ROWS, n, p - 1, dev)
+        case(f"all p-1 n={n}", full, full, full, rhs_block(n, p, p - 1),
+             d_of("mixed", n), p, running)
+    for pe in (2, 3, 65537):
+        for n in (1, 4, 32):
+            v, pb, av = (rand_block(rng, EDGE_ROWS, n, pe, dev)
+                         for _ in range(3))
+            case(f"p={pe} n={n}", v, pb, av, rhs_block(n, pe),
+                 d_of("mixed", n), pe, running)
+    for n in (1, 3, 4, 32, 64):
+        v, pb, av = (rand_block(rng, 1, n, p, dev) for _ in range(3))
+        case(f"N=1 n={n}", v, pb, av, rhs_block(n, p), d_of("mixed", n), p,
+             running)
+    for n in (3, 4, 8, 32):
+        v, pb, av = (rand_block(rng, EDGE_ROWS, n, p, dev) for _ in range(3))
+        case(f"misaligned n={n}", v, pb, av, rhs_block(n, p),
+             d_of("mixed", n), p, running, skew=1)
+    return timed
 
 
 def main() -> int:
@@ -280,29 +487,11 @@ def main() -> int:
 
     # gram_mod
     rec = recs["gram_mod"]
-    for n in (4, 32):
-        v = rand_block(rng, solver4.np_rows, n, p, dev)
-        av = rand_block(rng, solver4.np_rows, n, p, dev)
-        rec.agree(f"[v|Av]^T Av n={n}", dense.gram_mod(v, av, av, p),
-                  dense.gram_mod_plain(v, av, av, p))
-        if n == 4:
-            rec.ms = median_ms(lambda: dense.gram_mod(v, av, av, p))
-            rec.plain_ms = median_ms(
-                lambda: dense.gram_mod_plain(v, av, av, p), reps=5)
-            rec.set_bound(4 * v.numel() + 4 * av.numel() + 4 * 2 * n * n,
-                          2 * v.shape[0] * 2 * n * n)
-            print(f"  gram_mod n=4: {rec.ms:.4f} ms, plain "
-                  f"{rec.plain_ms:.4f} ms, bound {rec.bound_ms:.4f} ms "
-                  f"({rec.bound_by}), library_ms: none", flush=True)
-    for N, n1, n2, b, pe in ((1, 1, 1, 1, prime), (1001, 4, 4, 4, 2),
-                             (70_001, 8, 8, 8, 3), (9_001, 40, 0, 32, prime),
-                             (4097, 1, 0, 1, 65537)):
-        V1 = rand_block(rng, N, n1, pe, dev)
-        V2 = rand_block(rng, N, n2, pe, dev) if n2 else None
-        W = rand_block(rng, N, b, pe, dev)
-        rec.agree(f"N={N} a={n1 + n2} b={b} p={pe}",
-                  dense.gram_mod(V1, V2, W, pe),
-                  dense.gram_mod_plain(V1, V2, W, pe))
+    gram_t = check_gram(rec, rng, p, solver4.np_rows, dev)
+    rec.ms, rec.plain_ms, (rec.bound_ms, rec.bound_by) = gram_t[4]
+    print(f"  gram_mod n=4: {rec.ms:.4f} ms, plain {rec.plain_ms:.4f} ms, "
+          f"bound {rec.bound_ms:.4f} ms ({rec.bound_by}), library_ms: none",
+          flush=True)
     print(f"  gram_mod: {rec.cases} cases equal", flush=True)
 
     # semi_inverse: real Grams from the bench iteration, singular, zero
@@ -364,44 +553,20 @@ def main() -> int:
     assert int(s_k[1]) == 0, "the check should fail"
     print(f"  semi_inverse: {rec.cases} cases equal", flush=True)
 
-    # orthogonalize, with a singular Gram's d so the masks are exercised
+    # orthogonalize
     rec = recs["orthogonalize"]
-    for n in (4, 32):
-        v, av, _ = grams_by_n[n]
-        pb = rand_block(rng, solver4.np_rows, n, p, dev)
-        U = low_rank_sym(rng, n, n - 1, p)
-        grams = torch.from_numpy(
-            np.concatenate([U, U]).astype(np.int32)).to(dev)
-        si = si_mod.semi_inverse(grams, p, si_mod.new_state(dev))
-        assert int(si.d.sum()) < n, "expected a rank-deficient d"
-        for halted in (False, True):
-            st_k = torch.tensor([int(halted), 1, 0, 0], dtype=torch.int32,
-                                device=dev)
-            st_p = st_k.clone()
-            vk, pk, vp, pp = v.clone(), pb.clone(), v.clone(), pb.clone()
-            L.orthogonalize(vk, pk, av, si.rhs, si.d, p, st_k)
-            L.orthogonalize_plain(vp, pp, av, si.rhs, si.d, p, st_p)
-            what = f"n={n} halted={halted}"
-            rec.agree(what + " v", vk, vp)
-            rec.agree(what + " p", pk, pp)
-            rec.agree(what + " state", st_k, st_p)
-            if halted:
-                rec.agree(what + " frozen v", vk, v)
-        if n == 4:
-            st = si_mod.new_state(dev)
-            vk, pk = v.clone(), pb.clone()
-            rec.ms = median_ms(
-                lambda: L.orthogonalize(vk, pk, av, si.rhs, si.d, p, st))
-            rec.plain_ms = median_ms(
-                lambda: L.orthogonalize_plain(vk, pk, av, si.rhs, si.d, p,
-                                              si_mod.new_state(dev)), reps=5)
-            # v, p, Av read, v and p written; 3 n^2 multiply-adds per row
-            rec.set_bound(4 * 5 * v.numel() + 4 * (4 * n * n + n + 4),
-                          2 * 3 * v.shape[0] * n * n)
-            print(f"  orthogonalize n=4: {rec.ms:.4f} ms, plain "
-                  f"{rec.plain_ms:.4f} ms, bound {rec.bound_ms:.4f} ms "
-                  f"({rec.bound_by}), library_ms: none", flush=True)
+    ortho_t = check_ortho(rec, rng, p, solver4.np_rows, dev, si_mod, L,
+                          grams_by_n)
+    rec.ms, rec.plain_ms, (rec.bound_ms, rec.bound_by) = ortho_t[4]
+    print(f"  orthogonalize n=4: {rec.ms:.4f} ms, plain {rec.plain_ms:.4f} "
+          f"ms, bound {rec.bound_ms:.4f} ms ({rec.bound_by}), library_ms: "
+          "none", flush=True)
     print(f"  orthogonalize: {rec.cases} cases equal", flush=True)
+    print("  n=32 (event median, bound): " + "; ".join(
+        f"{name} {t[32][0]:.4f} ms, bound {t[32][2][0]:.4f} ms "
+        f"({t[32][2][1]})" for name, t in (("gram_mod", gram_t),
+                                          ("orthogonalize", ortho_t)))
+          + f" [{card}]", flush=True)
     torch.cuda.synchronize()
 
     # ---- phase 3: goldens on the card --------------------------------------

@@ -8,6 +8,8 @@ Pallas test (single block, multi-block, fold boundary, large a*b).
 Tolerance zero.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -17,7 +19,9 @@ from jax.experimental.pallas import tpu as pltpu
 from block_lanczos_tpu.ops import dense as jdense
 from block_lanczos_tpu.ops.gfp import GFp as JGFp
 from block_lanczos_tpu.ops.pallas_gram import gram_mod_pallas
+from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.ops import dense as tdense
+from block_lanczos_tpu_torch.ops import gfp as tgfp
 
 P = 1073741789
 SIZES = [(100, 4, 4), (5000, 8, 4), (70_000, 8, 8), (9_000, 40, 32)]
@@ -78,3 +82,48 @@ def test_matmul_mod_matches_xla(p):
 def test_gram_rejects_ragged_blocks():
     with pytest.raises(ValueError):
         tdense.gram_mod(_t(np.zeros((5, 2))), None, _t(np.zeros((4, 2))), P)
+
+
+# The kernels' arithmetic, through its NumPy mirrors (ops/gfp.py), against
+# the JAX package's Gram: the tensor-core path (u8-limb shift classes,
+# recombined every fold; a short fold here so that N spans several) and the
+# row path (lazy u64 sums folded every LAZY_FOLD rows).
+MIRROR_CASES = ([(P, n) for n in (1, 3, 4, 16, 31, 32, 33, 64)]
+                + [(p, n) for p in (2, 3, 65537)
+                   for n in (4, 32)])
+
+
+@pytest.mark.parametrize("p,n", MIRROR_CASES)
+def test_gram_kernel_mirrors_match_jax(p, n):
+    N = 150
+    rng = np.random.default_rng(p % 1013 + n)
+    v = rng.integers(0, p, size=(N, n), dtype=np.int64)
+    av = rng.integers(0, p, size=(N, n), dtype=np.int64)
+    v[-1], av[-1] = p - 1, p - 1
+    X = np.concatenate([v, av], axis=1)
+    want = np.asarray(jdense.gram_mod(JGFp.make(p),
+                                      jnp.asarray(X.astype(np.uint32)),
+                                      jnp.asarray(av.astype(np.uint32))))
+    mma = tgfp.mma_gram_np(X, av, p, fold_rows=64)
+    np.testing.assert_array_equal(mma, want.astype(np.uint64))
+    got = tdense.gram_mod(_t(v), _t(av), _t(av), p)
+    np.testing.assert_array_equal(got.numpy().astype(np.uint32), want)
+    if n <= 4:   # the row path's per-thread lazy sums, one per output
+        row = np.array([[tgfp.lazy_dot_int(p, X[:, i], av[:, j])
+                         for j in range(n)] for i in range(2 * n)])
+        np.testing.assert_array_equal(row, want.astype(np.int64))
+
+
+def test_gram_worst_case_mirror_across_folds():
+    """Every residue p - 1 over more rows than one tensor-core fold."""
+    p, N = (1 << 30) - 35, tgfp.MMA_FOLD_ROWS + 77
+    X = np.full((N, 2), p - 1, np.int64)
+    got = tgfp.mma_gram_np(X, X[:, :1], p)
+    assert (got == N * (p - 1) ** 2 % p).all()
+
+
+def test_gram_kernel_constants_match_the_source():
+    src = (kernels.CSRC / "gram_mod.cu").read_text()
+    for name in ("GRAM_MAX_A", "GRAM_MAX_B", "GRAM_MMA_MIN_N"):
+        m = re.search(rf"#define {name} (\d+)", src)
+        assert m and int(m.group(1)) == getattr(tdense, name), name

@@ -15,6 +15,7 @@ import re
 import numpy as np
 import pytest
 
+from block_lanczos_tpu.ops import dense as jdense
 from block_lanczos_tpu.ops import gfp as jgfp
 from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.ops import gfp as tgfp
@@ -157,3 +158,111 @@ def test_lazy_fold_bound_and_kernel_constant():
     m = re.search(r"#define LAZY_FOLD (\d+)", src)
     assert m and int(m.group(1)) == tgfp.LAZY_FOLD
     assert tgfp.LAZY_FOLD & (tgfp.LAZY_FOLD - 1) == 0  # the kernels mask by it
+
+
+# ---------------------------------------------------------------------------
+# The tensor-core arithmetic (csrc/mma_u8.cuh): u8 limbs, s32 shift classes
+# ---------------------------------------------------------------------------
+
+MMA_NS = [1, 3, 4, 16, 31, 32, 33, 64]
+
+
+def _exact_matmul(A, B, base=None):
+    A, B = np.asarray(A).astype(object), np.asarray(B).astype(object)
+    C = A @ B
+    return C if base is None else C + np.asarray(base).astype(object)
+
+
+@pytest.mark.parametrize("p", PRIMES)
+def test_limb_weights_match_pow(p):
+    assert tgfp.limb_weights_np(p) == [pow(2, 8 * s, p) for s in range(7)]
+
+
+def test_limb_fold_interval_and_kernel_constants():
+    """4 limb pairs of 255^2 per term fit s32 for 8192 terms, not for
+    8257; the recombination of 8192 rows stays in u64; the kernels' headers
+    use the host's constants."""
+    assert 4 * tgfp.MMA_FOLD_ROWS * 255 ** 2 < 1 << 31 <= 4 * 8257 * 255 ** 2
+    assert (1 << 30) + (1 << 30) * 16 * tgfp.MMA_FOLD_ROWS * 255 ** 2 \
+        < 1 << 64
+    src = (kernels.CSRC / "mma_u8.cuh").read_text()
+    assert int(re.search(r"#define MMA_FOLD_ROWS (\d+)", src).group(1)) \
+        == tgfp.MMA_FOLD_ROWS
+    assert int(re.search(r"#define MMA_CLASSES (\d+)", src).group(1)) \
+        == tgfp.LIMB_CLASSES
+    assert "mulmod(" not in (kernels.CSRC / "modp.cuh").read_text()
+    for name in ("gram_mod", "orthogonalize"):
+        src = (kernels.CSRC / f"{name}.cu").read_text()
+        assert "barrett_reduce" in src and "mma_limb_classes" in src, name
+
+
+@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("n", MMA_NS)
+def test_limb_matmul_matches_mod_and_jax(p, n):
+    """[v | p] (N, 2n) x rhs (2n, 2n) plus a reduced base, through the
+    limb mirror, against exact integers and the JAX package's
+    dense.matmul_mod; one row and one rhs column at p - 1."""
+    rng = np.random.default_rng(p % 1009 + n)
+    A = rng.integers(0, p, (9, 2 * n), dtype=np.int64)
+    B = rng.integers(0, p, (2 * n, 2 * n), dtype=np.int64)
+    B[n:, n:] = 0
+    A[0], B[:, 0] = p - 1, p - 1
+    base = rng.integers(0, p, (9, 2 * n), dtype=np.int64)
+    got = tgfp.limb_matmul_np(A, B, p, base)
+    np.testing.assert_array_equal(got.astype(object),
+                                  _exact_matmul(A, B, base) % p)
+    want = np.asarray(jdense.matmul_mod(jgfp.GFp.make(p),
+                                        A.astype(np.uint32),
+                                        B.astype(np.uint32)))
+    np.testing.assert_array_equal(tgfp.limb_matmul_np(A, B, p),
+                                  want.astype(np.uint64))
+
+
+@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("K", [1, 32, 128, tgfp.MMA_FOLD_ROWS])
+def test_limb_worst_case(p, K):
+    """Every residue p - 1 over the longest contractions the kernels run
+    (orthogonalize K = 2n <= 128, gram_mod 8192 rows between folds)."""
+    A = np.full((2, K), p - 1, np.int64)
+    B = np.full((K, 3), p - 1, np.int64)
+    got = tgfp.limb_matmul_np(A, B, p, np.full((2, 3), p - 1))
+    want = (p - 1 + K * (p - 1) ** 2) % p
+    assert (got == want).all()
+
+
+@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("N,fold", [(1, 8), (200, 64), (257, 256),
+                                    (3 * tgfp.MMA_FOLD_ROWS + 5,
+                                     tgfp.MMA_FOLD_ROWS)])
+def test_mma_gram_mirror_across_folds(p, N, fold):
+    rng = np.random.default_rng(N + p % 101)
+    X = rng.integers(0, p, (N, 2), dtype=np.int64)
+    W = rng.integers(0, p, (N, 1), dtype=np.int64)
+    X[-1], W[-1] = p - 1, p - 1
+    got = tgfp.mma_gram_np(X, W, p, fold)
+    np.testing.assert_array_equal(got.astype(object),
+                                  _exact_matmul(X.T, W) % p)
+
+
+@pytest.mark.parametrize("p", PRIMES)
+def test_warp_reduce_scatter_lane_holds_its_output(p):
+    """Lane L ends with output L >> 1 of its parity's block, summed over
+    the 16 lanes of that parity."""
+    rng = np.random.default_rng(p % 89)
+    vals = rng.integers(0, p, (32, 16), dtype=np.int64)
+    vals[0] = p - 1
+    got = tgfp.warp_reduce_scatter_np(vals, p)
+    want = [vals[lane & 1::2, lane >> 1].sum() % p for lane in range(32)]
+    np.testing.assert_array_equal(got, want)
+    full = np.full((32, 16), p - 1, np.int64)
+    np.testing.assert_array_equal(tgfp.warp_reduce_scatter_np(full, p),
+                                  np.full(32, 16 * (p - 1) % p))
+
+
+@pytest.mark.parametrize("p", PRIMES)
+def test_lazy_sum_from_a_reduced_base(p):
+    """The CUDA-core paths start their lazy sum at the reduced base
+    (where(d, Av, v) or where(d, 0, p)), then fold as before."""
+    terms = [p - 1] * (2 * tgfp.LAZY_FOLD + 3)
+    want = (p - 1 + len(terms) * (p - 1) ** 2) % p
+    assert tgfp.lazy_dot_int(p, terms, terms, p - 1) == want

@@ -10,6 +10,7 @@ so the plain versions of the four kernels).
 """
 
 import os
+import re
 from functools import partial
 
 import jax
@@ -23,6 +24,7 @@ from block_lanczos_tpu.ops import gfp as jgfp
 from block_lanczos_tpu.utils import mmio as jmmio
 from block_lanczos_tpu_torch.convert import state_from_numpy
 from block_lanczos_tpu_torch.models import lanczos as tl
+from block_lanczos_tpu_torch.ops import gfp as tgfp
 from block_lanczos_tpu_torch.ops import semi_inverse as tsi
 from block_lanczos_tpu_torch.utils import mmio as tmmio
 
@@ -167,3 +169,64 @@ def test_entry_points_need_cuda_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tl.resolve_device("cuda")
     assert tl.resolve_device("cpu").type == "cpu"
+
+
+ORTHO_CASES = ([(P, n) for n in (1, 3, 4, 16, 31, 32, 33, 64)]
+               + [(p, n) for p in (2, 3, 65537)
+                  for n in (4, 32)])
+
+
+@pytest.mark.parametrize("p,n", ORTHO_CASES)
+def test_orthogonalize_kernel_mirrors_match_jax(p, n):
+    """The orthogonalize kernel's arithmetic, through its NumPy mirrors,
+    and the port's step (CPU: the plain version) against the JAX package's
+    orthogonalize_device: the tensor-core path ([v | p] x rhs over u8 limbs
+    from the reduced base) at every n, the row path (lazy sums from the
+    base, folded every LAZY_FOLD products) at n <= 8.  v and p rows differ;
+    d is rank-deficient; one row is all p - 1."""
+    rng = np.random.default_rng(p % 1021 + n)
+    N = 21
+    f = jgfp.GFp.make(p)
+    v, Av, pb = (rng.integers(0, p, (N, n), dtype=np.int64) for _ in range(3))
+    v[0], Av[0], pb[0] = p - 1, p - 1, p - 1
+    rank = max(n - 1, 1) if n > 1 else 0
+    B = rng.integers(0, p, (n, rank), dtype=np.int64)
+    vtAv = np.zeros((n, n), np.int64)
+    for k in range(rank):
+        vtAv = (vtAv + np.outer(B[:, k], B[:, k]) % p) % p
+    vtAAv = (vtAv * 3 + 1) % p
+    grams = torch.from_numpy(np.concatenate([vtAv, vtAAv]).astype(np.int32))
+    si = tsi.semi_inverse(grams, p, tsi.new_state("cpu"))
+    u = lambda a: jnp.asarray(np.asarray(a).astype(np.uint32))  # noqa: E731
+    want_v, want_p = (_np(w) for w in jl.orthogonalize_device(
+        f, u(v), u(Av), u(pb), u(si.d), u(vtAv), u(vtAAv), u(si.winv)))
+    d = si.d.numpy().astype(bool)
+    rhs = si.rhs.numpy().astype(np.int64)
+    assert not rhs[n:, n:].any()            # the block the kernel skips
+    base = np.concatenate([np.where(d, Av, v), np.where(d, 0, pb)], axis=1)
+    X = np.concatenate([v, pb], axis=1)
+    mma = tgfp.limb_matmul_np(X, rhs, p, base).astype(np.int64)
+    np.testing.assert_array_equal(mma[:, :n], want_v)
+    np.testing.assert_array_equal(mma[:, n:], want_p)
+    if n <= 8:
+        row = np.array([[tgfp.lazy_dot_int(p, X[r] if c < n else v[r],
+                                           rhs[:, c] if c < n else
+                                           rhs[:n, c], base[r, c])
+                         for c in range(2 * n)] for r in range(N)])
+        np.testing.assert_array_equal(row, mma)
+    tv, tp = (torch.from_numpy(a.astype(np.int32)) for a in (v, pb))
+    state = tsi.new_state("cpu")
+    tl.orthogonalize(tv, tp, torch.from_numpy(Av.astype(np.int32)), si.rhs,
+                     si.d, p, state)
+    np.testing.assert_array_equal(tv.numpy(), want_v)
+    np.testing.assert_array_equal(tp.numpy(), want_p)
+    assert state.tolist() == [0, 1, 1, 0]
+
+
+def test_orthogonalize_kernel_threshold_matches_the_source():
+    from block_lanczos_tpu_torch import kernels
+    src = (kernels.CSRC / "orthogonalize.cu").read_text()
+    m = re.search(r"#define ORTHO_MMA_MIN_N (\d+)", src)
+    assert m and int(m.group(1)) == tl.ORTHO_MMA_MIN_N
+    assert int(re.search(r"#define ORTHO_MAX_N (\d+)", src).group(1)) \
+        == tsi.MAX_N

@@ -189,3 +189,40 @@ def test_kernel_sweeps_timeline_slots_match_the_kernel():
     parts = re.findall(r"SI_STAMP_PART\(j, (\d)\);", src)
     assert [int(k) for k in parts] == list(range(len(ks.PARTS))) == [
         0, 1, 2, 3, 4]
+
+
+@pytest.mark.parametrize("key,kernel,wrapper", [
+    ("spmv_ell_kernel(int const*, ...)", "spmv_ell_kernel", "spmv_ell"),
+    ("void spmv_ell_kernel<4>(int const*, ...)", "spmv_ell_kernel",
+     "spmv_ell"),
+    ("void gram_mod_kernel<4, 4>(int const*, ...)", "gram_mod_kernel",
+     "gram_mod"),
+    ("void gram_mod_mma_kernel<true>(int const*, ...)",
+     "gram_mod_mma_kernel", "gram_mod"),
+    ("gram_mod_tiles_kernel(int const*, ...)", "gram_mod_tiles_kernel",
+     "gram_mod"),
+    ("void orthogonalize_mma_kernel<2, true>(int*, ...)",
+     "orthogonalize_mma_kernel", "orthogonalize"),
+    ("orthogonalize_smem_kernel(int*, ...)", "orthogonalize_smem_kernel",
+     "orthogonalize"),
+    ("void semi_inverse_kernel<true>(int const*, ...)",
+     "semi_inverse_kernel", "semi_inverse"),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>(int, ...)",
+     "at::native::vectorized_elementwise_kernel", None),
+])
+def test_profile_solve_maps_kernels_to_wrappers(key, kernel, wrapper):
+    from block_lanczos_tpu_torch.models import lanczos as L
+    from block_lanczos_tpu_torch.utils import profile_solve as ps
+    assert ps.kernel_name(key) == kernel
+    assert ps.wrapper_of(kernel, L.launch_counts()) == wrapper
+
+
+def test_kernel_sweeps_macros_are_the_kernels():
+    """Every -D macro the design sweeps set is one the kernel reads."""
+    from block_lanczos_tpu_torch.utils import kernel_sweeps as ks
+    for name, defines in ks._variants(ks.KERNELS):
+        src = (kernels.CSRC / f"{name}.cu").read_text() + "".join(
+            f.read_text() for f in kernels.CSRC.glob("*.cuh"))
+        for macro in defines:   # read by a preprocessor conditional
+            assert re.search(rf"^#if.*\b{macro}\b", src, re.M), \
+                (name, macro)
