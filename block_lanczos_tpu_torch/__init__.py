@@ -1,10 +1,11 @@
 """block_lanczos_tpu_torch — exact block Lanczos over GF(p) on PyTorch + CUDA.
 
 The PyTorch port of `block_lanczos_tpu`: the same solver, the same residues
-bit for bit, with the per-iteration device work done by four hand-written
-CUDA kernels for Hopper (`csrc/`).  This first slice covers the narrow
-field (p <= 2^30 - 35, including p = 2 with any n that is not a multiple
-of 32) on one device.
+bit for bit, with the per-iteration device work done by hand-written CUDA
+kernels for Hopper (`csrc/`).  It covers, on one device, the narrow field
+(p <= 2^30 - 35, including p = 2 with any n that is not a multiple of 32)
+on four kernels and the bitsliced GF(2) solver (p = 2, n % 32 == 0) on
+four more.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`device="cpu"`), where every kernel wrapper takes its plain PyTorch
@@ -15,8 +16,13 @@ Layout (each module mirrors its counterpart in the JAX package):
   ops/spmm.py          hybrid ELL + CSR-spill layout and the SpMV kernel
   ops/dense.py         the fused Gram kernel and small dense products
   ops/semi_inverse.py  the single-CTA two-phase Gauss-Jordan kernel
+  ops/gf2.py           bit packing, the GF(2) Gram and semi-inverse kernels,
+                       dedup of duplicate operator lines
   models/lanczos.py    orthogonalize kernel, iteration, solve loop
+  models/lanczos_gf2.py  the GF(2) layout, SpMV and orthogonalize kernels,
+                       BlockLanczosGF2
   kernels/             nvcc build of csrc/*.cu and the ctypes binding
   convert.py           carrying JAX-package state and layouts across
-  utils/               MatrixMarket IO, RNG, generator, checker, CLI
+  utils/               MatrixMarket IO, RNG, generator, checker, salvage,
+                       CLI
 """

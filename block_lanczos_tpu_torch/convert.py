@@ -11,7 +11,11 @@ needs nothing of the JAX package:
   * `hybrid_op_from_jax` turns the arrays of a JAX `HybridOp` built with
     delta=False into the port's HybridOp: slab values come back from the
     Montgomery form val*2^32 mod p (p = 2 is stored directly), and the
-    (out_pad, L) slab becomes the port's column-major (L, out_dim) one.
+    (out_pad, L) slab becomes the port's column-major (L, out_dim) one;
+  * the GF(2) pair: `gf2_state_from_numpy` takes the JAX BlockLanczosGF2's
+    {v, p, iteration} state of packed uint32 words and returns int32 word
+    patterns on the port's device, and `gf2_op_from_jax` turns a JAX
+    `GF2Op`'s arrays into the port's column-major GF2Op.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import numpy as np
 import torch
 
 from block_lanczos_tpu_torch.models.lanczos import state_rows
+from block_lanczos_tpu_torch.models.lanczos_gf2 import (GF2Op,
+                                                        gf2_op_from_arrays)
 from block_lanczos_tpu_torch.ops.gfp import GFp, _invmod_int
 from block_lanczos_tpu_torch.ops.spmm import HybridOp, hybrid_op_from_arrays
 
@@ -72,4 +78,40 @@ def hybrid_op_from_jax(arrays: dict, p: int) -> HybridOp:
         rowptr=rowptr.astype(np.int32),
         sp_cols=np.asarray(arrays["spill_in_idx"])[:s_nnz].astype(np.int32),
         sp_vals=_from_mont(p, np.asarray(arrays["spill_val_mont"])[:s_nnz]),
+    ), out_dim, int(arrays["in_dim"]))
+
+
+def gf2_state_from_numpy(state: dict, device) -> dict:
+    """The JAX GF(2) solver's {v, p, iteration[, rowmap]} state of packed
+    (rows, n/32) uint32 words as the port's resume state: int32 word
+    patterns on `device`, in true row order."""
+    out = {"iteration": int(state["iteration"])}
+    for name in ("v", "p"):
+        arr = np.array(state_rows(state, name), np.uint32)
+        out[name] = torch.from_numpy(arr.view(np.int32)).to(device)
+    return out
+
+
+def gf2_op_from_jax(arrays: dict) -> GF2Op:
+    """The port's GF2Op from a JAX GF2Op's NumPy arrays.
+
+    `arrays` holds the JAX op's fields: out_dim, in_dim, nnz, ell, cols
+    (out_pad, L) int32, valid (out_pad, ceil(L/32)) uint32 bit words,
+    spill_in (padded past spill_nnz), spill_rowptr (out_dim + 1) and
+    spill_nnz.  The slab and its valid words become column-major; the
+    spill keeps its entries, without the padding.
+    """
+    out_dim = int(arrays["out_dim"])
+    cols = np.asarray(arrays["cols"], np.int32)[:out_dim]
+    valid = np.asarray(arrays["valid"], np.uint32)[:out_dim]
+    s_nnz = int(arrays["spill_nnz"])
+    rowptr = np.asarray(arrays["spill_rowptr"], np.int64)
+    if rowptr.shape != (out_dim + 1,) or int(rowptr[-1]) != s_nnz:
+        raise ValueError("spill rowptr does not cover the spill entries")
+    return gf2_op_from_arrays(dict(
+        ell=int(arrays["ell"]), nnz=int(arrays["nnz"]),
+        cols=np.array(cols.T, order="C"),
+        valid=np.array(valid.T, order="C").view(np.int32),
+        rowptr=rowptr.astype(np.int32),
+        sp_cols=np.asarray(arrays["spill_in"])[:s_nnz].astype(np.int32),
     ), out_dim, int(arrays["in_dim"]))

@@ -18,6 +18,8 @@
 //     products: 32x32-bit multiplies only, constants derived from mu
 //     (semi_inverse's dependent chains).
 // Each has a NumPy mirror in ops/gfp.py that the CPU tests hold against %.
+// The GF(2) kernels include this file too (gf2.cuh), for the types, the
+// solver state's halt bookkeeping and the error text only.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -112,6 +114,20 @@ __device__ __forceinline__ u32 inv_fermat(u32 a, const ShortBarrett& s) {
     base = mulmod_b(base, base, s);
   }
   return r;
+}
+
+// The halt check and the k_done / frozen bookkeeping of the solver state
+// [stop, inv_ok, k_done, frozen], as one thread of the grid does it (the
+// narrow and the GF(2) orthogonalize kernels): thread 0 of block 0 counts
+// the iteration while the state is not frozen and freezes it on a halt;
+// true when the launch must leave v and p as they are.
+__device__ __forceinline__ bool ortho_halt(int* state) {
+  const bool halt = state[0] != 0 || state[1] == 0;
+  if (blockIdx.x == 0 && threadIdx.x == 0 && state[3] == 0) {
+    state[2] += 1;
+    if (halt) state[3] = 1;
+  }
+  return halt;  // uniform over the grid: nobody writes stop/inv_ok here
 }
 
 // Error text for the codes the C entry points return (cudaGetLastError()).

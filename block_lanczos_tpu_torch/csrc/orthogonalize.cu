@@ -78,17 +78,6 @@
 #define ORTHO_SMEM_ROWS 16
 #define ORTHO_MAX_N 64
 
-// The halt check and the k_done / frozen bookkeeping, as one thread of the
-// grid does it; true when the launch must leave v and p as they are.
-__device__ __forceinline__ bool ortho_halt(int* state) {
-  const bool halt = state[0] != 0 || state[1] == 0;
-  if (blockIdx.x == 0 && threadIdx.x == 0 && state[3] == 0) {
-    state[2] += 1;
-    if (halt) state[3] = 1;
-  }
-  return halt;  // uniform over the grid: nobody writes stop/inv_ok here
-}
-
 template <int VW>
 struct RowIO;
 template <>

@@ -1,6 +1,7 @@
 """Build and bind the hand-written CUDA kernels of `csrc/`.
 
-Each `csrc/<name>.cu` is compiled by nvcc, at first use, into its own
+Each `csrc/<name>.cu` (four narrow-field kernels on `modp.cuh`, four
+GF(2) kernels on `gf2.cuh`) is compiled by nvcc, at first use, into its own
 shared library with a plain C interface and loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -58,6 +59,19 @@ SIGNATURES = {
     # v, p_blk, av, rhs, d, N, n, p, mu, state, stream
     "orthogonalize": ("orthogonalize", (_P, _P, _P, _P, _P, _L, _I, _U, _U,
                                         _P, _P)),
+    # the bitsliced GF(2) kernels (blocks of W = n / 32 words a row)
+    # cols, valid, ell, ld, rowptr, sp_cols, x, y, out_dim, out_rows, W,
+    # stream
+    "spmv_gf2": ("spmv_gf2", (_P, _P, _I, _L, _P, _P, _P, _P, _L, _L, _I,
+                              _P)),
+    # v, av, N, W, scratch, out, stream
+    "gram_gf2": ("gram_gf2", (_P, _P, _L, _I, _P, _P, _P)),
+    # grams, n, check, winv, d, npiv, rhs, state, stream
+    "semi_inverse_gf2": ("semi_inverse_gf2", (_P, _I, _I, _P, _P, _P, _P,
+                                              _P, _P)),
+    # v, p_blk, av, rhs, d, N, W, state, stream
+    "orthogonalize_gf2": ("orthogonalize_gf2", (_P, _P, _P, _P, _P, _L, _I,
+                                                _P, _P)),
 }
 
 _lock = threading.Lock()

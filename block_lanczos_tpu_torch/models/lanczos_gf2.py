@@ -1,0 +1,416 @@
+"""Bitsliced block Lanczos over GF(2), one device: the integer-factorization
+case.
+
+The port's counterpart of the JAX package's models/lanczos_gf2.py.  A block
+of n vectors (n % 32 == 0) is (N, n/32) words (int32 bit patterns; see
+ops/gf2.py); the SpMV streams only column indices and every reduction is
+XOR.  Same recurrence, stop probe and xoshiro v0 stream as the narrow
+solver (models/lanczos.py), so iterates are bit-identical to the JAX
+package's BlockLanczosGF2 and, with dedup=False, to the generic solver at
+p = 2.
+
+One iteration is five kernel launches on the CUDA device: two `spmv_gf2`,
+one `gram_gf2`, one `semi_inverse_gf2` (with the invariant checks and the
+update's right-hand side) and one `orthogonalize_gf2`, which updates v and
+p in place.  The device keeps the latched [stop, inv_ok, k_done, frozen]
+state of ops/semi_inverse.py, so the host runs up to K iterations per sync
+(models/lanczos.py::blocked_solve_loop); once a halt is latched v and p
+stay as they were (on a stop, the pre-update block) and the rest of the
+block recomputes the same values.  Zero padding rows stay zero throughout.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+
+from block_lanczos_tpu_torch import kernels
+from block_lanczos_tpu_torch.models.lanczos import (PAD_MULTIPLE, SolveResult,
+                                                    blocked_solve_loop,
+                                                    fit_rows, pad_rows,
+                                                    resolve_device,
+                                                    state_rows)
+from block_lanczos_tpu_torch.ops import gf2
+from block_lanczos_tpu_torch.ops.gf2 import (WORD, colmask, gram_gf2,
+                                             matmul_gf2, semi_inverse_gf2)
+from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
+                                                      STOP, new_state)
+from block_lanczos_tpu_torch.ops.spmm import _check_args, build_hybrid_arrays
+from block_lanczos_tpu_torch.utils.mmio import COOMatrix
+from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
+
+
+# ---------------------------------------------------------------------------
+# Sparse operator: ELL slab of column indices + CSR spill
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GF2Op:
+    """One direction of a GF(2) operator: y (out_dim) = op * x (in_dim).
+
+    y[r] = XOR over k < ell of (bit k % 32 of valid[k // 32, r] ?
+           x[cols[k, r]] : 0)  XOR  XOR over e in rowptr[r]..rowptr[r+1]
+           of x[sp_cols[e]].
+    The slab and the valid bits are column-major ((ell, out_dim) and
+    (ceil(ell/32), out_dim)), so that neighbouring rows read neighbouring
+    addresses; padding slots hold column 0 and a clear valid bit (column 0
+    is a real row of x: only `valid` excludes them).
+    """
+    out_dim: int
+    in_dim: int
+    nnz: int
+    ell: int
+    cols: torch.Tensor     # (ell, out_dim) int32
+    valid: torch.Tensor    # (ceil(ell / 32), out_dim) int32 bit words
+    rowptr: torch.Tensor   # (out_dim + 1,) int32, spill row boundaries
+    sp_cols: torch.Tensor  # (spill_nnz,) int32
+
+    @property
+    def device(self) -> torch.device:
+        return self.cols.device
+
+    @property
+    def spill_nnz(self) -> int:
+        return int(self.sp_cols.shape[0])
+
+    def to(self, device) -> "GF2Op":
+        move = {k: getattr(self, k).to(device) for k in
+                ("cols", "valid", "rowptr", "sp_cols")}
+        return dataclasses.replace(self, **move)
+
+
+def build_gf2_arrays(out_idx, in_idx, out_dim: int, ell: int | None = None):
+    """Host construction of the slab, its valid bits and the CSR spill.
+
+    The narrow field's layout (spmm.build_hybrid_arrays) with every value 1:
+    its slab values mark the filled slots and become the valid bits.  The
+    same slab, valid bits and spill as the JAX package's build_gf2_arrays,
+    transposed to the column-major layout and without its spill padding.
+    Returns a dict of NumPy arrays (cols, valid, rowptr, sp_cols) plus ell
+    and nnz.
+    """
+    a = build_hybrid_arrays(out_idx, in_idx, np.ones(len(out_idx), np.uint32),
+                            out_dim, ell)
+    ell = a["ell"]
+    valid01 = np.zeros((-(-ell // WORD) * WORD, out_dim), np.uint32)
+    valid01[:ell] = a["vals"]
+    valid = gf2.pack_bits_np(valid01.T).T            # (vwords, out_dim)
+    return dict(ell=ell, nnz=a["nnz"], cols=a["cols"],
+                valid=np.ascontiguousarray(valid).view(np.int32),
+                rowptr=a["rowptr"], sp_cols=a["sp_cols"])
+
+
+def gf2_op_from_arrays(arrays: dict, out_dim: int, in_dim: int) -> GF2Op:
+    t = {k: torch.from_numpy(np.ascontiguousarray(arrays[k]))
+         for k in ("cols", "valid", "rowptr", "sp_cols")}
+    return GF2Op(out_dim=int(out_dim), in_dim=int(in_dim),
+                 nnz=int(arrays["nnz"]), ell=int(arrays["ell"]), **t)
+
+
+def make_gf2_op(out_idx, in_idx, out_dim: int, in_dim: int,
+                ell: int | None = None) -> GF2Op:
+    """A CPU GF2Op from COO indices of the odd entries (all equal to 1 mod
+    2); `.to(device)` moves it."""
+    return gf2_op_from_arrays(build_gf2_arrays(out_idx, in_idx, out_dim, ell),
+                              out_dim, in_dim)
+
+
+# ---------------------------------------------------------------------------
+# The spmv_gf2 kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def spmv_gf2_plain(op: GF2Op, x: torch.Tensor,
+                   out_rows: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of the spmv_gf2 kernel: the slab as masked
+    XORs slot by slot, the spill as bit counts of its rows kept mod 2;
+    (out_rows, W) words with zero rows past out_dim."""
+    out_rows = op.out_dim if out_rows is None else int(out_rows)
+    _check_args(op, x, out_rows)
+    W = x.shape[1]
+    y = torch.zeros((op.out_dim, W), dtype=torch.int32, device=x.device)
+    for k in range(op.ell):
+        mask = -((op.valid[k // WORD] >> (k % WORD)) & 1)
+        y ^= mask[:, None] & x[op.cols[k].long()]
+    if op.spill_nnz:
+        rows = torch.repeat_interleave(
+            torch.arange(op.out_dim, device=x.device),
+            (op.rowptr[1:] - op.rowptr[:-1]).long())
+        counts = torch.zeros((op.out_dim, W * WORD), dtype=torch.int32,
+                             device=x.device)
+        counts.index_add_(0, rows, gf2.unpack_bits(x[op.sp_cols.long()]))
+        y ^= gf2.pack_bits(counts & 1)
+    out = torch.zeros((out_rows, W), dtype=torch.int32, device=x.device)
+    out[:op.out_dim] = y
+    return out
+
+
+def spmv_gf2(op: GF2Op, x: torch.Tensor, out_rows: int | None = None,
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """y = op * x over GF(2); x (in_pad >= in_dim, W) words, y (out_rows, W)
+    with zero rows past out_dim.  CUDA tensors launch the spmv_gf2 kernel;
+    CPU tensors take spmv_gf2_plain.  `out` (CUDA only) is an optional
+    preallocated result buffer."""
+    out_rows = op.out_dim if out_rows is None else int(out_rows)
+    if x.device.type == "cpu":
+        return spmv_gf2_plain(op, x, out_rows)
+    _check_args(op, x, out_rows)
+    W = x.shape[1]
+    gf2.check_width(W * WORD)
+    if out is None:
+        out = torch.empty((out_rows, W), dtype=torch.int32, device=x.device)
+    elif out.shape != (out_rows, W):
+        raise ValueError(f"out must be ({out_rows}, {W})")
+    kernels.check_operands("spmv_gf2", x, out, op.cols, op.valid, op.rowptr,
+                           op.sp_cols)
+    kernels.launch("spmv_gf2", op.cols.data_ptr(), op.valid.data_ptr(),
+                   op.ell, op.out_dim, op.rowptr.data_ptr(),
+                   op.sp_cols.data_ptr(), x.data_ptr(), out.data_ptr(),
+                   op.out_dim, out_rows, W)
+    spmv_gf2.launches += 1
+    return out
+
+
+spmv_gf2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The orthogonalize_gf2 kernel and its plain version
+# ---------------------------------------------------------------------------
+
+def orthogonalize_gf2_plain(v, p_blk, Av, rhs, d, state) -> None:
+    """Plain PyTorch version of the orthogonalize_gf2 kernel (in place,
+    with the same halt and k_done / frozen bookkeeping)."""
+    W = v.shape[1]
+    halt = (state[STOP] != 0) | (state[INV_OK] == 0)
+    frozen = state[FROZEN] != 0
+    upd = matmul_gf2(torch.cat([v, p_blk], dim=1), rhs, 2 * W * WORD)
+    cm = colmask(d)[None, :]
+    v_next = ((Av & cm) | (v & ~cm)) ^ upd[:, :W]
+    p_next = (p_blk & ~cm) ^ upd[:, W:]
+    v.copy_(torch.where(halt, v, v_next))
+    p_blk.copy_(torch.where(halt, p_blk, p_next))
+    state[K_DONE] += (~frozen).to(state.dtype)
+    state[FROZEN] = (frozen | halt).to(state.dtype)
+
+
+def orthogonalize_gf2(v, p_blk, Av, rhs, d, state) -> None:
+    """v, p <- the recurrence step over GF(2), IN PLACE, unless the state
+    holds a halt:  upd = [v | p] * rhs,
+        v <- ((Av & cm) | (v & ~cm)) ^ upd[:, :W],  p <- (p & ~cm) ^ upd[:, W:]
+    with cm the column mask of d.  Counts the iteration in state[k_done]
+    while the state is not frozen and freezes it on a halt.  CUDA tensors
+    launch the orthogonalize_gf2 kernel; CPU tensors take
+    orthogonalize_gf2_plain."""
+    N, W = v.shape
+    n = W * WORD
+    if p_blk.shape != (N, W) or Av.shape != (N, W) \
+            or rhs.shape != (2 * n, 2 * W) or d.shape != (n,):
+        raise ValueError("orthogonalize_gf2: inconsistent block shapes")
+    if v.device.type == "cpu":
+        return orthogonalize_gf2_plain(v, p_blk, Av, rhs, d, state)
+    gf2.check_width(n)
+    kernels.check_operands("orthogonalize_gf2", v, p_blk, Av, rhs, d, state)
+    kernels.launch("orthogonalize_gf2", v.data_ptr(), p_blk.data_ptr(),
+                   Av.data_ptr(), rhs.data_ptr(), d.data_ptr(), N, W,
+                   state.data_ptr())
+    orthogonalize_gf2.launches += 1
+
+
+orthogonalize_gf2.launches = 0
+
+_WRAPPERS = (spmv_gf2, gram_gf2, semi_inverse_gf2, orthogonalize_gf2)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches} of the four GF(2) kernel wrappers."""
+    return {w.__name__: w.launches for w in _WRAPPERS}
+
+
+def reset_launch_counts() -> None:
+    for w in _WRAPPERS:
+        w.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# One iteration
+# ---------------------------------------------------------------------------
+
+def iteration_step(n: int, mp_rows: int, np_rows: int, check: bool,
+                   first_op: GF2Op, second_op: GF2Op, v, p_blk, state,
+                   ws=None):
+    """One full GF(2) Lanczos iteration on v's device; v and p_blk are
+    updated in place (left as they are once the state holds a halt).
+
+    ws: optional dict of reusable buffers ("tmp", "av", "grams", "si").
+    Returns (v, p_blk, tmp, Av, vtAv, vtAAv, winv, d, stop, inv_ok), the
+    JAX package's iteration_step outputs, with stop / inv_ok the latched
+    state after this iteration.
+    """
+    ws = {} if ws is None else ws
+    tmp = spmv_gf2(first_op, v, out_rows=mp_rows, out=ws.get("tmp"))
+    Av = spmv_gf2(second_op, tmp, out_rows=np_rows, out=ws.get("av"))
+    grams = gram_gf2(v, Av, out=ws.get("grams"))
+    si = semi_inverse_gf2(grams, state, check, out=ws.get("si"))
+    orthogonalize_gf2(v, p_blk, Av, si.rhs, si.d, state)
+    ws.update(tmp=tmp, av=Av, grams=grams, si=si)
+    return (v, p_blk, tmp, Av, grams[:n], grams[n:], si.winv, si.d,
+            state[STOP] != 0, state[INV_OK] != 0)
+
+
+# ---------------------------------------------------------------------------
+# Solver
+# ---------------------------------------------------------------------------
+
+class BlockLanczosGF2:
+    """Single-device bitsliced GF(2) solver; the API mirrors BlockLanczos.
+
+    Requires p == 2 and n % 32 == 0 (32 <= n <= 512 on CUDA).  Even entries
+    are dropped at construction; the rest all equal 1.  dedup (default on)
+    drops duplicate m_eff-side lines, which cancel out of A over GF(2)
+    (ops/gf2.py::dedup_lines); dedup=False keeps the reference's operator.
+    device=None runs on CUDA and raises when CUDA is absent; device="cpu"
+    runs the plain PyTorch versions of the kernels.
+    """
+
+    def __init__(self, M: COOMatrix, n: int = 32, right: bool = False,
+                 pad_multiple: int = PAD_MULTIPLE,
+                 check_invariants: bool = True, seed=None,
+                 sync_every: int | None = None, dedup: bool = True,
+                 device=None):
+        self.device = resolve_device(device)
+        if int(M.prime) != 2:
+            raise ValueError("BlockLanczosGF2 requires p == 2")
+        self.n = int(n)
+        self.W = (gf2.check_width(self.n) if self.device.type == "cuda"
+                  else gf2.words(self.n))
+        self.right = bool(right)
+        self.check_invariants = bool(check_invariants)
+        self.sync_every = sync_every
+        odd = (np.asarray(M.x) & 1) == 1
+        i, j = M.i[odd], M.j[odd]
+        if dedup:
+            i, j, nrows_eff, ncols_eff, n_dup, n_empty = gf2.dedup_lines(
+                i, j, M.nrows, M.ncols, right)
+        else:
+            nrows_eff, ncols_eff, n_dup, n_empty = (M.nrows, M.ncols, 0, 0)
+        self.dedup_dropped = (n_dup, n_empty)
+        self.nnz = len(i)
+        self.n_eff = ncols_eff if right else nrows_eff
+        self.m_eff = nrows_eff if right else ncols_eff
+        self.np_rows = pad_rows(self.n_eff, pad_multiple)
+        self.mp_rows = pad_rows(self.m_eff, pad_multiple)
+        fwd = make_gf2_op(i, j, nrows_eff, ncols_eff).to(self.device)
+        bwd = make_gf2_op(j, i, ncols_eff, nrows_eff).to(self.device)
+        self.first_op = fwd if right else bwd
+        self.second_op = bwd if right else fwd
+        self.expected_iterations = 1 + self.m_eff // self.n
+        self._rng = Xoshiro256Plus() if seed is None else Xoshiro256Plus(seed)
+
+    def initial_block(self) -> torch.Tensor:
+        """v0 bits from the same xoshiro stream: random64() % 2 per entry,
+        row-major over n_eff * n, packed and zero-padded."""
+        bits = self._rng.fill_mod(self.n_eff * self.n, 2)
+        block = np.zeros((self.np_rows, self.n), np.uint32)
+        block[:self.n_eff] = bits.reshape(self.n_eff, self.n)
+        v0 = gf2.pack_bits_np(block).view(np.int32)
+        return torch.from_numpy(v0).to(self.device)
+
+    def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
+        arr = np.asarray(fit_rows(state_rows(resume_state, name),
+                                  self.np_rows))
+        if arr.shape[1:] != (self.W,):
+            raise ValueError(f"resume block {name!r} must be (rows, {self.W}) "
+                             f"words, got {arr.shape}")
+        words32 = np.ascontiguousarray(arr).astype(np.uint32).view(np.int32)
+        return torch.from_numpy(words32).to(self.device)
+
+    def solve(self, stop_after: int = -1, verbose: bool = False,
+              on_iteration: Callable | None = None,
+              resume_state: dict | None = None) -> SolveResult:
+        """Run to convergence (or `stop_after` iterations).
+
+        `on_iteration(solver, iteration, v, p_blk, start)` fires once per
+        block of device-side iterations (adaptive, up to 1024 per block
+        under the default sync_every=None).  `resume_state` is a
+        {v, p, iteration} dict of word blocks (uint32 or int32, NumPy or
+        tensors, optionally with `rowmap`), e.g. from
+        convert.gf2_state_from_numpy.
+        """
+        n, W = self.n, self.W
+        if resume_state is None:
+            v = self.initial_block()
+            p_blk = torch.zeros((self.np_rows, W), dtype=torch.int32,
+                                device=self.device)
+            start_iter = 0
+        else:
+            v = self._resume_block(resume_state, "v")
+            p_blk = self._resume_block(resume_state, "p")
+            start_iter = int(resume_state["iteration"])
+        if verbose:
+            print("Block Lanczos [GF(2) bitsliced]")
+            if any(self.dedup_dropped):
+                nd, ne = self.dedup_dropped
+                print(f"  - GF(2) dedup: dropped {nd} duplicate + {ne} "
+                      "empty lines (operator rank restoration)")
+            print(f"  - Expecting {self.expected_iterations} iterations")
+            print("  - Main loop")
+
+        state = new_state(self.device)
+        ws = {"tmp": torch.zeros((self.mp_rows, W), dtype=torch.int32,
+                                 device=self.device)}
+        if self.device.type == "cuda":
+            kernels.load_all()
+            ws["av"] = torch.empty((self.np_rows, W), dtype=torch.int32,
+                                   device=self.device)
+            ws["grams"] = torch.empty((2 * n, W), dtype=torch.int32,
+                                      device=self.device)
+            ws["si"] = gf2.empty_outputs(n, self.device)
+        k_seen = [0]
+
+        def multi_step(k: int):
+            for _ in range(k):
+                iteration_step(n, self.mp_rows, self.np_rows,
+                               self.check_invariants, self.first_op,
+                               self.second_op, v, p_blk, state, ws)
+            stop, inv_ok, k_total, _ = state.tolist()   # the one sync
+            k_done, k_seen[0] = k_total - k_seen[0], k_total
+            return k_done, bool(stop), bool(inv_ok)
+
+        def inv_fail(iteration):
+            raise AssertionError(
+                f"device invariant check failed (GF2) at iteration "
+                f"~{iteration}")
+
+        def on_block(iteration, start):
+            on_iteration(self, iteration, v, p_blk, start)
+
+        n_iterations, stopped_by_limit, start = blocked_solve_loop(
+            multi_step, start_iter, stop_after, self.sync_every,
+            on_iteration=None if on_iteration is None else on_block,
+            inv_fail=inv_fail if self.check_invariants else None)
+        elapsed = time.time() - start
+        v_bits = gf2.unpack_bits_np(v.cpu().numpy(), n)
+        v_nonzero = product_zero = None
+        vtM = None
+        if not stopped_by_limit:
+            tmp_bits = gf2.unpack_bits_np(ws["tmp"].cpu().numpy(), n)
+            v_nonzero = bool((v_bits[:self.n_eff] != 0).any())
+            product_zero = bool((tmp_bits[:self.m_eff] == 0).all())
+            if not product_zero:
+                vtM = tmp_bits[:self.m_eff]
+            if verbose:
+                print("Final check:")
+                print(f"  - {'OK:    v != 0' if v_nonzero else 'KO:    v == 0'}")
+                print(f"  - {'OK: vt*M == 0' if product_zero else 'KO: vt*M != 0'}")
+        if verbose:
+            print(f"  - Terminated in {elapsed:.1f}s after "
+                  f"{n_iterations} iterations")
+        return SolveResult(kernel=v_bits[:self.n_eff],
+                           iterations=n_iterations,
+                           v_nonzero=v_nonzero, product_zero=product_zero,
+                           elapsed=elapsed, stopped_by_limit=stopped_by_limit,
+                           vtM=vtM)

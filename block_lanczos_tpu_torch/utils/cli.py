@@ -1,4 +1,5 @@
-"""Solver command-line interface of the port (narrow field, one device).
+"""Solver command-line interface of the port (narrow field and bitsliced
+GF(2), one device).
 
 Flag-compatible with the JAX package's CLI for the part this port covers
 (reference: sequential/lanczos_modp.c:124-194):
@@ -6,13 +7,15 @@ Flag-compatible with the JAX package's CLI for the part this port covers
     lanczos-modp-torch --matrix M.mtx --prime 65537 --n 4
                        [--output-file K.mtx] [--right | --left]
                        [--stop-after N] [--no-checks] [--sync-every K]
+                       [--salvage [--salvage-restarts K]] [--no-dedup]
                        [--device cuda|cpu]
 
-Runs on the CUDA device by default and exits with an error when there is
-none; `--device cpu` runs the plain PyTorch versions of the kernels.
-Primes above 2^30 - 35 (the wide field), p = 2 with n % 32 == 0 (the GF(2)
-bitsliced path) and the mesh, overlap, checkpoint and salvage flags are
-refused with exit code 2: this port does not cover them yet.
+p = 2 with n % 32 == 0 selects the bitsliced GF(2) solver (as in the JAX
+package's CLI), every other p <= 2^30 - 35 the narrow field.  Runs on the
+CUDA device by default and exits with an error when there is none;
+`--device cpu` runs the plain PyTorch versions of the kernels.  Primes
+above 2^30 - 35 (the wide field) and the mesh, overlap and checkpoint
+flags are refused with exit code 2: this port does not cover them yet.
 """
 
 from __future__ import annotations
@@ -28,7 +31,6 @@ from block_lanczos_tpu_torch.utils.verbosity import VerbosityEngine
 REFUSED_FLAGS = {
     "devices": "--devices", "grid": "--grid", "overlap": "--overlap",
     "checkpoint": "--checkpoint", "load_checkpoint": "--load-checkpoint",
-    "salvage": "--salvage", "salvage_restarts": "--salvage-restarts",
 }
 
 
@@ -36,7 +38,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="lanczos-modp-torch",
         description="block Lanczos kernel vectors of a sparse matrix mod p "
-                    "(PyTorch + CUDA, narrow field, one device)")
+                    "(PyTorch + CUDA, narrow field and GF(2), one device)")
     ap.add_argument("--matrix", required=True,
                     help="MatrixMarket file containing the sparse matrix")
     ap.add_argument("--prime", required=True, type=int,
@@ -56,6 +58,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--sync-every", type=int, default=None, metavar="K",
                     help="iterations per host sync; default: adaptive "
                          "doubling up to 1024")
+    ap.add_argument("--salvage", action="store_true",
+                    help="on a failed final check, extract the verified "
+                         "kernel combinations from the partial block "
+                         "(the reference just reports KO)")
+    ap.add_argument("--salvage-restarts", type=int, default=0, metavar="K",
+                    help="with --salvage: if the salvaged yield is short of "
+                         "n, re-solve up to K times with fresh random blocks "
+                         "(the xoshiro stream continues) and combine the "
+                         "exactly-independent verified vectors across runs")
+    ap.add_argument("--no-dedup", action="store_true",
+                    help="GF(2) only: keep duplicate/empty operator lines "
+                         "verbatim like the reference (default: drop "
+                         "duplicates to restore rank(A) on structured "
+                         "instances; a no-op on duplicate-free matrices)")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="run on the CUDA device [default] or on the CPU "
                          "(plain PyTorch versions of the kernels)")
@@ -68,9 +84,6 @@ def build_parser() -> argparse.ArgumentParser:
     unsupported.add_argument("--checkpoint", nargs="?", const=60.0,
                              type=float, default=None, metavar="SECONDS")
     unsupported.add_argument("--load-checkpoint", action="store_true")
-    unsupported.add_argument("--salvage", action="store_true")
-    unsupported.add_argument("--salvage-restarts", type=int, default=None,
-                             metavar="K")
     return ap
 
 
@@ -81,9 +94,6 @@ def _refusal(args) -> str | None:
     if args.prime > PRIME_CAP:
         return (f"p > 2**30 - 35 (got {args.prime}): the wide field is not "
                 "supported by this port yet")
-    if args.prime == 2 and args.n % 32 == 0:
-        return ("p = 2 with n % 32 == 0 selects the GF(2) bitsliced path: "
-                "not supported by this port yet")
     return None
 
 
@@ -99,8 +109,6 @@ def main(argv=None) -> int:
         return 1
     right = args.right and not args.left
 
-    from block_lanczos_tpu_torch.models.lanczos import BlockLanczos
-
     try:
         M = mmio.load_mtx(args.matrix, args.prime, verbose=True)
     except (OSError, ValueError) as e:
@@ -109,9 +117,23 @@ def main(argv=None) -> int:
     print(f"  - {M.nrows} x {M.ncols} with {M.nnz} nz", file=sys.stderr)
 
     try:
-        solver = BlockLanczos(M, n=args.n, right=right,
-                              check_invariants=not args.no_checks,
-                              sync_every=args.sync_every, device=args.device)
+        if args.prime == 2 and args.n % 32 == 0:
+            # the factorization case: bitsliced GF(2), 32 elements per word
+            print("  - GF(2) bitsliced path (p = 2, n % 32 == 0)",
+                  file=sys.stderr)
+            from block_lanczos_tpu_torch.models.lanczos_gf2 import \
+                BlockLanczosGF2
+            solver = BlockLanczosGF2(M, n=args.n, right=right,
+                                     check_invariants=not args.no_checks,
+                                     sync_every=args.sync_every,
+                                     dedup=not args.no_dedup,
+                                     device=args.device)
+        else:
+            from block_lanczos_tpu_torch.models.lanczos import BlockLanczos
+            solver = BlockLanczos(M, n=args.n, right=right,
+                                  check_invariants=not args.no_checks,
+                                  sync_every=args.sync_every,
+                                  device=args.device)
     except (RuntimeError, ValueError) as e:
         print(e, file=sys.stderr)
         return 1
@@ -126,10 +148,28 @@ def main(argv=None) -> int:
     res = solver.solve(stop_after=args.stop_after, verbose=True,
                        on_iteration=on_iteration)
     print()
+    kernel, n_cols = res.kernel, args.n
+    if args.salvage and res.product_zero is False and res.vtM is not None:
+        from block_lanczos_tpu_torch.utils.salvage import (
+            salvage_kernel, salvage_with_restarts)
+        if args.salvage_restarts > 0:
+            salvaged = salvage_with_restarts(
+                lambda: solver.solve(stop_after=args.stop_after,
+                                     verbose=True),
+                res, args.prime, args.n, restarts=args.salvage_restarts,
+                verbose=True)
+        else:
+            salvaged = salvage_kernel(res.kernel, res.vtM, args.prime)
+            print(f"Salvage: recovered {salvaged.shape[1]} / {args.n} "
+                  "verified kernel vectors from the partially-converged "
+                  "block")
+        if salvaged.shape[1] == 0:
+            print("Salvage found no kernel vectors", file=sys.stderr)
+            return 1
+        kernel, n_cols = salvaged, salvaged.shape[1]
     if args.output_file:
         print(f"Saving result in {args.output_file}")
-        mmio.write_kernel_mtx(args.output_file, res.kernel, solver.n_eff,
-                              args.n)
+        mmio.write_kernel_mtx(args.output_file, kernel, solver.n_eff, n_cols)
     else:
         print("Not saving result (no --output given)")
     return 0

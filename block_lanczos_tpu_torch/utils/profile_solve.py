@@ -1,12 +1,15 @@
-"""Where the time of one narrow-field iteration goes on the CUDA device.
+"""Where the time of one solver iteration goes on the CUDA device.
 
     python -m block_lanczos_tpu_torch.utils.profile_solve --n 4
     python -m block_lanczos_tpu_torch.utils.profile_solve --n 32
+    python -m block_lanczos_tpu_torch.utils.profile_solve --field gf2 \
+        --n 128 256
+    python -m block_lanczos_tpu_torch.utils.profile_solve --field gf2 \
+        --n 128 256 --matrix 3Mx2M
 
-Builds the bench matrix (utils/gen.py's BENCH_* configuration, the one
-bench.py and chip_smoke.py use), runs the solver's iteration on the card,
-and reports for a window of 4096/n iterations (1024 at n = 4, 128 at
-n = 32; the same work at every n, far from the solve's end):
+Builds the matrix, runs the solver's iteration on the card, and reports for
+a window of iterations far from the solve's end (narrow field: 4096/n, 1024
+at n = 4, 128 at n = 32; GF(2): 16384/n, 128 at n = 128, 64 at n = 256):
   * the wall time per iteration (host clock, synchronised at both ends),
     without and then with torch.profiler, and the host's issue time per
     iteration: the wall of the enqueue loop alone, taken before the sync
@@ -17,7 +20,13 @@ n = 32; the same work at every n, far from the solve's end):
     belongs to the wrapper whose name is its longest prefix);
   * the device's busy share of the profiled window (kernel time / wall) and
     hence its idle share, which is the host's launch overhead.
-Needs a CUDA device; prints one JSON line last.
+Matrices: `bench` is utils/gen.py's BENCH_* configuration (the one bench.py
+and chip_smoke.py use), mod BENCH_PRIME for the narrow field and mod 2 for
+GF(2); `3Mx2M` is the JAX bench's factorization-scale GF(2) instance
+(random_sparse(3000000, 2000000, 17, seed=42) mod 2, 51M entries before the
+reduction), generated in memory (about 8 s of NumPy on the H100's host)
+and shared by the widths of one call.  Every window starts from the solver's own xoshiro
+v0.  Needs a CUDA device; prints one JSON line per width, the last last.
 """
 
 from __future__ import annotations
@@ -52,29 +61,44 @@ def wrapper_of(kernel: str, wrappers) -> str | None:
                default=None)
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--n", type=int, default=4)
-    args = ap.parse_args(argv)
-    iters = 4096 // args.n
+def _matrix(name: str, prime: int):
+    from block_lanczos_tpu_torch.utils import gen
+    from block_lanczos_tpu_torch.utils.mmio import COOMatrix
+    dims = {"bench": (gen.BENCH_NROWS, gen.BENCH_NCOLS, gen.BENCH_DENSITY,
+                      gen.BENCH_SEED),
+            "3Mx2M": (3_000_000, 2_000_000, 17, 42)}[name]
+    i, j, x = gen.random_sparse(*dims)
+    return COOMatrix(dims[0], dims[1], len(x), i.astype(np.int32),
+                     j.astype(np.int32), (x % prime).astype(np.uint32), prime)
 
+
+def profile_width(M, gf2: bool, n: int, label: str) -> dict:
+    """Profile a window of iterations at block width n on the matrix M
+    (mod 2 for GF(2)); prints the breakdown and returns its JSON record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from block_lanczos_tpu_torch.models import lanczos as L
     from block_lanczos_tpu_torch.ops.semi_inverse import new_state
-    from block_lanczos_tpu_torch.utils import gen
-    from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 
-    if not torch.cuda.is_available():
-        raise SystemExit("profile_solve needs a CUDA device")
-    i, j, x = gen.random_sparse(gen.BENCH_NROWS, gen.BENCH_NCOLS,
-                                gen.BENCH_DENSITY, gen.BENCH_SEED)
-    M = COOMatrix(gen.BENCH_NROWS, gen.BENCH_NCOLS, len(x),
-                  i.astype(np.int32), j.astype(np.int32),
-                  (x % gen.BENCH_PRIME).astype(np.uint32), gen.BENCH_PRIME)
-    s = L.BlockLanczos(M, n=args.n)
+    iters = (16384 if gf2 else 4096) // n
+    t0 = time.perf_counter()
+    if gf2:
+        from block_lanczos_tpu_torch.models import lanczos_gf2 as L
+        s = L.BlockLanczosGF2(M, n=n)
+
+        def step(ws):
+            L.iteration_step(n, s.mp_rows, s.np_rows, True, s.first_op,
+                             s.second_op, v, p_blk, state, ws)
+    else:
+        from block_lanczos_tpu_torch.models import lanczos as L
+        s = L.BlockLanczos(M, n=n)
+
+        def step(ws):
+            L.iteration_step(s.f, s.mp_rows, s.np_rows, True, s.first_op,
+                             s.second_op, v, p_blk, state, ws)
+    t1 = time.perf_counter()
     v = s.initial_block()
+    setup_s = (t1 - t0, time.perf_counter() - t1)
     p_blk = torch.zeros_like(v)
     state = new_state(v.device)
     ws = {}
@@ -83,8 +107,7 @@ def main(argv=None) -> int:
         """k iterations; returns the seconds the host took to enqueue them."""
         t0 = time.perf_counter()
         for _ in range(k):
-            L.iteration_step(s.f, s.mp_rows, s.np_rows, True, s.first_op,
-                             s.second_op, v, p_blk, state, ws)
+            step(ws)
         issue_s = time.perf_counter() - t0
         torch.cuda.synchronize()
         return issue_s
@@ -119,7 +142,11 @@ def main(argv=None) -> int:
     busy_ms = sum(per_kernel.values())
     iter_ms = prof_s / iters * 1e3
     card = _card()
-    print(f"card: {card}; n={args.n}, {iters} iterations")
+    field = "gf2" if gf2 else "narrow"
+    print(f"card: {card}; {field} n={n}, matrix {label} ({M.nrows} x "
+          f"{M.ncols}, {M.nnz} entries, {s.nnz if gf2 else M.nnz} in the "
+          f"operator), {iters} iterations; solver setup {setup_s[0]:.1f} s, "
+          f"v0 {setup_s[1]:.1f} s")
     print(f"  wall: {plain_s / iters * 1e3:.4f} ms/iter unprofiled, "
           f"{iter_ms:.4f} ms/iter profiled; host issue "
           f"{issue_s / iters * 1e3:.4f} ms/iter (unprofiled, before the "
@@ -136,13 +163,40 @@ def main(argv=None) -> int:
     else:
         print("  the profiler recorded no device time: busy share not "
               "measured")
-    print(json.dumps({"card": card, "n": args.n, "iters": iters,
-                      "wall_ms_per_iter": plain_s / iters * 1e3,
-                      "issue_ms_per_iter": issue_s / iters * 1e3,
-                      "profiled_ms_per_iter": iter_ms,
-                      "kernel_ms_per_iter": per_kernel,
-                      "wrapper_ms_per_launch": per_launch,
-                      "busy_share": busy_ms / iter_ms if busy_ms else None}))
+    record = {"card": card, "field": field, "n": n,
+              "matrix": label, "iters": iters,
+              "wall_ms_per_iter": plain_s / iters * 1e3,
+              "issue_ms_per_iter": issue_s / iters * 1e3,
+              "profiled_ms_per_iter": iter_ms,
+              "kernel_ms_per_iter": per_kernel,
+              "wrapper_ms_per_launch": per_launch,
+              "busy_share": busy_ms / iter_ms if busy_ms else None}
+    print(json.dumps(record))
+    return record
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--field", choices=("narrow", "gf2"), default="narrow")
+    ap.add_argument("--n", type=int, nargs="+", default=None,
+                    help="block widths, profiled one after another on one "
+                         "matrix [default 4 narrow, 128 GF(2)]")
+    ap.add_argument("--matrix", choices=("bench", "3Mx2M"), default="bench")
+    args = ap.parse_args(argv)
+    gf2 = args.field == "gf2"
+
+    import torch
+
+    from block_lanczos_tpu_torch.utils import gen
+
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_solve needs a CUDA device")
+    t0 = time.perf_counter()
+    M = _matrix(args.matrix, 2 if gf2 else gen.BENCH_PRIME)
+    print(f"matrix {args.matrix}: {M.nrows} x {M.ncols}, {M.nnz} entries, "
+          f"generated in {time.perf_counter() - t0:.1f} s")
+    for n in args.n or [128 if gf2 else 4]:
+        profile_width(M, gf2, n, args.matrix)
     return 0
 
 

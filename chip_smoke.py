@@ -8,7 +8,8 @@ CUDA toolkit (nvcc).  Phases, each of which raises (non-zero exit) on
 failure:
 
   0. print the card's name and power limit; require CUDA;
-  1. build the four CUDA kernels from block_lanczos_tpu_torch/csrc/;
+  1. build the eight CUDA kernels from block_lanczos_tpu_torch/csrc/ (four
+     narrow-field, four bitsliced GF(2));
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes (the bench matrix, n = 4 and n = 32) and at edge
      shapes (p = 2 and 3, n = 1, an empty spill, one long spill row, N not a
@@ -23,11 +24,19 @@ failure:
      N = 1 and N a multiple of no tile, misaligned views; gram_mod with V2
      that is W, another block or None; orthogonalize with d all 0, all 1
      and mixed under running, stopped, failed-invariant and frozen
+     states); then the GF(2) kernels on the bench matrix mod 2 at n = 128
+     and 256 in both directions and at n = 32, 64, 160 and 512 (slabs wider
+     than 32, an empty spill, one long spill row, rows a multiple of no
+     CTA, all-ones x and bit 31 set everywhere, misaligned views; zero,
+     singular and full-rank Grams, a failing invariant, the check off; d
+     all 0, all 1 and mixed under running, stopped, failed and frozen
      states): exact equality, since the arithmetic is exact; time each
      (CUDA events, median), and print gram_mod's and orthogonalize's
-     n = 32 times and bounds beside the card;
-  3. solve the 8 narrow goldens on the card: every kernel file must be
-     byte-identical to its golden;
+     n = 32 times and bounds beside the card, and the GF(2) kernels' n = 128
+     times, bounds and library yardsticks (torch._int_mm of the unpacked
+     bits for gram_gf2 and orthogonalize_gf2);
+  3. solve the 9 goldens on the card (left_p2_n32 through the GF(2)
+     solver): every kernel file must be byte-identical to its golden;
   4. the main path at full size: generate the bench matrix (300000 x
      200000, 15 nnz/row, seed 42), write it and load it through the port's
      mmio, and solve it with p = 1073741789, n = 4, left kernel, invariant
@@ -37,7 +46,18 @@ failure:
   5. a timed block of 100 iterations at n = 32 on the same matrix, whose
      launch counts (reset just before, read just after) must show that
      every kernel ran in every iteration;
-  6. print the kernels JSON line, the card line, and the result line.
+  6. the GF(2) slice at full size: the bench matrix mod 2 solved by
+     BlockLanczosGF2 at n = 128, left kernel, invariant checks on, to
+     convergence; a failed final check is salvaged (at least one verified
+     vector required); the kernel written must pass the port's checker at
+     p = 2, and the launch counts must show every GF(2) kernel in every
+     iteration;
+  7. 50 iterations of BlockLanczosGF2(n=64, dedup=False) and of the narrow
+     BlockLanczos at p = 2, n = 64 (its CUDA kernels), each from its own
+     xoshiro v0 (the same bits): the unpacked v and p must be equal;
+  8. a timed block of 100 GF(2) iterations at n = 256, with launch counts;
+  9. print the kernels JSON line (eight kernels), the card line, and the
+     result line.
 
 Scratch files go to build/chip_smoke/ in the checkout.  Design
 measurements (the kernels' shapes and layouts) are in
@@ -63,6 +83,10 @@ CORE_OPS_PER_S = 67e12
 # The tensor-core paths (n >= the kernels' threshold) do 16 u8 limb
 # products per residue product, counted against the published int8 rate.
 INT8_TC_OPS_PER_S = 1979e12
+# The GF(2) kernels' bitwise work: 64 32-bit logical operations (LOP3, which
+# does a mask-and-XOR in one) per SM per clock, on 132 SMs at the H100
+# SXM's 1.98 GHz boost clock.
+LOP3_OPS_PER_S = 64 * 132 * 1.98e9
 MAIN_NS = (1, 3, 4, 8, 16, 31, 32, 33, 64)
 EDGE_ROWS = 20_011          # a multiple of no tile, CTA or fold size
 FOLD_ROWS = 2_500_003       # > 8192 rows per CTA: crosses the tensor-core fold
@@ -110,6 +134,7 @@ class KernelRecord:
         self.max_err = 0
         self.cases = 0
         self.ms = self.plain_ms = self.bound_ms = self.bound_by = None
+        self.library_ms = None
         self.note = None
 
     def agree(self, what, got, want):
@@ -125,7 +150,7 @@ class KernelRecord:
                "replaces": self.replaces, "launches": launches,
                "max_abs_err": self.max_err, "ms": self.ms,
                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
-               "bound_by": self.bound_by, "library_ms": None}
+               "bound_by": self.bound_by, "library_ms": self.library_ms}
         if self.note:
             row["note"] = self.note
         return row
@@ -350,6 +375,347 @@ def check_ortho(rec, rng, p, rows, dev, si_mod, L, grams_by_n):
     return timed
 
 
+# ---------------------------------------------------------------------------
+# The bitsliced GF(2) kernels
+# ---------------------------------------------------------------------------
+
+GF2_EDGE_NS = (32, 64, 160, 512)   # W = 1, 2, 5 (no power of two), 16
+
+
+def rand_words(rng, rows, W, device):
+    """(rows, W) words with every bit random, bit 31 included."""
+    import torch
+    return torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=(rows, W),
+                                         dtype=np.int64).astype(np.int32)
+                            ).to(device)
+
+
+def gf2_grams(rng, n, rank, device, full=False):
+    """[U ; UA] as (2n, n/32) words: U symmetric of rank <= rank (B B^T with
+    B n x rank), or of full rank (L L^T, L unit lower triangular) when
+    `full`; UA symmetric."""
+    import torch
+    from block_lanczos_tpu_torch.ops import gf2
+    if full:
+        L = np.tril(rng.integers(0, 2, size=(n, n)), -1) + np.eye(n, dtype=int)
+        U = (L @ L.T) % 2
+    else:
+        B = rng.integers(0, 2, size=(n, rank))
+        U = (B @ B.T) % 2
+    C = rng.integers(0, 2, size=(n, n))
+    UA = (C @ C.T) % 2
+    w = gf2.pack_bits_np(np.concatenate([U, UA])).view(np.int32)
+    return torch.from_numpy(w).to(device)
+
+
+def gf2_spmv_bound(op, W, out_rows):
+    """Column indices of the true nonzeros, the valid words and rowptr read,
+    x read once, y written once; one word XOR per nonzero and word."""
+    nbytes = 4 * (op.nnz + op.valid.numel() + op.out_dim + 1
+                  + op.in_dim * W + out_rows * W)
+    return bound(nbytes, op.nnz * W, LOP3_OPS_PER_S)
+
+
+def gf2_gram_bound(N, n):
+    """v and Av read once, G written; one mask-and-XOR per output row,
+    input row and word."""
+    W = n // 32
+    return bound(4 * (2 * N * W + 2 * n * W), 2 * n * N * W, LOP3_OPS_PER_S)
+
+
+def gf2_ortho_bound(N, n):
+    """v, p, Av read, v and p written, rhs and d read; one mask-and-XOR per
+    row, rhs row and word (3 n W per row: the p rows' right half is
+    zero)."""
+    W = n // 32
+    return bound(4 * (5 * N * W + 4 * n * W + n + 4), 3 * n * W * N,
+                 LOP3_OPS_PER_S)
+
+
+def int_mm_parity(A01, B01):
+    """The library yardstick of the GF(2) products: torch._int_mm of 0/1
+    int8 matrices, kept mod 2."""
+    import torch
+    return torch._int_mm(A01, B01) & 1
+
+
+def check_spmv_gf2(rec, rng, dev, G, sg):
+    """spmv_gf2 against spmv_gf2_plain: the bench operators mod 2 in both
+    directions at n = 128 and 256; every edge width (W = 1, 2, 5, 16) on a
+    second matrix, both directions; forced slabs wider than 32 (two and
+    three valid words), an empty spill, one long spill row, out_dim a
+    multiple of no CTA, all-ones x, bit 31 set everywhere, x and y off
+    their 16-byte alignment.  Times n = 128 (the mean of the directions)."""
+    import torch
+    from block_lanczos_tpu_torch.utils import gen
+
+    def case(what, op, x, out_rows, out=None):
+        rec.agree(what, G.spmv_gf2(op, x, out_rows, out=out),
+                  G.spmv_gf2_plain(op, x, out_rows))
+
+    ms, plain, bounds = [], [], []
+    for n in (128, 256):
+        W = n // 32
+        for name, op, in_rows, out_rows in (
+                ("Mt*v", sg.first_op, sg.np_rows, sg.mp_rows),
+                ("M*tmp", sg.second_op, sg.mp_rows, sg.np_rows)):
+            x = rand_words(rng, in_rows, W, dev)
+            case(f"bench {name} n={n}", op, x, out_rows)
+            if n == 128:
+                ms.append(median_ms(lambda: G.spmv_gf2(op, x, out_rows)))
+                plain.append(median_ms(
+                    lambda: G.spmv_gf2_plain(op, x, out_rows), reps=5))
+                bounds.append(gf2_spmv_bound(op, W, out_rows))
+                print(f"  spmv_gf2 {name} n=128: {ms[-1]:.4f} ms, plain "
+                      f"{plain[-1]:.4f} ms, bound {bounds[-1][0]:.4f} ms "
+                      f"({bounds[-1][1]}), library_ms: none", flush=True)
+    rec.ms, rec.plain_ms = statistics.mean(ms), statistics.mean(plain)
+    rec.bound_ms = statistics.mean(b for b, _ in bounds)
+    rec.bound_by = bounds[0][1]
+    # edge widths on a second matrix with a long spill row
+    i, j, _ = gen.random_sparse(EDGE_ROWS, 15013, 9, seed=5)
+    i = np.concatenate([i, np.full(5000, 17), np.arange(40)])
+    j = np.concatenate([j, rng.integers(0, 15013, 5000), np.arange(40)])
+    for out_dim, in_dim, oi, ii in ((EDGE_ROWS, 15013, i, j),
+                                    (15013, EDGE_ROWS, j, i)):
+        op = G.make_gf2_op(oi, ii, out_dim, in_dim)
+        if out_dim == EDGE_ROWS:
+            assert op.spill_nnz >= 5000, "long spill row missing"
+        op = op.to(dev)
+        for n in GF2_EDGE_NS:
+            x = rand_words(rng, in_dim + 5, n // 32, dev)
+            case(f"edge n={n} out={out_dim}", op, x, out_dim + 13)
+        x = torch.full((in_dim, 4), -1, dtype=torch.int32, device=dev)
+        case(f"all-ones x out={out_dim}", op, x, out_dim)
+    # slabs wider than one valid word; rows longer than the slab
+    for ell in (40, 70):
+        rows = np.repeat(np.arange(301), 75)
+        op = G.make_gf2_op(rows, rng.integers(0, 250, rows.size), 301, 250,
+                           ell=ell)
+        assert op.valid.shape[0] == (ell + 31) // 32 > 1 and op.spill_nnz
+        op = op.to(dev)
+        for n in (32, 128, 160):
+            case(f"ell={ell} n={n}", op, rand_words(rng, 250, n // 32, dev),
+                 307)
+    op = G.make_gf2_op(np.arange(999) % 333, np.arange(999) % 71, 333,
+                       71).to(dev)
+    assert op.spill_nnz == 0
+    case("empty spill", op, rand_words(rng, 71, 4, dev), 341)
+    op = sg.second_op
+    for skew in (1, 2):
+        x = skewed(rand_words(rng, sg.mp_rows, 4, dev), skew)
+        y = skewed(torch.empty((sg.np_rows, 4), dtype=torch.int32,
+                               device=dev), skew)
+        case(f"misaligned by {skew} words", op, x, sg.np_rows, out=y)
+    print(f"  spmv_gf2: {rec.cases} cases equal", flush=True)
+
+
+def check_gram_gf2(rec, rng, dev, gf2, avs):
+    """gram_gf2 against gram_gf2_plain: the bench's [v | Av]^T Av at n = 128
+    and 256 (`avs`: {n: (v, Av)}), every edge width at N a multiple of no
+    staging round, N = 1, all-ones blocks.  Times n = 128 and the library
+    yardstick (torch._int_mm of the unpacked bits, with the unpack's
+    time).  Returns (unpack_ms, int_mm_ms)."""
+    import torch
+
+    def case(what, v, av):
+        rec.agree(what, gf2.gram_gf2(v, av), gf2.gram_gf2_plain(v, av))
+
+    for n, (v, av) in avs.items():
+        case(f"bench n={n}", v, av)
+    v, av = avs[128]
+    rec.ms = median_ms(lambda: gf2.gram_gf2(v, av))
+    rec.plain_ms = median_ms(lambda: gf2.gram_gf2_plain(v, av), reps=5)
+    rec.bound_ms, rec.bound_by = gf2_gram_bound(v.shape[0], 128)
+
+    def unpack():
+        X = gf2.unpack_bits(torch.cat([v, av], dim=1)).to(torch.int8)
+        return X.T.contiguous(), gf2.unpack_bits(av).to(torch.int8)
+
+    unpack_ms = median_ms(unpack, reps=5)
+    XT, A = unpack()
+    lib = gf2.pack_bits(int_mm_parity(XT, A))
+    rec.agree("library yardstick n=128", lib, gf2.gram_gf2(v, av))
+    rec.library_ms = median_ms(lambda: int_mm_parity(XT, A))
+    for n in GF2_EDGE_NS:
+        W = n // 32
+        for N in (EDGE_ROWS, 1):
+            case(f"n={n} N={N}", rand_words(rng, N, W, dev),
+                 rand_words(rng, N, W, dev))
+        ones = torch.full((EDGE_ROWS, W), -1, dtype=torch.int32, device=dev)
+        case(f"all ones n={n}", ones, ones.clone())
+    print(f"  gram_gf2: {rec.cases} cases equal", flush=True)
+    return unpack_ms, rec.library_ms
+
+
+def check_si_gf2(rec, rng, dev, gf2, real_grams):
+    """semi_inverse_gf2 against semi_inverse_gf2_plain (all outputs and the
+    state): the bench's Grams at n = 128 and 256, zero, singular and
+    full-rank Grams at every edge width, a failing invariant, the check
+    off, and a frozen state (left as it is).  Times n = 128."""
+    import torch
+
+    def case(what, grams, state=(0, 1, 0, 0), check=True):
+        s_k = torch.tensor(state, dtype=torch.int32, device=dev)
+        s_p = s_k.clone()
+        got = gf2.semi_inverse_gf2(grams, s_k, check)
+        want = gf2.semi_inverse_gf2_plain(grams, s_p, check)
+        for a, b in zip(got, want):
+            rec.agree(what, a, b)
+        rec.agree(what + " state", s_k, s_p)
+        return got, s_k
+
+    for n, grams in real_grams.items():
+        case(f"bench n={n}", grams)
+    g128 = real_grams[128]
+    state = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device=dev)
+    rec.ms = median_ms(lambda: gf2.semi_inverse_gf2(g128, state))
+    rec.plain_ms = median_ms(
+        lambda: gf2.semi_inverse_gf2_plain(g128, state.clone()), reps=3)
+    n, W = 128, 4
+    # grams read; winv, d, npiv, rhs and the state written; two
+    # eliminations of n steps over n rows of W words (phase 2 with W), the
+    # check and the right-hand side (n rows x n x W masked XORs each), one
+    # LOP3 a masked XOR
+    rec.set_bound(4 * (2 * n * W + n * W + n + 1 + 4 * n * W + 4),
+                  3 * n * n * W + 2 * n * n * W, LOP3_OPS_PER_S)
+    rec.note = ("latency-bound: the 2n pivot steps run one after another in "
+                "one CTA, so neither bytes nor operations bound it")
+    for n in GF2_EDGE_NS + (128, 256):
+        for rank in (0, n // 3, n + 7):
+            got, s_k = case(f"n={n} rank<={rank}",
+                            gf2_grams(rng, n, rank, dev))
+            if rank == 0:
+                assert int(got.npiv[0]) == 0 and int(s_k[0]) == 1, \
+                    "zero Gram"
+        got, _ = case(f"n={n} full rank", gf2_grams(rng, n, 0, dev,
+                                                    full=True))
+        assert int(got.npiv[0]) == n, "expected a full-rank Gram"
+    bad = gf2_grams(rng, 64, 20, dev)
+    bad[64 + 3, 0] ^= 1 << 9      # vtAAv[3, 9] flipped: not symmetric
+    _, s_k = case("n=64 failing check", bad)
+    assert int(s_k[1]) == 0, "the check should fail"
+    case("n=64 check off", bad, check=False)
+    for state in ((1, 1, 0, 0), (0, 0, 0, 0)):    # stopped, failed
+        case(f"n=64 state={state}", bad, state=state)
+    _, s_k = case("n=64 frozen state", bad, state=(1, 1, 5, 1))
+    assert s_k.tolist() == [1, 1, 5, 1], "a frozen state changed"
+    print(f"  semi_inverse_gf2: {rec.cases} cases equal", flush=True)
+
+
+def check_ortho_gf2(rec, rng, dev, G, gf2, avs, real_si):
+    """orthogonalize_gf2 against orthogonalize_gf2_plain: the bench rows
+    at n = 128 and 256 with the bench's right-hand side, running and
+    stopped; every edge width with d all 0, all 1 and mixed under running,
+    stopped, failed-invariant and frozen states; N = 1.  v and p rows
+    differ and carry bit 31.  Times n = 128 and the library yardstick.
+    Returns (unpack_ms, int_mm_ms)."""
+    import torch
+
+    def case(what, v, pb, av, rhs, d, state):
+        st_k = torch.tensor(state, dtype=torch.int32, device=dev)
+        st_p = st_k.clone()
+        vk, pk, vp, pp = v.clone(), pb.clone(), v.clone(), pb.clone()
+        G.orthogonalize_gf2(vk, pk, av, rhs, d, st_k)
+        G.orthogonalize_gf2_plain(vp, pp, av, rhs, d, st_p)
+        rec.agree(what + " v", vk, vp)
+        rec.agree(what + " p", pk, pp)
+        rec.agree(what + " state", st_k, st_p)
+        if state[0] or not state[1]:
+            rec.agree(what + " frozen v", vk, v)
+            rec.agree(what + " frozen p", pk, pb)
+
+    def rhs_block(n):
+        """[[top], [bottom-left, 0]] as semi_inverse_gf2 lays it out."""
+        W = n // 32
+        rhs = rand_words(rng, 2 * n, 2 * W, dev)
+        rhs[n:, W:] = 0
+        return rhs
+
+    def d_of(kind, n):
+        d = {"0": np.zeros(n), "1": np.ones(n),
+             "mixed": rng.integers(0, 2, n)}[kind]
+        if kind == "mixed":
+            d[:2] = (0, 1)
+        return torch.from_numpy(d.astype(np.int32)).to(dev)
+
+    running, halted, inv_fail, frozen = ((0, 1, 0, 0), (1, 1, 0, 0),
+                                         (0, 0, 0, 0), (1, 1, 5, 1))
+    for n, (v, av) in avs.items():
+        si = real_si[n]
+        pb = rand_words(rng, v.shape[0], n // 32, dev)
+        for state in (running, halted):
+            case(f"bench n={n} state={state}", v, pb, av, si.rhs, si.d,
+                 state)
+    v, av = avs[128]
+    si = real_si[128]
+    pb = rand_words(rng, v.shape[0], 4, dev)
+    st = torch.tensor(running, dtype=torch.int32, device=dev)
+    vk, pk = v.clone(), pb.clone()
+    rec.ms = median_ms(lambda: G.orthogonalize_gf2(vk, pk, av, si.rhs, si.d,
+                                                   st))
+    rec.plain_ms = median_ms(
+        lambda: G.orthogonalize_gf2_plain(vk, pk, av, si.rhs, si.d,
+                                          st.clone()), reps=5)
+    rec.bound_ms, rec.bound_by = gf2_ortho_bound(v.shape[0], 128)
+
+    def unpack():
+        X = gf2.unpack_bits(torch.cat([v, pb], dim=1)).to(torch.int8)
+        return X, gf2.unpack_bits(si.rhs).to(torch.int8)
+
+    unpack_ms = median_ms(unpack, reps=5)
+    X, R = unpack()
+    upd = gf2.pack_bits(int_mm_parity(X, R))
+    rec.agree("library yardstick n=128", upd,
+              gf2.matmul_gf2(torch.cat([v, pb], dim=1), si.rhs, 256))
+    rec.library_ms = median_ms(lambda: int_mm_parity(X, R))
+    for n in GF2_EDGE_NS:
+        W = n // 32
+        v, pb, av = (rand_words(rng, EDGE_ROWS, W, dev) for _ in range(3))
+        rhs = rhs_block(n)
+        for kind in ("0", "1", "mixed"):
+            states = ((running, halted, inv_fail, frozen)
+                      if kind == "mixed" else (running,))
+            for state in states:
+                case(f"n={n} d={kind} state={state}", v, pb, av, rhs,
+                     d_of(kind, n), state)
+        v1, p1, a1 = (rand_words(rng, 1, W, dev) for _ in range(3))
+        case(f"N=1 n={n}", v1, p1, a1, rhs, d_of("mixed", n), running)
+    print(f"  orthogonalize_gf2: {rec.cases} cases equal", flush=True)
+    return unpack_ms, rec.library_ms
+
+
+def check_gf2_kernels(recs, rng, dev, sg):
+    """Phase 2 of the GF(2) kernels, on the bench operators of the GF(2)
+    solver `sg` (the layout does not depend on n): every kernel against
+    its plain version, then the timing line at n = 128."""
+    from block_lanczos_tpu_torch.models import lanczos_gf2 as G
+    from block_lanczos_tpu_torch.ops import gf2
+    from block_lanczos_tpu_torch.ops.semi_inverse import new_state
+
+    check_spmv_gf2(recs["spmv_gf2"], rng, dev, G, sg)
+    avs, real_grams, real_si = {}, {}, {}
+    for n in (128, 256):
+        v = rand_words(rng, sg.np_rows, n // 32, dev)
+        tmp = G.spmv_gf2(sg.first_op, v, sg.mp_rows)
+        avs[n] = (v, G.spmv_gf2(sg.second_op, tmp, sg.np_rows))
+        real_grams[n] = gf2.gram_gf2(*avs[n])
+        real_si[n] = gf2.semi_inverse_gf2(real_grams[n], new_state(dev))
+    g_unpack, g_lib = check_gram_gf2(recs["gram_gf2"], rng, dev, gf2, avs)
+    check_si_gf2(recs["semi_inverse_gf2"], rng, dev, gf2, real_grams)
+    o_unpack, o_lib = check_ortho_gf2(recs["orthogonalize_gf2"], rng, dev, G,
+                                      gf2, avs, real_si)
+    for name in ("gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"):
+        r = recs[name]
+        print(f"  {name} n=128: {r.ms:.4f} ms, plain {r.plain_ms:.4f} ms, "
+              f"bound {r.bound_ms:.6f} ms ({r.bound_by}), library_ms: "
+              f"{'none' if r.library_ms is None else f'{r.library_ms:.4f}'}",
+              flush=True)
+    print(f"  library yardsticks (torch._int_mm of 0/1 int8 bits, & 1): "
+          f"gram {g_lib:.4f} ms + unpack {g_unpack:.4f} ms; orthogonalize's "
+          f"product {o_lib:.4f} ms + unpack {o_unpack:.4f} ms", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -361,10 +727,11 @@ def main() -> int:
 
     from block_lanczos_tpu_torch import kernels
     from block_lanczos_tpu_torch.models import lanczos as L
+    from block_lanczos_tpu_torch.models import lanczos_gf2 as G
     from block_lanczos_tpu_torch.ops import dense, spmm
     from block_lanczos_tpu_torch.ops import semi_inverse as si_mod
     from block_lanczos_tpu_torch.ops.gfp import LAZY_FOLD, GFp
-    from block_lanczos_tpu_torch.utils import checker, gen, mmio
+    from block_lanczos_tpu_torch.utils import checker, gen, mmio, salvage
 
     prime = gen.BENCH_PRIME
 
@@ -385,10 +752,24 @@ def main() -> int:
         "orthogonalize": KernelRecord(
             "orthogonalize", "block_lanczos_tpu_torch/csrc/orthogonalize.cu",
             "block_lanczos_tpu/models/lanczos.py:98"),
+        "spmv_gf2": KernelRecord(
+            "spmv_gf2", "block_lanczos_tpu_torch/csrc/spmv_gf2.cu",
+            "block_lanczos_tpu/models/lanczos_gf2.py:123"),
+        "gram_gf2": KernelRecord(
+            "gram_gf2", "block_lanczos_tpu_torch/csrc/gram_gf2.cu",
+            "block_lanczos_tpu/ops/gf2.py:128"),
+        "semi_inverse_gf2": KernelRecord(
+            "semi_inverse_gf2",
+            "block_lanczos_tpu_torch/csrc/semi_inverse_gf2.cu",
+            "block_lanczos_tpu/ops/gf2.py:221"),
+        "orthogonalize_gf2": KernelRecord(
+            "orthogonalize_gf2",
+            "block_lanczos_tpu_torch/csrc/orthogonalize_gf2.cu",
+            "block_lanczos_tpu/models/lanczos_gf2.py:175"),
     }
     rng = np.random.default_rng(2024)
 
-    # ---- the bench matrix (used by phases 2, 4, 5) -------------------------
+    # ---- the bench matrix (used by phases 2, 4 to 8) ----------------------
     os.makedirs(WORK, exist_ok=True)
     mtx = os.path.join(WORK, f"bench_{gen.BENCH_NROWS}x{gen.BENCH_NCOLS}_d"
                        f"{gen.BENCH_DENSITY}_s{gen.BENCH_SEED}.mtx")
@@ -404,6 +785,16 @@ def main() -> int:
     print(f"  layout built in {time.time() - t2:.1f} s: bwd ell "
           f"{solver4.sp.bwd.ell} spill {solver4.sp.bwd.spill_nnz}, fwd ell "
           f"{solver4.sp.fwd.ell} spill {solver4.sp.fwd.spill_nnz}", flush=True)
+    # the same matrix mod 2 (bench.py:106-113, 462): the GF(2) slice's input
+    M2 = mmio.COOMatrix(M.nrows, M.ncols, M.nnz, M.i, M.j,
+                        (M.x % 2).astype(np.uint32), 2)
+    t3 = time.time()
+    gsolver = G.BlockLanczosGF2(M2, n=128, device=dev)
+    print(f"  mod 2: {gsolver.nnz} odd entries, dedup dropped "
+          f"{gsolver.dedup_dropped}; GF(2) layout built in "
+          f"{time.time() - t3:.1f} s: Mt ell {gsolver.first_op.ell} spill "
+          f"{gsolver.first_op.spill_nnz}, M ell {gsolver.second_op.ell} "
+          f"spill {gsolver.second_op.spill_nnz}", flush=True)
 
     # ---- phase 2: kernels against their plain versions ---------------------
     print("phase 2: kernels against their plain versions (tolerance 0: the "
@@ -423,13 +814,18 @@ def main() -> int:
                 x = rand_block(rng, solver4.mp_rows, n, p, dev)
             rec.agree(f"{name} n={n}", spmm.spmv(op, x, out_rows),
                       spmm.spmv_plain(op, x, out_rows))
+            # 8 B of slab per true nonzero, x read, y written, rowptr
+            nb = (8 * op.nnz + 4 * op.in_dim * n + 4 * out_rows * n
+                  + 4 * (op.out_dim + 1))
+            if n == 32:
+                b32 = bound(nb, 2 * op.nnz * n)
+                print(f"  spmv_ell {name} n=32: "
+                      f"{median_ms(lambda: spmm.spmv(op, x, out_rows)):.4f} "
+                      f"ms, bound {b32[0]:.6f} ms ({b32[1]})", flush=True)
             if n == 4:
                 k_ms = median_ms(lambda: spmm.spmv(op, x, out_rows))
                 p_ms = median_ms(lambda: spmm.spmv_plain(op, x, out_rows),
                                  reps=5)
-                # 8 B of slab per true nonzero, x read, y written, rowptr
-                nb = (8 * op.nnz + 4 * op.in_dim * n + 4 * out_rows * n
-                      + 4 * (op.out_dim + 1))
                 ms.append(k_ms)
                 plain.append(p_ms)
                 nbytes.append(nb)
@@ -569,17 +965,22 @@ def main() -> int:
           + f" [{card}]", flush=True)
     torch.cuda.synchronize()
 
+    # the GF(2) kernels
+    check_gf2_kernels(recs, rng, dev, gsolver)
+    torch.cuda.synchronize()
+
     # ---- phase 3: goldens on the card --------------------------------------
-    print("phase 3: narrow goldens on the card", flush=True)
+    print("phase 3: goldens on the card", flush=True)
     with open(os.path.join(GOLDEN, "MANIFEST.txt")) as fh:
         configs = [ln.split() for ln in fh if ln.strip()]
     n_golden = 0
     for name, gp, n, right in configs:
         gp, n, right = int(gp), int(n), right == "True"
-        if gp == 2 and n % 32 == 0:
-            continue    # the GF(2) bitsliced path: a later slice
         Mg = mmio.load_mtx(os.path.join(GOLDEN, f"{name}.mtx"), gp)
-        sg = L.BlockLanczos(Mg, n=n, right=right, device=dev)
+        if gp == 2 and n % 32 == 0:     # the GF(2) bitsliced path
+            sg = G.BlockLanczosGF2(Mg, n=n, right=right, device=dev)
+        else:
+            sg = L.BlockLanczos(Mg, n=n, right=right, device=dev)
         res = sg.solve()
         out = os.path.join(WORK, f"{name}.kernel.mtx")
         mmio.write_kernel_mtx(out, res.kernel, sg.n_eff, n)
@@ -591,7 +992,7 @@ def main() -> int:
         print(f"  {name}: {res.iterations} iterations, byte-identical",
               flush=True)
         n_golden += 1
-    assert n_golden == 8, n_golden
+    assert n_golden == 9, n_golden
 
     # ---- phase 4: the main path at full size -------------------------------
     print(f"phase 4: full solve, p={prime}, n=4, left kernel, invariant "
@@ -634,7 +1035,78 @@ def main() -> int:
     for name in ("gram_mod", "semi_inverse", "orthogonalize"):
         assert counts32[name] >= r32.iterations, counts32
 
-    # ---- phase 6: summary ----------------------------------------------------
+    # ---- phase 6: the GF(2) slice at full size -----------------------------
+    print("phase 6: GF(2) full solve of the bench matrix mod 2, n=128, left "
+          "kernel, invariant checks on", flush=True)
+    G.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    gres = gsolver.solve(verbose=True)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    gcounts = G.launch_counts()
+    git = gres.iterations
+    print(f"  iterations {git} (expected about "
+          f"{gsolver.expected_iterations}); loop {gres.elapsed:.3f} s, "
+          f"{gres.elapsed / max(git, 1) * 1e3:.4f} ms/iter; solve() "
+          f"{total_s:.3f} s (v0 drawn before the loop) [{card}]", flush=True)
+    print(f"  launches during the solve: {gcounts}", flush=True)
+    assert gres.v_nonzero, "GF(2) solve ended with v == 0"
+    gkernel = gres.kernel
+    if not gres.product_zero:
+        gkernel = salvage.salvage_kernel(gres.kernel, gres.vtM, 2)
+        print(f"  final check KO: salvage recovered {gkernel.shape[1]} / "
+              "128 verified kernel vectors", flush=True)
+        assert gkernel.shape[1] >= 1, "salvage recovered no kernel vector"
+    kpath = os.path.join(WORK, "bench_gf2.kernel.mtx")
+    mmio.write_kernel_mtx(kpath, gkernel, gsolver.n_eff, gkernel.shape[1])
+    checker.check_kernel_file(mtx, kpath, 2, verbose=True)
+    assert gcounts["spmv_gf2"] >= 2 * git, gcounts
+    for name in ("gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"):
+        assert gcounts[name] >= git, gcounts
+
+    # ---- phase 7: GF(2) against the narrow kernels at p = 2 ----------------
+    print("phase 7: 50 iterations of BlockLanczosGF2(n=64, dedup=False) and "
+          "of the narrow BlockLanczos at p=2, n=64", flush=True)
+    from block_lanczos_tpu_torch.ops import gf2
+    g64 = G.BlockLanczosGF2(M2, n=64, dedup=False, device=dev)
+    n64 = L.BlockLanczos(M2, n=64, device=dev)
+    assert (g64.np_rows, g64.mp_rows) == (n64.np_rows, n64.mp_rows)
+    last = {}
+
+    def grab(key):
+        def on_iteration(slv, iteration, v, p_blk, start):
+            last[key] = (v.clone(), p_blk.clone(), iteration)
+        return on_iteration
+
+    g64.solve(stop_after=50, on_iteration=grab("gf2"))
+    n64.solve(stop_after=50, on_iteration=grab("narrow"))
+    (gv, gp_, git50), (nv, np_, nit50) = last["gf2"], last["narrow"]
+    assert git50 == nit50 == 50, (git50, nit50)
+    for name, g, nb in (("v", gv, nv), ("p", gp_, np_)):
+        if not torch.equal(gf2.unpack_bits(g), nb):
+            raise AssertionError(f"GF(2) and narrow {name} differ after 50 "
+                                 "iterations")
+    print(f"  v and p equal after 50 iterations ({g64.np_rows} x 64)",
+          flush=True)
+
+    # ---- phase 8: n = 256 ----------------------------------------------------
+    print("phase 8: 100 iterations at n=256 (GF(2))", flush=True)
+    g256 = G.BlockLanczosGF2(M2, n=256, device=dev)
+    G.reset_launch_counts()
+    r256 = g256.solve(stop_after=100)
+    counts256 = G.launch_counts()
+    assert r256.stopped_by_limit and r256.iterations == 100, r256.iterations
+    print(f"  n=256: {r256.iterations} iterations, loop {r256.elapsed:.3f} "
+          f"s, {r256.elapsed / r256.iterations * 1e3:.4f} ms/iter [{card}]",
+          flush=True)
+    print(f"  launches during the n=256 block: {counts256}", flush=True)
+    assert counts256["spmv_gf2"] >= 2 * r256.iterations, counts256
+    for name in ("gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"):
+        assert counts256[name] >= r256.iterations, counts256
+
+    # ---- phase 9: summary ----------------------------------------------------
+    counts.update(gcounts)
     print(json.dumps({"kernels": [recs[k].as_json(counts[k]) for k in recs]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

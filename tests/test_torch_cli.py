@@ -1,11 +1,15 @@
-"""The port's CLI: byte-identical kernel files on the CPU, and honest
+"""The port's CLI: byte-identical kernel files on the CPU (narrow field and
+GF(2), salvage and --no-dedup against the JAX package's CLI), and honest
 refusals (exit code 2) for the paths this port does not cover yet."""
 
 import os
 
+import numpy as np
 import pytest
 
-from block_lanczos_tpu_torch.utils import checker, cli
+from block_lanczos_tpu.utils import cli as jcli
+from block_lanczos_tpu.utils.gen import random_sparse
+from block_lanczos_tpu_torch.utils import checker, cli, mmio
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
@@ -28,7 +32,6 @@ def test_cli_writes_the_golden_byte_for_byte(tmp_path, name, prime, n, side):
 REFUSED = [
     ["--devices", "2"], ["--grid", "1", "1"], ["--overlap"],
     ["--checkpoint"], ["--checkpoint", "30"], ["--load-checkpoint"],
-    ["--salvage"], ["--salvage-restarts", "1"],
 ]
 
 
@@ -41,7 +44,7 @@ def test_cli_refuses_paths_of_later_slices(extra, capsys):
     assert "not supported" in capsys.readouterr().err
 
 
-@pytest.mark.parametrize("prime,n", [(1073741827, 4), (2, 32), (2, 64)])
+@pytest.mark.parametrize("prime,n", [(1073741827, 4)])
 def test_cli_refuses_fields_of_later_slices(prime, n, capsys):
     mtx = os.path.join(GOLDEN, "left_p2_n32.mtx")
     rc = cli.main(["--matrix", mtx, "--prime", str(prime), "--n", str(n),
@@ -66,4 +69,79 @@ def test_cli_defaults_to_cuda_and_does_not_fall_back(capsys):
         pytest.skip("this host has CUDA; the no-CUDA refusal is not testable")
     mtx = os.path.join(GOLDEN, "left_p65537_n4.mtx")
     assert cli.main(["--matrix", mtx, "--prime", "65537", "--n", "4"]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
+
+
+def test_cli_gf2_writes_the_golden_byte_for_byte(tmp_path, capsys):
+    mtx = os.path.join(GOLDEN, "left_p2_n32.mtx")
+    out = tmp_path / "kernel.mtx"
+    assert cli.main(["--matrix", mtx, "--prime", "2", "--n", "32",
+                     "--output-file", str(out), "--device", "cpu"]) == 0
+    assert "GF(2) bitsliced path" in capsys.readouterr().err
+    with open(os.path.join(GOLDEN, "left_p2_n32.kernel.mtx"), "rb") as fh:
+        assert out.read_bytes() == fh.read()
+    assert checker.main(["--matrix", mtx, "--kernel", str(out),
+                         "--prime", "2"]) == 0
+
+
+def _write(tmp_path, name, i, j, x, nrows, ncols):
+    path = str(tmp_path / name)
+    mmio.write_coo_mtx(path, nrows, ncols, i, j, x)
+    return path
+
+
+def _both_clis(tmp_path, mtx, flags):
+    """Run the port's CLI (CPU) and the JAX package's (single device) with
+    the same flags; returns the two kernel files' bytes."""
+    outs = []
+    for name, main, extra in (("t", cli.main, ["--device", "cpu"]),
+                              ("j", jcli.main, ["--single"])):
+        out = tmp_path / f"{name}.mtx"
+        assert main(["--matrix", mtx, *flags, "--output-file", str(out),
+                     *extra]) == 0
+        outs.append(out.read_bytes())
+    return outs
+
+
+@pytest.mark.parametrize("dedup", [[], ["--no-dedup"]],
+                         ids=["dedup", "no-dedup"])
+def test_cli_dedup_choice_matches_the_jax_cli(tmp_path, dedup):
+    """Columns 200..209 copy columns 0..9: the left-kernel operator has
+    duplicate lines, so the two settings give different kernels, each
+    byte-identical to the JAX package's."""
+    i, j, x = random_sparse(300, 200, 6, seed=3)
+    x = x | 1
+    cp = j < 10
+    mtx = _write(tmp_path, "dup.mtx", np.concatenate([i, i[cp]]),
+                 np.concatenate([j, j[cp] + 200]),
+                 np.concatenate([x, x[cp]]), 300, 210)
+    t, jx = _both_clis(tmp_path, mtx, ["--prime", "2", "--n", "32",
+                                       *dedup])
+    assert t == jx
+
+
+@pytest.mark.parametrize("extra", [[], ["--salvage-restarts", "2"]],
+                         ids=["salvage", "salvage-restarts"])
+def test_cli_salvage_writes_a_checked_kernel(tmp_path, extra, capsys):
+    """The seed-9 right-kernel instance breaks down on the reference's
+    operator (--no-dedup): --salvage writes the verified vectors, the
+    port's checker accepts them, and the file equals the JAX CLI's."""
+    i, j, x = random_sparse(64, 96, 5, seed=9)
+    mtx = _write(tmp_path, "seed9.mtx", i, j, x, 64, 96)
+    t, jx = _both_clis(tmp_path, mtx, ["--prime", "2", "--n", "32",
+                                       "--right", "--no-dedup", "--no-checks",
+                                       "--salvage", *extra])
+    assert t == jx
+    assert "KO: vt*M != 0" in capsys.readouterr().out
+    assert checker.main(["--matrix", mtx, "--kernel",
+                         str(tmp_path / "t.mtx"), "--prime", "2",
+                         "--right"]) == 0
+
+
+def test_cli_gf2_defaults_to_cuda_and_does_not_fall_back(capsys):
+    import torch
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA; the no-CUDA refusal is not testable")
+    mtx = os.path.join(GOLDEN, "left_p2_n32.mtx")
+    assert cli.main(["--matrix", mtx, "--prime", "2", "--n", "32"]) == 1
     assert "CUDA is not available" in capsys.readouterr().err

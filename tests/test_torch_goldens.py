@@ -2,7 +2,7 @@
 versions of the four kernels): the iteration count must equal the JAX
 solver's, the kernel must equal the C reference's golden block, and the
 port's own checker must accept it.  `left_p2_n32` takes the GF(2)
-bitsliced path, which the port does not cover yet.
+bitsliced path: tests/test_torch_gf2_solver.py holds it.
 """
 
 import os

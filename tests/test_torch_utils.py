@@ -44,6 +44,19 @@ def test_xoshiro_stream_matches_jax(prime):
         jrng.Xoshiro256Plus(seed).fill_mod(100, prime))
 
 
+@pytest.mark.parametrize("count,lanes", [(50_003, 64), (4096, 4096),
+                                         (1000, 7)])
+def test_xoshiro_lanes_match_jax(count, lanes, monkeypatch):
+    """Long draws run side by side from jumped-ahead states: the same
+    values and the same state after them as the sequential stream."""
+    monkeypatch.setattr(rng, "LANES", lanes)
+    a, b = rng.Xoshiro256Plus(), jrng.Xoshiro256Plus()
+    for prime in (2, 65537):
+        np.testing.assert_array_equal(a.fill_mod(count, prime),
+                                      b.fill_mod(count, prime))
+    assert a.next64() == b.next64()
+
+
 def test_mmio_roundtrip_matches_jax(tmp_path):
     path = str(tmp_path / "m.mtx")
     i = np.array([0, 3, 2, 2, 4])
@@ -155,8 +168,9 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.setattr(kernels, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.load_all()
-    assert set(kernels.SIGNATURES) == {"spmv_ell", "gram_mod",
-                                       "semi_inverse", "orthogonalize"}
+    assert set(kernels.SIGNATURES) == {
+        "spmv_ell", "gram_mod", "semi_inverse", "orthogonalize",
+        "spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"}
     for name in kernels.SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").exists()
 
