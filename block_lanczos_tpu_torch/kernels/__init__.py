@@ -61,9 +61,9 @@ SIGNATURES = {
                                         _P, _P)),
     # the bitsliced GF(2) kernels (blocks of W = n / 32 words a row)
     # cols, valid, ell, ld, rowptr, sp_cols, x, y, out_dim, out_rows, W,
-    # stream
+    # accumulate, stream
     "spmv_gf2": ("spmv_gf2", (_P, _P, _I, _L, _P, _P, _P, _P, _L, _L, _I,
-                              _P)),
+                              _I, _P)),
     # v, av, N, W, scratch, out, stream
     "gram_gf2": ("gram_gf2", (_P, _P, _L, _I, _P, _P, _P)),
     # grams, n, check, winv, d, npiv, rhs, state, stream

@@ -9,7 +9,9 @@ solver (models/lanczos.py), so iterates are bit-identical to the JAX
 package's BlockLanczosGF2 and, with dedup=False, to the generic solver at
 p = 2.
 
-One iteration is five kernel launches on the CUDA device: two `spmv_gf2`,
+One iteration is five kernel launches on the CUDA device: two `spmv_gf2`
+(one launch per column band where the operator is banded: an x that the
+card's L2 cannot hold is split by column at layout time, choose_bands),
 one `gram_gf2`, one `semi_inverse_gf2` (with the invariant checks and the
 update's right-hand side) and one `orthogonalize_gf2`, which updates v and
 p in place.  The device keeps the latched [stop, inv_ok, k_done, frozen]
@@ -111,6 +113,22 @@ def gf2_op_from_arrays(arrays: dict, out_dim: int, in_dim: int) -> GF2Op:
                  nnz=int(arrays["nnz"]), ell=int(arrays["ell"]), **t)
 
 
+# The share of the card's L2 that one band's slice of x may take; the rest
+# holds the index streams and y in flight.  The number of bands follows from
+# the card's own L2 size, read at run time (BlockLanczosGF2).
+BAND_L2_SHARE = 0.5
+
+
+def choose_bands(in_dim: int, W: int, l2_bytes: int | None) -> int:
+    """The fewest column bands whose slice of x (in_dim rows of W words)
+    takes at most BAND_L2_SHARE of an L2 of l2_bytes; 1 without an L2 size
+    (the CPU)."""
+    if not l2_bytes:
+        return 1
+    per_band = int(l2_bytes * BAND_L2_SHARE)
+    return max(1, -(-(in_dim * W * 4) // per_band))
+
+
 def make_gf2_op(out_idx, in_idx, out_dim: int, in_dim: int,
                 ell: int | None = None) -> GF2Op:
     """A CPU GF2Op from COO indices of the odd entries (all equal to 1 mod
@@ -119,58 +137,84 @@ def make_gf2_op(out_idx, in_idx, out_dim: int, in_dim: int,
                               out_dim, in_dim)
 
 
+def make_gf2_bands(out_idx, in_idx, out_dim: int, in_dim: int, bands: int,
+                   ell: int | None = None) -> tuple:
+    """The operator split by column into `bands` CPU GF2Ops: band b holds
+    the entries whose column lies in [in_dim * b // bands, in_dim * (b + 1)
+    // bands), over the whole of x (absolute columns).  The operator is the
+    XOR of its bands; one band is make_gf2_op's layout.  `ell`, when given,
+    is every band's slab width."""
+    out_idx = np.asarray(out_idx, np.int64)
+    in_idx = np.asarray(in_idx, np.int64)
+    parts = []
+    for b in range(bands):
+        sel = ((in_idx >= in_dim * b // bands)
+               & (in_idx < in_dim * (b + 1) // bands))
+        parts.append(make_gf2_op(out_idx[sel], in_idx[sel], out_dim, in_dim,
+                                 ell))
+    return tuple(parts)
+
+
 # ---------------------------------------------------------------------------
 # The spmv_gf2 kernel and its plain version
 # ---------------------------------------------------------------------------
 
-def spmv_gf2_plain(op: GF2Op, x: torch.Tensor,
+def spmv_gf2_plain(ops: tuple, x: torch.Tensor,
                    out_rows: int | None = None) -> torch.Tensor:
-    """Plain PyTorch version of the spmv_gf2 kernel: the slab as masked
-    XORs slot by slot, the spill as bit counts of its rows kept mod 2;
-    (out_rows, W) words with zero rows past out_dim."""
-    out_rows = op.out_dim if out_rows is None else int(out_rows)
-    _check_args(op, x, out_rows)
+    """Plain PyTorch version of the spmv_gf2 kernel over the bands `ops`
+    (a tuple of GF2Op): per band the slab as masked XORs slot by slot and
+    the spill as bit counts of its rows kept mod 2, the bands XORed
+    together; (out_rows, W) words with zero rows past out_dim."""
+    out_dim = ops[0].out_dim
+    out_rows = out_dim if out_rows is None else int(out_rows)
     W = x.shape[1]
-    y = torch.zeros((op.out_dim, W), dtype=torch.int32, device=x.device)
-    for k in range(op.ell):
-        mask = -((op.valid[k // WORD] >> (k % WORD)) & 1)
-        y ^= mask[:, None] & x[op.cols[k].long()]
-    if op.spill_nnz:
-        rows = torch.repeat_interleave(
-            torch.arange(op.out_dim, device=x.device),
-            (op.rowptr[1:] - op.rowptr[:-1]).long())
-        counts = torch.zeros((op.out_dim, W * WORD), dtype=torch.int32,
-                             device=x.device)
-        counts.index_add_(0, rows, gf2.unpack_bits(x[op.sp_cols.long()]))
-        y ^= gf2.pack_bits(counts & 1)
+    y = torch.zeros((out_dim, W), dtype=torch.int32, device=x.device)
+    for op in ops:
+        _check_args(op, x, out_rows)
+        for k in range(op.ell):
+            mask = -((op.valid[k // WORD] >> (k % WORD)) & 1)
+            y ^= mask[:, None] & x[op.cols[k].long()]
+        if op.spill_nnz:
+            rows = torch.repeat_interleave(
+                torch.arange(out_dim, device=x.device),
+                (op.rowptr[1:] - op.rowptr[:-1]).long())
+            counts = torch.zeros((out_dim, W * WORD), dtype=torch.int32,
+                                 device=x.device)
+            counts.index_add_(0, rows,
+                              gf2.unpack_bits(x[op.sp_cols.long()]))
+            y ^= gf2.pack_bits(counts & 1)
     out = torch.zeros((out_rows, W), dtype=torch.int32, device=x.device)
-    out[:op.out_dim] = y
+    out[:out_dim] = y
     return out
 
 
-def spmv_gf2(op: GF2Op, x: torch.Tensor, out_rows: int | None = None,
+def spmv_gf2(ops: tuple, x: torch.Tensor, out_rows: int | None = None,
              out: torch.Tensor | None = None) -> torch.Tensor:
-    """y = op * x over GF(2); x (in_pad >= in_dim, W) words, y (out_rows, W)
-    with zero rows past out_dim.  CUDA tensors launch the spmv_gf2 kernel;
-    CPU tensors take spmv_gf2_plain.  `out` (CUDA only) is an optional
-    preallocated result buffer."""
-    out_rows = op.out_dim if out_rows is None else int(out_rows)
+    """y = op * x over GF(2) for an operator held as a tuple of column
+    bands (GF2Ops of one out_dim and in_dim; one band when unbanded); x
+    (in_pad >= in_dim, W) words, y (out_rows, W) with zero rows past
+    out_dim.  CUDA tensors launch the spmv_gf2 kernel once per band (the
+    first writes y, the rest XOR into it); CPU tensors take
+    spmv_gf2_plain.  `out` (CUDA only) is an optional preallocated result
+    buffer."""
+    out_rows = ops[0].out_dim if out_rows is None else int(out_rows)
     if x.device.type == "cpu":
-        return spmv_gf2_plain(op, x, out_rows)
-    _check_args(op, x, out_rows)
+        return spmv_gf2_plain(ops, x, out_rows)
     W = x.shape[1]
     gf2.check_width(W * WORD)
     if out is None:
         out = torch.empty((out_rows, W), dtype=torch.int32, device=x.device)
     elif out.shape != (out_rows, W):
         raise ValueError(f"out must be ({out_rows}, {W})")
-    kernels.check_operands("spmv_gf2", x, out, op.cols, op.valid, op.rowptr,
-                           op.sp_cols)
-    kernels.launch("spmv_gf2", op.cols.data_ptr(), op.valid.data_ptr(),
-                   op.ell, op.out_dim, op.rowptr.data_ptr(),
-                   op.sp_cols.data_ptr(), x.data_ptr(), out.data_ptr(),
-                   op.out_dim, out_rows, W)
-    spmv_gf2.launches += 1
+    for k, op in enumerate(ops):
+        _check_args(op, x, out_rows)
+        kernels.check_operands("spmv_gf2", x, out, op.cols, op.valid,
+                               op.rowptr, op.sp_cols)
+        kernels.launch("spmv_gf2", op.cols.data_ptr(), op.valid.data_ptr(),
+                       op.ell, op.out_dim, op.rowptr.data_ptr(),
+                       op.sp_cols.data_ptr(), x.data_ptr(), out.data_ptr(),
+                       op.out_dim, out_rows, W, int(k > 0))
+        spmv_gf2.launches += 1
     return out
 
 
@@ -240,13 +284,14 @@ def reset_launch_counts() -> None:
 # ---------------------------------------------------------------------------
 
 def iteration_step(n: int, mp_rows: int, np_rows: int, check: bool,
-                   first_op: GF2Op, second_op: GF2Op, v, p_blk, state,
+                   first_op: tuple, second_op: tuple, v, p_blk, state,
                    ws=None):
     """One full GF(2) Lanczos iteration on v's device; v and p_blk are
     updated in place (left as they are once the state holds a halt).
 
-    ws: optional dict of reusable buffers ("tmp", "av", "grams", "si").
-    Returns (v, p_blk, tmp, Av, vtAv, vtAAv, winv, d, stop, inv_ok), the
+    first_op, second_op: the two directions, each a tuple of GF2Op column
+    bands (spmv_gf2).  ws: optional dict of reusable buffers ("tmp", "av",
+    "grams", "si").  Returns (v, p_blk, tmp, Av, vtAv, vtAAv, winv, d, stop, inv_ok), the
     JAX package's iteration_step outputs, with stop / inv_ok the latched
     state after this iteration.
     """
@@ -303,8 +348,13 @@ class BlockLanczosGF2:
         self.m_eff = nrows_eff if right else ncols_eff
         self.np_rows = pad_rows(self.n_eff, pad_multiple)
         self.mp_rows = pad_rows(self.m_eff, pad_multiple)
-        fwd = make_gf2_op(i, j, nrows_eff, ncols_eff).to(self.device)
-        bwd = make_gf2_op(j, i, ncols_eff, nrows_eff).to(self.device)
+        l2 = (torch.cuda.get_device_properties(self.device).L2_cache_size
+              if self.device.type == "cuda" else None)
+        # each direction as a tuple of column bands (spmv_gf2)
+        fwd, bwd = (tuple(b.to(self.device) for b in make_gf2_bands(
+            o, c, out_dim, in_dim, choose_bands(in_dim, self.W, l2)))
+            for o, c, out_dim, in_dim in ((i, j, nrows_eff, ncols_eff),
+                                          (j, i, ncols_eff, nrows_eff)))
         self.first_op = fwd if right else bwd
         self.second_op = bwd if right else fwd
         self.expected_iterations = 1 + self.m_eff // self.n

@@ -13,7 +13,9 @@ masks with `& 1` after the shift.
 
 Two hand-written CUDA kernels live here, each with its plain PyTorch
 version, which the wrapper takes for CPU tensors only:
-  * `gram_gf2` (csrc/gram_gf2.cu): [v | Av]^T Av over GF(2);
+  * `gram_gf2` (csrc/gram_gf2.cu): [v | Av]^T Av over GF(2), as the parity
+    of a binary tensor-core product; `gram_gf2_tiles_np` mirrors its
+    tiles, transposes and fragment layout in NumPy for the CPU tests;
   * `semi_inverse_gf2` (csrc/semi_inverse_gf2.cu): the two-phase bit
     Gauss-Jordan, with the invariant checks and the orthogonalize
     right-hand side, and the solver state's stop / inv_ok latch.
@@ -182,6 +184,142 @@ def gram_gf2(v: torch.Tensor, av: torch.Tensor,
 
 
 gram_gf2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The Gram kernel's tiles on the binary tensor cores, mirrored in NumPy
+# ---------------------------------------------------------------------------
+
+GG_K = 256           # input rows per K-tile (csrc/gram_gf2.cu)
+GG_REGION_A = 256    # output rows a of a CTA's region
+GG_REGION_B = 128    # output columns b of a CTA's region
+_TRANSPOSE_LO = (0x0000ffff, 0x00ff00ff, 0x0f0f0f0f, 0x33333333, 0x55555555)
+
+
+def transpose32x2_np(x1: np.ndarray, x2: np.ndarray):
+    """The kernel's warp transpose of two 32 x 32 bit matrices at once
+    (transpose32x2), lane by lane: x1[..., l], x2[..., l] are lane l's
+    uint32 words, row l of each; the results' lane l holds column l.  Each
+    of the five stages sends the half of x1 and the half of x2 that a lane
+    gives away in one shuffle-xor."""
+    lane = np.arange(WORD)
+    x1, x2 = np.asarray(x1, np.uint32), np.asarray(x2, np.uint32)
+    for s, lo in enumerate(_TRANSPOSE_LO):
+        j, lo = np.uint32(16 >> s), np.uint32(lo)
+        up = (lane & int(j)) != 0
+        give = np.where(up, (x1 & lo) | ((x2 & lo) << j),
+                        (x1 & ~lo) | ((x2 & ~lo) >> j))
+        o = give[..., lane ^ int(j)]
+        x1, x2 = (np.where(up, (x1 & ~lo) | ((o & ~lo) >> j),
+                           (x1 & lo) | ((o & lo) << j)),
+                  np.where(up, (x2 & ~lo) | (o & lo), (x2 & lo) | (o & ~lo)))
+    return x1, x2
+
+
+def _popcount32(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.uint64)
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0f0f0f0f
+    return ((x * 0x01010101) & 0xffffffff) >> 24
+
+
+def mma_b1_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc on the
+    fragments of one warp, as the kernel lays them out (PTX ISA, lane =
+    4 g + t): a (..., 32, 4) holds A row g (a0, a2) and row g + 8 (a1, a3),
+    k-words t (a0, a1) and 4 + t (a2, a3); b (..., 32, 2) holds B column g,
+    k-words t (b0) and 4 + t (b1).  Returns the (..., 32, 4) s32 counts:
+    c0, c1 row g, columns 2t, 2t + 1; c2, c3 row g + 8."""
+    lane = np.arange(WORD)
+    g, t = lane >> 2, lane & 3
+    lead = a.shape[:-2]
+    A = np.zeros(lead + (16, 8), np.uint32)
+    B = np.zeros(lead + (8, 8), np.uint32)
+    A[..., g, t], A[..., g + 8, t] = a[..., 0], a[..., 1]
+    A[..., g, 4 + t], A[..., g + 8, 4 + t] = a[..., 2], a[..., 3]
+    B[..., g, t], B[..., g, 4 + t] = b[..., 0], b[..., 1]
+    C = _popcount32(A[..., :, None, :] & B[..., None, :, :]).sum(-1).astype(
+        np.int64)
+    return np.stack([C[..., g, 2 * t], C[..., g, 2 * t + 1],
+                     C[..., g + 8, 2 * t], C[..., g + 8, 2 * t + 1]], -1)
+
+
+def gram_gf2_tiles_np(v: np.ndarray, av: np.ndarray) -> np.ndarray:
+    """The gram_gf2 kernel's computation, step for step, in NumPy.  Per
+    region of GG_REGION_A a-rows by GG_REGION_B b-columns and K-tile of GG_K
+    rows: warp w (slot w % 8, half w // 8) stages row 32 (w % 8) + l of the
+    K-tile's X words 4 half .. + 3 of the region (and, for half 0 where the
+    b-columns are not among the a-columns, its 4 Y words), transposes them
+    in pairs (transpose32x2_np) into T[slot][32 j + l] (Y's at 256 + ...);
+    warp w then takes the fragments of its 2 x 8 tiles (a-rows
+    32 (w % 8) .., b-columns 64 (w // 8) ..) from T, accumulates s32 counts
+    with mma_b1_np, and packs their parities into G's words (8 bits a lane,
+    ORed over the 4 lanes of a group).  v, av: (N, W) uint32 words; returns
+    G (2n, W) uint32, equal to gram_gf2_plain."""
+    v = np.asarray(v).view(np.uint32)
+    av = np.asarray(av).view(np.uint32)
+    N, W = v.shape
+    n = W * WORD
+    X = np.concatenate([v, av, np.zeros((N, 8), np.uint32)], axis=1)
+    lane = np.arange(WORD)
+    g, t = lane >> 2, lane & 3
+    G = np.zeros((2 * n, W), np.uint32)
+    tiles = max(1, -(-N // GG_K))
+    for ra in range(-(-2 * n // GG_REGION_A)):
+        for rb in range(-(-n // GG_REGION_B)):
+            xa0, yb0 = ra * GG_REGION_A // WORD, rb * GG_REGION_B // WORD
+            b_width = min(GG_REGION_B, n - GG_REGION_B * rb)
+            b_in_a = n + GG_REGION_B * rb - GG_REGION_A * ra
+            b_apart = b_in_a < 0 or b_in_a + b_width > GG_REGION_A
+            b_off = GG_REGION_A if b_apart else b_in_a
+            acc = np.zeros((16, 2, 8, WORD, 4), np.int64)  # warp, i, j, lane
+            for k in range(tiles):
+                rows = np.zeros((GG_K, X.shape[1]), np.uint32)
+                r = np.arange(k * GG_K, min((k + 1) * GG_K, N))
+                rows[r - k * GG_K] = X[r]           # zero past N, 2W words
+                T = np.zeros((8, GG_REGION_A + GG_REGION_B), np.uint32)
+                jobs = [(xa0 + 4 * h, 4 * h * WORD) for h in range(2)]
+                if b_apart:
+                    jobs.append((W + yb0, GG_REGION_A))
+                for w0, at in jobs:
+                    if w0 >= 2 * W:
+                        continue
+                    cols = [min(w0 + j, 2 * W) for j in range(4)]
+                    # (slot, lane) -> the row's 4 words, transposed in pairs
+                    q = rows[:, cols].reshape(8, WORD, 4)
+                    x0, x1 = transpose32x2_np(q[..., 0], q[..., 1])
+                    x2, x3 = transpose32x2_np(q[..., 2], q[..., 3])
+                    for j, xj in enumerate((x0, x1, x2, x3)):
+                        T[:, at + WORD * j: at + WORD * (j + 1)] = xj
+                s0, s1 = T[2 * t], T[2 * t + 1]        # (lane, 384) each
+                for warp in range(16):
+                    a_base, b_base = (warp & 7) * 32, (warp >> 3) * 64
+                    for i in range(2):
+                        ar = a_base + 16 * i + g
+                        af = np.stack([s0[lane, ar], s0[lane, ar + 8],
+                                       s1[lane, ar], s1[lane, ar + 8]], -1)
+                        for j in range(8):
+                            col = b_off + b_base + 8 * j + g
+                            bf = np.stack([s0[lane, col], s1[lane, col]], -1)
+                            acc[warp, i, j] += mma_b1_np(af, bf)
+            for warp in range(16):
+                a_base, b_base = (warp & 7) * 32, (warp >> 3) * 64
+                for i, h, q in np.ndindex(2, 2, 2):
+                    word = np.zeros(WORD, np.uint32)
+                    for jj in range(4):
+                        c = acc[warp, i, 4 * q + jj]
+                        word |= ((c[:, 2 * h] & 1) << (8 * jj + 2 * t)
+                                 ).astype(np.uint32)
+                        word |= ((c[:, 2 * h + 1] & 1) << (8 * jj + 2 * t + 1)
+                                 ).astype(np.uint32)
+                    word = np.bitwise_or.reduce(word.reshape(8, 4), axis=1)
+                    a = (ra * GG_REGION_A + a_base + 16 * i + 8 * h
+                         + np.arange(8))
+                    wb = yb0 + (b_base >> 5) + q
+                    if a[0] < 2 * n and wb < W:
+                        G[a, wb] ^= word
+    return G
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,14 @@
-"""Design measurements of the four kernels on the card.
+"""Design measurements of the kernels on the card.
 
     python -m block_lanczos_tpu_torch.utils.kernel_sweeps
     python -m block_lanczos_tpu_torch.utils.kernel_sweeps --kernels gram_mod
+    python -m block_lanczos_tpu_torch.utils.kernel_sweeps \
+        --kernels spmv_gf2,gram_gf2 --matrix 3Mx2M
 
-What chose the two kernels' shapes, on the bench matrix (utils/gen.py's
-BENCH_* configuration, the one chip_smoke.py and profile_solve use), as
-torch.profiler's device time per launch; every variant's outputs are first
-held equal to the default build's:
+What chose the kernels' shapes, on the bench matrix (utils/gen.py's
+BENCH_* configuration, the one chip_smoke.py and profile_solve use) unless
+said otherwise, as torch.profiler's device time per launch; every
+variant's outputs are first held equal to the default build's:
   * spmv_ell by direction (M^T v, with its spill; M tmp, without) at n = 4
     and n = 32;
   * spmv_ell's M^T v at n = 4 on a slab-only layout (ell = the longest row,
@@ -26,7 +28,14 @@ held equal to the default build's:
     with the n at which the tensor-core path takes over (GRAM_MMA_MIN_N,
     ORTHO_MMA_MIN_N) forced to each of 4, 8, 16, 32, 64, and with the
     shapes of EXTRA (gram_mod's rows per load round, rows per tensor-core
-    stage and stages in flight; orthogonalize's warps per tensor-core CTA).
+    stage and stages in flight; orthogonalize's warps per tensor-core CTA);
+  * GF(2), on the bench or the 3M x 2M matrix mod 2 (--matrix): the tensor
+    cores' binary mma.sync rate (mma_rate: m16n8k256 .and.popc);
+    gram_gf2 at n in GF2_GRAM_NS on as many random rows as the matrix's
+    longer side, as built and with other ring depths (GG_STAGES);
+    spmv_gf2 per product in both directions at n = 128 and 256, in 1 to 4
+    column bands (and which the solver picks from the card's L2), and
+    unbanded with other (SPMV_GF2_CHUNK, SPMV_GF2_THREADS).
 Each variant is an nvcc build of its own into build/kernels/ (all started
 together); the solver never runs them.  Needs a CUDA device and nvcc;
 prints one JSON line last.
@@ -61,7 +70,17 @@ EXTRA = {"gram_mod": (("GRAM_UNROLL", (2, 8), (4,)),
                       ("GRAM_MMA_ROWS", (32, 64), (16, 32, 64)),
                       ("GRAM_MMA_STAGES", (3, 4), (16, 32, 64))),
          "orthogonalize": (("ORTHO_MMA_WARPS", (2, 4), (16, 32, 64)),)}
-KERNELS = ("spmv_ell", "semi_inverse", "gram_mod", "orthogonalize")
+KERNELS = ("spmv_ell", "semi_inverse", "gram_mod", "orthogonalize",
+           "spmv_gf2", "gram_gf2")
+# GF(2): spmv_gf2's column bands and (SPMV_GF2_CHUNK, SPMV_GF2_THREADS)
+# shapes; gram_gf2 at every width class and with GG_STAGES beside the
+# default 2
+GF2_BANDS = (1, 2, 3, 4)
+GF2_SPMV_SHAPES = ((4, 128), (16, 128), (8, 64), (8, 256))
+GF2_GRAM_NS = (32, 64, 128, 160, 256, 512)
+GF2_GRAM_VARIANTS = (("GG_STAGES", 3), ("GG_STAGES", 4))
+# operations of one binary m16n8k256 mma.sync (2 per multiply-add)
+MMA_B1_OPS = 2 * 16 * 8 * 256
 # csrc/semi_inverse.cu's SI_TIMELINE slots
 (T_START, T_LOADED, T_PHASE1, T_P2INIT, T_PHASE2, T_WINV, T_CHECK, T_RHS,
  T_END, T_NS_START, T_NS_END) = range(11)
@@ -289,6 +308,120 @@ def ortho_sweeps(s, rng, dev) -> dict:
                         EXTRA["orthogonalize"])
 
 
+def mma_rate(target_ms: float = 20.0) -> float:
+    """Operations per second of the tensor cores' binary mma.sync (the
+    m16n8k256 .and.popc of gram_gf2) on the card, as gram_gf2_rate measures
+    them (csrc/gram_gf2.cu).  Four CTAs of 8 warps per SM; the round count is scaled so that a launch takes
+    about target_ms; the median of 3 launches (CUDA events)."""
+    import torch
+
+    from block_lanczos_tpu_torch import kernels
+    lib = kernels._library("gram_gf2")
+    fn = lib.gram_gf2_rate
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+    fn.restype = ctypes.c_int
+    sink = torch.zeros(1, dtype=torch.int32, device="cuda")
+    blocks = 4 * torch.cuda.get_device_properties(0).multi_processor_count
+    threads = 256
+
+    def timed(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = fn(blocks, threads, iters, sink.data_ptr(),
+                torch.cuda.current_stream().cuda_stream)
+        end.record()
+        if rc != 0:
+            raise RuntimeError(f"gram_gf2_rate failed to launch: error {rc}")
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    timed(4)
+    iters = max(16, int(16 * target_ms / max(timed(16), 1e-3)))
+    ms = statistics.median(timed(iters) for _ in range(3))
+    ops = blocks * (threads // 32) * iters * 8 * MMA_B1_OPS
+    return ops / (ms / 1e3)
+
+
+def _gf2_matrix(name: str):
+    """(i, j, nrows, ncols) of the odd entries of profile_solve's matrix
+    `name` mod 2."""
+    from block_lanczos_tpu_torch.utils.profile_solve import _matrix
+    M = _matrix(name, 2)
+    odd = (M.x & 1) == 1
+    return M.i[odd], M.j[odd], M.nrows, M.ncols
+
+
+def spmv_gf2_sweeps(coo, rng, dev) -> dict:
+    """spmv_gf2's device ms per product (all bands) by direction, n = 128
+    and 256, column bands (GF2_BANDS; `auto` records what BlockLanczosGF2
+    picks on this card) and, unbanded, CTA shape."""
+    import torch
+
+    from block_lanczos_tpu_torch import kernels
+    from block_lanczos_tpu_torch.models import lanczos_gf2 as G
+    i, j, nrows, ncols = coo
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    out = {"l2_bytes": l2, "auto": {}}
+    for d, (oi, ii, od, idim) in {"Mt*v": (j, i, ncols, nrows),
+                                  "M*tmp": (i, j, nrows, ncols)}.items():
+        xs = {n: torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, size=(idim, n // 32), dtype=np.int64
+        ).astype(np.int32)).to(dev) for n in (128, 256)}
+        want = {}
+        for n in xs:
+            out["auto"][f"{d} n={n}"] = G.choose_bands(idim, n // 32, l2)
+        for bands in GF2_BANDS:
+            op = tuple(b.to(dev) for b in G.make_gf2_bands(
+                oi, ii, od, idim, bands))
+            for n, x in xs.items():
+                def product():
+                    return G.spmv_gf2(op, x, od)
+                y = product()
+                if n in want:
+                    _equal(f"spmv_gf2 {d} n={n} bands={bands}", [y],
+                           [want[n]])
+                else:
+                    want[n] = y.clone()
+                key = f"{d} n={n} bands={bands}"
+                out[key] = device_ms(product, "spmv_gf2_kernel") * bands
+                if bands == 1:
+                    for c, t in GF2_SPMV_SHAPES:
+                        with kernels.variant("spmv_gf2", SPMV_GF2_CHUNK=c,
+                                             SPMV_GF2_THREADS=t):
+                            _equal(key, [product()], [want[n]])
+                            out[f"{key} chunk={c} threads={t}"] = device_ms(
+                                product, "spmv_gf2_kernel")
+            del op
+            torch.cuda.empty_cache()
+    return out
+
+
+def gram_gf2_sweeps(rows, rng, dev) -> dict:
+    """gram_gf2's device ms per launch at every n of GF2_GRAM_NS on `rows`
+    random rows, as built and as each build of GF2_GRAM_VARIANTS (held
+    equal to the default build); and the binary mma.sync's measured rate."""
+    import torch
+
+    from block_lanczos_tpu_torch import kernels
+    from block_lanczos_tpu_torch.ops import gf2
+    out = {"b1_ops_per_s": mma_rate()}
+    for n in GF2_GRAM_NS:
+        v, av = (torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, size=(rows, n // 32), dtype=np.int64
+        ).astype(np.int32)).to(dev) for _ in range(2))
+        want = gf2.gram_gf2(v, av).clone()
+        out[f"n={n}"] = device_ms(lambda: gf2.gram_gf2(v, av),
+                                  "gram_gf2_kernel")
+        for macro, val in GF2_GRAM_VARIANTS:
+            with kernels.variant("gram_gf2", **{macro: val}):
+                key = f"n={n} {macro}={val}"
+                _equal(f"gram_gf2 {key}", [gf2.gram_gf2(v, av)], [want])
+                out[key] = device_ms(lambda: gf2.gram_gf2(v, av),
+                                     "gram_gf2_kernel")
+    return out
+
+
 def _timeline(st, n) -> dict:
     cycles = st[T_END] - st[T_START]
     ghz = cycles / max(st[T_NS_END] - st[T_NS_START], 1)
@@ -328,6 +461,11 @@ def _variants(names) -> list:
         if name in names:
             out += [(name, {macro: val}) for macro, values, _ in extra
                     for val in values]
+    if "spmv_gf2" in names:
+        out += [("spmv_gf2", {"SPMV_GF2_CHUNK": c, "SPMV_GF2_THREADS": t})
+                for c, t in GF2_SPMV_SHAPES]
+    if "gram_gf2" in names:
+        out += [("gram_gf2", {m: v}) for m, v in GF2_GRAM_VARIANTS]
     return out
 
 
@@ -356,7 +494,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated subset of " + ", ".join(KERNELS))
-    names = ap.parse_args(argv).kernels.split(",")
+    ap.add_argument("--matrix", choices=("bench", "3Mx2M"), default="bench",
+                    help="the GF(2) sweeps' matrix, mod 2 (the narrow ones "
+                         "run on the bench matrix)")
+    args = ap.parse_args(argv)
+    names = args.kernels.split(",")
     if not set(names) <= set(KERNELS):
         raise SystemExit(f"--kernels takes a subset of {KERNELS}")
     if not torch.cuda.is_available():
@@ -368,6 +510,30 @@ def main(argv=None) -> int:
         list(pool.map(lambda v: kernels.build([v[0]], v[1]), variants))
     kernels.load_all()
 
+    rng = np.random.default_rng(7)
+    res = {"card": card}
+    print(f"card: {card}; device ms per launch (torch.profiler, {REPS} "
+          f"launches)")
+    if "gram_gf2" in names:
+        coo = _gf2_matrix(args.matrix)
+        rows = coo[2] if coo[2] > coo[3] else coo[3]
+        res["gram_gf2"] = gg = gram_gf2_sweeps(rows, rng, dev)
+        print(f"  binary mma.sync rate (gram_gf2_rate): "
+              f"{gg['b1_ops_per_s'] / 1e12:.1f} TOP/s")
+        print(f"  gram_gf2 on {rows} rows ({args.matrix}): " + ", ".join(
+            f"{k} {ms:.4f}" for k, ms in gg.items() if k.startswith("n=")))
+    if "spmv_gf2" in names:
+        if "gram_gf2" not in names:
+            coo = _gf2_matrix(args.matrix)
+        res["spmv_gf2"] = sg = spmv_gf2_sweeps(coo, rng, dev)
+        print(f"  spmv_gf2 ({args.matrix}, L2 {sg['l2_bytes']} B, "
+              f"auto bands {sg['auto']}), ms per product: " + ", ".join(
+                  f"{k} {ms:.4f}" for k, ms in sg.items()
+                  if k not in ("l2_bytes", "auto")))
+    if not set(names) & {"spmv_ell", "semi_inverse", "gram_mod",
+                         "orthogonalize"}:
+        print(json.dumps(res))
+        return 0
     i, j, x = gen.random_sparse(gen.BENCH_NROWS, gen.BENCH_NCOLS,
                                 gen.BENCH_DENSITY, gen.BENCH_SEED)
     M = COOMatrix(gen.BENCH_NROWS, gen.BENCH_NCOLS, len(x),
@@ -375,10 +541,6 @@ def main(argv=None) -> int:
                   (x % gen.BENCH_PRIME).astype(np.uint32), gen.BENCH_PRIME)
     s = L.BlockLanczos(M, n=4, device=dev)
     p = s.f.p
-    rng = np.random.default_rng(7)
-    res = {"card": card}
-    print(f"card: {card}; device ms per launch (torch.profiler, {REPS} "
-          f"launches)")
     if "spmv_ell" in names:
         res["spmv_ell"] = sp = spmv_sweeps(s, M, rng, dev)
         for k, ms in sp["by_direction"].items():

@@ -143,10 +143,13 @@ def profile_width(M, gf2: bool, n: int, label: str) -> dict:
     iter_ms = prof_s / iters * 1e3
     card = _card()
     field = "gf2" if gf2 else "narrow"
+    bands = ([len(op) for op in (s.first_op, s.second_op)]
+             if gf2 else None)
     print(f"card: {card}; {field} n={n}, matrix {label} ({M.nrows} x "
           f"{M.ncols}, {M.nnz} entries, {s.nnz if gf2 else M.nnz} in the "
-          f"operator), {iters} iterations; solver setup {setup_s[0]:.1f} s, "
-          f"v0 {setup_s[1]:.1f} s")
+          f"operator{f', column bands {bands}' if gf2 else ''}), {iters} "
+          f"iterations; solver setup {setup_s[0]:.1f} s, v0 "
+          f"{setup_s[1]:.1f} s")
     print(f"  wall: {plain_s / iters * 1e3:.4f} ms/iter unprofiled, "
           f"{iter_ms:.4f} ms/iter profiled; host issue "
           f"{issue_s / iters * 1e3:.4f} ms/iter (unprofiled, before the "
@@ -164,7 +167,7 @@ def profile_width(M, gf2: bool, n: int, label: str) -> dict:
         print("  the profiler recorded no device time: busy share not "
               "measured")
     record = {"card": card, "field": field, "n": n,
-              "matrix": label, "iters": iters,
+              "matrix": label, "iters": iters, "bands": bands,
               "wall_ms_per_iter": plain_s / iters * 1e3,
               "issue_ms_per_iter": issue_s / iters * 1e3,
               "profiled_ms_per_iter": iter_ms,

@@ -27,14 +27,19 @@ failure:
      states); then the GF(2) kernels on the bench matrix mod 2 at n = 128
      and 256 in both directions and at n = 32, 64, 160 and 512 (slabs wider
      than 32, an empty spill, one long spill row, rows a multiple of no
-     CTA, all-ones x and bit 31 set everywhere, misaligned views; zero,
-     singular and full-rank Grams, a failing invariant, the check off; d
-     all 0, all 1 and mixed under running, stopped, failed and frozen
-     states): exact equality, since the arithmetic is exact; time each
-     (CUDA events, median), and print gram_mod's and orthogonalize's
-     n = 32 times and bounds beside the card, and the GF(2) kernels' n = 128
-     times, bounds and library yardsticks (torch._int_mm of the unpacked
-     bits for gram_gf2 and orthogonalize_gf2);
+     CTA, all-ones x and bit 31 set everywhere, misaligned views; for
+     spmv_gf2 2, 3 and 7 column bands, some empty, and a 96 MB x past the
+     L2 in one band and in the solver's bands; for gram_gf2 every W = 1 ..
+     16 at N = 1, 255, 256, 257 and 20011; zero, singular and full-rank
+     Grams, a failing invariant, the check off; d all 0, all 1 and mixed
+     under running, stopped, failed and frozen states): exact equality,
+     since the arithmetic is exact; time each (CUDA events, median), and
+     print the binary tensor cores' measured rate (gram_gf2_rate: the
+     m16n8k256 .and.popc mma.sync of gram_gf2), gram_mod's and
+     orthogonalize's n = 32 times and bounds beside the card, and the GF(2)
+     kernels' n = 128 times, bounds (the GF(2) products' at the measured
+     binary rate, n = 256's too) and library yardsticks (torch._int_mm of
+     the unpacked bits for gram_gf2 and orthogonalize_gf2);
   3. solve the 9 goldens on the card (left_p2_n32 through the GF(2)
      solver): every kernel file must be byte-identical to its golden;
   4. the main path at full size: generate the bench matrix (300000 x
@@ -52,9 +57,11 @@ failure:
      vector required); the kernel written must pass the port's checker at
      p = 2, and the launch counts must show every GF(2) kernel in every
      iteration;
-  7. 50 iterations of BlockLanczosGF2(n=64, dedup=False) and of the narrow
-     BlockLanczos at p = 2, n = 64 (its CUDA kernels), each from its own
-     xoshiro v0 (the same bits): the unpacked v and p must be equal;
+  7. 50 iterations of BlockLanczosGF2(n=64, dedup=False), of the same
+     solver on operators split into 2 column bands each (one spmv_gf2
+     launch a band), and of the narrow BlockLanczos at p = 2, n = 64 (its
+     CUDA kernels), each from its own xoshiro v0 (the same bits): the
+     unpacked v and p must be equal;
   8. a timed block of 100 GF(2) iterations at n = 256, with launch counts;
   9. print the kernels JSON line (eight kernels), the card line, and the
      result line.
@@ -408,28 +415,31 @@ def gf2_grams(rng, n, rank, device, full=False):
     return torch.from_numpy(w).to(device)
 
 
-def gf2_spmv_bound(op, W, out_rows):
-    """Column indices of the true nonzeros, the valid words and rowptr read,
-    x read once, y written once; one word XOR per nonzero and word."""
-    nbytes = 4 * (op.nnz + op.valid.numel() + op.out_dim + 1
-                  + op.in_dim * W + out_rows * W)
-    return bound(nbytes, op.nnz * W, LOP3_OPS_PER_S)
+def gf2_spmv_bound(ops, W, out_rows):
+    """Over the bands `ops`: column indices of the true nonzeros, the valid
+    words and rowptr read, x read once, y written once; one word XOR per
+    nonzero and word."""
+    nnz = sum(b.nnz for b in ops)
+    nbytes = 4 * (nnz + sum(b.valid.numel() + b.out_dim + 1 for b in ops)
+                  + ops[0].in_dim * W + out_rows * W)
+    return bound(nbytes, nnz * W, LOP3_OPS_PER_S)
 
 
-def gf2_gram_bound(N, n):
-    """v and Av read once, G written; one mask-and-XOR per output row,
-    input row and word."""
+def gf2_gram_bound(N, n, ops_per_s):
+    """v and Av read once, G written; 2n x n bit multiply-adds per row
+    (2 operations each) on the binary tensor cores, at ops_per_s (the rate
+    gram_gf2_rate measures)."""
     W = n // 32
-    return bound(4 * (2 * N * W + 2 * n * W), 2 * n * N * W, LOP3_OPS_PER_S)
+    return bound(4 * (2 * N * W + 2 * n * W), 2 * N * 2 * n * n, ops_per_s)
 
 
-def gf2_ortho_bound(N, n):
-    """v, p, Av read, v and p written, rhs and d read; one mask-and-XOR per
-    row, rhs row and word (3 n W per row: the p rows' right half is
-    zero)."""
+def gf2_ortho_bound(N, n, ops_per_s):
+    """v, p, Av read, v and p written, rhs and d read; 3 n^2 bit
+    multiply-adds per row (the p rows' right half of rhs is zero), as on
+    the binary tensor cores at ops_per_s."""
     W = n // 32
-    return bound(4 * (5 * N * W + 4 * n * W + n + 4), 3 * n * W * N,
-                 LOP3_OPS_PER_S)
+    return bound(4 * (5 * N * W + 4 * n * W + n + 4), 2 * N * 3 * n * n,
+                 ops_per_s)
 
 
 def int_mm_parity(A01, B01):
@@ -445,13 +455,18 @@ def check_spmv_gf2(rec, rng, dev, G, sg):
     second matrix, both directions; forced slabs wider than 32 (two and
     three valid words), an empty spill, one long spill row, out_dim a
     multiple of no CTA, all-ones x, bit 31 set everywhere, x and y off
-    their 16-byte alignment.  Times n = 128 (the mean of the directions)."""
+    their 16-byte alignment; 2, 3 and 7 column bands (some empty); x past
+    the L2 (96 MB) in one band and in the solver's bands.  Times n = 128
+    (the mean of the directions)."""
     import torch
     from block_lanczos_tpu_torch.utils import gen
 
-    def case(what, op, x, out_rows, out=None):
-        rec.agree(what, G.spmv_gf2(op, x, out_rows, out=out),
-                  G.spmv_gf2_plain(op, x, out_rows))
+    def case(what, ops, x, out_rows, out=None):
+        rec.agree(what, G.spmv_gf2(ops, x, out_rows, out=out),
+                  G.spmv_gf2_plain(ops, x, out_rows))
+
+    def bands_on(*args):
+        return tuple(b.to(dev) for b in G.make_gf2_bands(*args))
 
     ms, plain, bounds = [], [], []
     for n in (128, 256):
@@ -481,7 +496,7 @@ def check_spmv_gf2(rec, rng, dev, G, sg):
         op = G.make_gf2_op(oi, ii, out_dim, in_dim)
         if out_dim == EDGE_ROWS:
             assert op.spill_nnz >= 5000, "long spill row missing"
-        op = op.to(dev)
+        op = (op.to(dev),)
         for n in GF2_EDGE_NS:
             x = rand_words(rng, in_dim + 5, n // 32, dev)
             case(f"edge n={n} out={out_dim}", op, x, out_dim + 13)
@@ -493,29 +508,55 @@ def check_spmv_gf2(rec, rng, dev, G, sg):
         op = G.make_gf2_op(rows, rng.integers(0, 250, rows.size), 301, 250,
                            ell=ell)
         assert op.valid.shape[0] == (ell + 31) // 32 > 1 and op.spill_nnz
-        op = op.to(dev)
+        op = (op.to(dev),)
         for n in (32, 128, 160):
             case(f"ell={ell} n={n}", op, rand_words(rng, 250, n // 32, dev),
                  307)
-    op = G.make_gf2_op(np.arange(999) % 333, np.arange(999) % 71, 333,
-                       71).to(dev)
+    op = G.make_gf2_op(np.arange(999) % 333, np.arange(999) % 71, 333, 71)
     assert op.spill_nnz == 0
-    case("empty spill", op, rand_words(rng, 71, 4, dev), 341)
+    case("empty spill", (op.to(dev),), rand_words(rng, 71, 4, dev), 341)
     op = sg.second_op
     for skew in (1, 2):
         x = skewed(rand_words(rng, sg.mp_rows, 4, dev), skew)
         y = skewed(torch.empty((sg.np_rows, 4), dtype=torch.int32,
                                device=dev), skew)
         case(f"misaligned by {skew} words", op, x, sg.np_rows, out=y)
+    # column bands: the edge matrix without columns 5000..9999, so that
+    # some of 7 bands hold no entry and most rows miss some band
+    keep = (j < 5000) | (j >= 10000)
+    for bands in (2, 3, 7):
+        op = bands_on(i[keep], j[keep], EDGE_ROWS, 15013, bands)
+        for n in (32, 128, 160):
+            case(f"bands={bands} n={n}", op,
+                 rand_words(rng, 15013 + 5, n // 32, dev), EDGE_ROWS + 13)
+        x = skewed(rand_words(rng, 15013, 4, dev))
+        case(f"bands={bands} misaligned", op, x, EDGE_ROWS + 13)
+    # x past the L2: 3M rows at n = 256 (96 MB), 500k output rows of 10
+    # entries, from the seed; one band and the bands the solver would take
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    in_dim, out_dim = 3_000_000, 500_000
+    oi = np.repeat(np.arange(out_dim), 10)
+    ii = rng.integers(0, in_dim, oi.size)
+    x = rand_words(rng, in_dim, 8, dev)
+    mb = x.numel() * 4 / 2 ** 20
+    assert mb >= 64, mb
+    for bands in (1, G.choose_bands(in_dim, 8, l2)):
+        op = bands_on(oi, ii, out_dim, in_dim, bands)
+        case(f"x {mb:.0f} MB bands={bands}", op, x, out_dim + 7)
+        print(f"  spmv_gf2 x {mb:.0f} MB (L2 {l2 >> 20} MB), {bands} "
+              f"band(s): {median_ms(lambda: G.spmv_gf2(op, x, out_dim)):.4f}"
+              " ms a product", flush=True)
+    del op, x
     print(f"  spmv_gf2: {rec.cases} cases equal", flush=True)
 
 
-def check_gram_gf2(rec, rng, dev, gf2, avs):
+def check_gram_gf2(rec, rng, dev, gf2, avs, b1_rate):
     """gram_gf2 against gram_gf2_plain: the bench's [v | Av]^T Av at n = 128
     and 256 (`avs`: {n: (v, Av)}), every edge width at N a multiple of no
     staging round, N = 1, all-ones blocks.  Times n = 128 and the library
     yardstick (torch._int_mm of the unpacked bits, with the unpack's
-    time).  Returns (unpack_ms, int_mm_ms)."""
+    time); bounds it at the measured binary rate b1_rate.  Returns
+    (unpack_ms, int_mm_ms)."""
     import torch
 
     def case(what, v, av):
@@ -526,7 +567,7 @@ def check_gram_gf2(rec, rng, dev, gf2, avs):
     v, av = avs[128]
     rec.ms = median_ms(lambda: gf2.gram_gf2(v, av))
     rec.plain_ms = median_ms(lambda: gf2.gram_gf2_plain(v, av), reps=5)
-    rec.bound_ms, rec.bound_by = gf2_gram_bound(v.shape[0], 128)
+    rec.bound_ms, rec.bound_by = gf2_gram_bound(v.shape[0], 128, b1_rate)
 
     def unpack():
         X = gf2.unpack_bits(torch.cat([v, av], dim=1)).to(torch.int8)
@@ -537,13 +578,14 @@ def check_gram_gf2(rec, rng, dev, gf2, avs):
     lib = gf2.pack_bits(int_mm_parity(XT, A))
     rec.agree("library yardstick n=128", lib, gf2.gram_gf2(v, av))
     rec.library_ms = median_ms(lambda: int_mm_parity(XT, A))
-    for n in GF2_EDGE_NS:
-        W = n // 32
-        for N in (EDGE_ROWS, 1):
-            case(f"n={n} N={N}", rand_words(rng, N, W, dev),
+    # every W = n / 32 (every region shape of the kernel), N a multiple of
+    # no K-tile, one K-tile and either side of it, N = 1; bit 31 set
+    for W in range(1, 17):
+        for N in (EDGE_ROWS, 1, 255, 256, 257):
+            case(f"n={32 * W} N={N}", rand_words(rng, N, W, dev),
                  rand_words(rng, N, W, dev))
         ones = torch.full((EDGE_ROWS, W), -1, dtype=torch.int32, device=dev)
-        case(f"all ones n={n}", ones, ones.clone())
+        case(f"all ones n={32 * W}", ones, ones.clone())
     print(f"  gram_gf2: {rec.cases} cases equal", flush=True)
     return unpack_ms, rec.library_ms
 
@@ -579,8 +621,12 @@ def check_si_gf2(rec, rng, dev, gf2, real_grams):
     # LOP3 a masked XOR
     rec.set_bound(4 * (2 * n * W + n * W + n + 1 + 4 * n * W + 4),
                   3 * n * n * W + 2 * n * n * W, LOP3_OPS_PER_S)
+    # the chain: 2n dependent pivot steps, each at least a warp reduction
+    # and a barrier, ~100 cycles at the 1.98 GHz boost clock
+    chain_ms = 2 * n * 100 / 1.98e9 * 1e3
     rec.note = ("latency-bound: the 2n pivot steps run one after another in "
-                "one CTA, so neither bytes nor operations bound it")
+                "one CTA, so neither bytes nor operations bound it; the "
+                f"chain of 2n >= ~100-cycle steps is >= {chain_ms:.4f} ms")
     for n in GF2_EDGE_NS + (128, 256):
         for rank in (0, n // 3, n + 7):
             got, s_k = case(f"n={n} rank<={rank}",
@@ -603,13 +649,14 @@ def check_si_gf2(rec, rng, dev, gf2, real_grams):
     print(f"  semi_inverse_gf2: {rec.cases} cases equal", flush=True)
 
 
-def check_ortho_gf2(rec, rng, dev, G, gf2, avs, real_si):
+def check_ortho_gf2(rec, rng, dev, G, gf2, avs, real_si, b1_rate):
     """orthogonalize_gf2 against orthogonalize_gf2_plain: the bench rows
     at n = 128 and 256 with the bench's right-hand side, running and
     stopped; every edge width with d all 0, all 1 and mixed under running,
     stopped, failed-invariant and frozen states; N = 1.  v and p rows
-    differ and carry bit 31.  Times n = 128 and the library yardstick.
-    Returns (unpack_ms, int_mm_ms)."""
+    differ and carry bit 31.  Times n = 128 and the library yardstick;
+    bounds it at the measured binary rate b1_rate.  Returns (unpack_ms,
+    int_mm_ms)."""
     import torch
 
     def case(what, v, pb, av, rhs, d, state):
@@ -657,7 +704,7 @@ def check_ortho_gf2(rec, rng, dev, G, gf2, avs, real_si):
     rec.plain_ms = median_ms(
         lambda: G.orthogonalize_gf2_plain(vk, pk, av, si.rhs, si.d,
                                           st.clone()), reps=5)
-    rec.bound_ms, rec.bound_by = gf2_ortho_bound(v.shape[0], 128)
+    rec.bound_ms, rec.bound_by = gf2_ortho_bound(v.shape[0], 128, b1_rate)
 
     def unpack():
         X = gf2.unpack_bits(torch.cat([v, pb], dim=1)).to(torch.int8)
@@ -693,6 +740,11 @@ def check_gf2_kernels(recs, rng, dev, sg):
     from block_lanczos_tpu_torch.ops import gf2
     from block_lanczos_tpu_torch.ops.semi_inverse import new_state
 
+    from block_lanczos_tpu_torch.utils.kernel_sweeps import mma_rate
+    b1_rate = mma_rate()
+    print(f"  binary tensor-core rate, measured (gram_gf2_rate, mma.sync "
+          f"m16n8k256 .and.popc): {b1_rate / 1e12:.1f} TOP/s; the GF(2) "
+          "products are bounded at it", flush=True)
     check_spmv_gf2(recs["spmv_gf2"], rng, dev, G, sg)
     avs, real_grams, real_si = {}, {}, {}
     for n in (128, 256):
@@ -701,10 +753,17 @@ def check_gf2_kernels(recs, rng, dev, sg):
         avs[n] = (v, G.spmv_gf2(sg.second_op, tmp, sg.np_rows))
         real_grams[n] = gf2.gram_gf2(*avs[n])
         real_si[n] = gf2.semi_inverse_gf2(real_grams[n], new_state(dev))
-    g_unpack, g_lib = check_gram_gf2(recs["gram_gf2"], rng, dev, gf2, avs)
+    g_unpack, g_lib = check_gram_gf2(recs["gram_gf2"], rng, dev, gf2, avs,
+                                     b1_rate)
     check_si_gf2(recs["semi_inverse_gf2"], rng, dev, gf2, real_grams)
     o_unpack, o_lib = check_ortho_gf2(recs["orthogonalize_gf2"], rng, dev, G,
-                                      gf2, avs, real_si)
+                                      gf2, avs, real_si, b1_rate)
+    N = avs[128][0].shape[0]
+    print("  GF(2) products' bounds at the measured binary rate, n=256: "
+          + "; ".join(f"{name} {b[0]:.6f} ms ({b[1]})"
+                      for name, fn in (("gram_gf2", gf2_gram_bound),
+                                       ("orthogonalize_gf2", gf2_ortho_bound))
+                      for b in [fn(N, 256, b1_rate)]), flush=True)
     for name in ("gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"):
         r = recs[name]
         print(f"  {name} n=128: {r.ms:.4f} ms, plain {r.plain_ms:.4f} ms, "
@@ -792,9 +851,11 @@ def main() -> int:
     gsolver = G.BlockLanczosGF2(M2, n=128, device=dev)
     print(f"  mod 2: {gsolver.nnz} odd entries, dedup dropped "
           f"{gsolver.dedup_dropped}; GF(2) layout built in "
-          f"{time.time() - t3:.1f} s: Mt ell {gsolver.first_op.ell} spill "
-          f"{gsolver.first_op.spill_nnz}, M ell {gsolver.second_op.ell} "
-          f"spill {gsolver.second_op.spill_nnz}", flush=True)
+          f"{time.time() - t3:.1f} s: " + ", ".join(
+              f"{name} ell {b.ell} spill {b.spill_nnz}"
+              for name, ops in (("Mt", gsolver.first_op),
+                                ("M", gsolver.second_op)) for b in ops),
+          flush=True)
 
     # ---- phase 2: kernels against their plain versions ---------------------
     print("phase 2: kernels against their plain versions (tolerance 0: the "
@@ -1066,10 +1127,18 @@ def main() -> int:
         assert gcounts[name] >= git, gcounts
 
     # ---- phase 7: GF(2) against the narrow kernels at p = 2 ----------------
-    print("phase 7: 50 iterations of BlockLanczosGF2(n=64, dedup=False) and "
-          "of the narrow BlockLanczos at p=2, n=64", flush=True)
+    print("phase 7: 50 iterations of BlockLanczosGF2(n=64, dedup=False), of "
+          "the same on operators in 2 column bands, and of the narrow "
+          "BlockLanczos at p=2, n=64", flush=True)
     from block_lanczos_tpu_torch.ops import gf2
     g64 = G.BlockLanczosGF2(M2, n=64, dedup=False, device=dev)
+    b64 = G.BlockLanczosGF2(M2, n=64, dedup=False, device=dev)
+    odd = (M2.x & 1) == 1
+    fwd, bwd = (tuple(b.to(dev) for b in G.make_gf2_bands(
+        o, c, out_dim, in_dim, 2)) for o, c, out_dim, in_dim in (
+            (M2.i[odd], M2.j[odd], M2.nrows, M2.ncols),
+            (M2.j[odd], M2.i[odd], M2.ncols, M2.nrows)))
+    b64.first_op, b64.second_op = bwd, fwd           # the left kernel
     n64 = L.BlockLanczos(M2, n=64, device=dev)
     assert (g64.np_rows, g64.mp_rows) == (n64.np_rows, n64.mp_rows)
     last = {}
@@ -1080,15 +1149,22 @@ def main() -> int:
         return on_iteration
 
     g64.solve(stop_after=50, on_iteration=grab("gf2"))
+    G.reset_launch_counts()
+    b64.solve(stop_after=50, on_iteration=grab("banded"))
+    bcounts = G.launch_counts()
     n64.solve(stop_after=50, on_iteration=grab("narrow"))
-    (gv, gp_, git50), (nv, np_, nit50) = last["gf2"], last["narrow"]
-    assert git50 == nit50 == 50, (git50, nit50)
-    for name, g, nb in (("v", gv, nv), ("p", gp_, np_)):
-        if not torch.equal(gf2.unpack_bits(g), nb):
-            raise AssertionError(f"GF(2) and narrow {name} differ after 50 "
-                                 "iterations")
-    print(f"  v and p equal after 50 iterations ({g64.np_rows} x 64)",
-          flush=True)
+    nv, np_, nit50 = last["narrow"]
+    for key in ("gf2", "banded"):
+        gv, gp_, git50 = last[key]
+        assert git50 == nit50 == 50, (key, git50, nit50)
+        for name, g, nb in (("v", gv, nv), ("p", gp_, np_)):
+            if not torch.equal(gf2.unpack_bits(g), nb):
+                raise AssertionError(f"GF(2) ({key}) and narrow {name} "
+                                     "differ after 50 iterations")
+    assert bcounts["spmv_gf2"] >= 4 * 50, bcounts
+    print(f"  v and p equal after 50 iterations ({g64.np_rows} x 64), "
+          f"unbanded and in 2 bands (spmv_gf2 launches "
+          f"{bcounts['spmv_gf2']})", flush=True)
 
     # ---- phase 8: n = 256 ----------------------------------------------------
     print("phase 8: 100 iterations at n=256 (GF(2))", flush=True)

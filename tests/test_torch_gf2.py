@@ -9,7 +9,10 @@
     right-hand side, on zero, singular and full-rank Grams;
   * the layout (build_gf2_arrays and convert.gf2_op_from_jax) and spmv_gf2
     on slabs of one and of several valid words (the JAX fori path), with a
-    spill;
+    spill; the column-banded layout (1 to 7 bands, some empty) and its
+    banded product, and the band count the L2 size gives;
+  * the gram_gf2 kernel's tiling on the binary tensor cores through its
+    NumPy mirror (transpose32x2_np, mma_b1_np, gram_gf2_tiles_np);
   * dedup_lines, passthrough and compacting;
   * the kernels' C constants against the Python that sizes their buffers.
 """
@@ -194,9 +197,81 @@ def test_spmv_gf2_matches_jax(n, ell):
         want = np.asarray(jax.jit(partial(jlg.spmv_gf2,
                                           out_rows=out_dim + 5))(
             jop, jnp.asarray(x)))
-        got = tlg.spmv_gf2(top, _t(x), out_dim + 5)
+        got = tlg.spmv_gf2((top,), _t(x), out_dim + 5)
         np.testing.assert_array_equal(_u(got), want)
         assert not want[out_dim:].any()
+
+
+@pytest.mark.parametrize("n", [32, 160])
+@pytest.mark.parametrize("bands", [1, 2, 3, 7])
+def test_banded_spmv_gf2_matches_jax(bands, n):
+    """The column-banded layout and its plain banded product against the
+    JAX package's unbanded spmv_gf2: columns 40..69 hold no entry, so some
+    of the 7 bands are empty and most rows miss some band; one row is
+    long; out_rows > out_dim."""
+    rng = np.random.default_rng(bands * 100 + n)
+    i, j, _ = random_sparse(120, 90, 7, seed=bands)
+    keep = (j < 40) | (j >= 70)
+    i = np.concatenate([i[keep], np.full(60, 17)])
+    j = np.concatenate([j[keep], rng.integers(70, 90, 60)])
+    for out_dim, in_dim, oi, ii in ((120, 90, i, j), (90, 120, j, i)):
+        parts = tlg.make_gf2_bands(oi, ii, out_dim, in_dim, bands)
+        assert len(parts) == bands
+        assert sum(b.nnz for b in parts) == len(oi)
+        for k, b in enumerate(parts):
+            lo, hi = in_dim * k // bands, in_dim * (k + 1) // bands
+            used = np.concatenate([b.sp_cols.numpy(), b.cols.numpy()[
+                tgf2.unpack_bits_np(b.valid.numpy().T, b.ell).T == 1]])
+            assert ((used >= lo) & (used < hi)).all()
+        if out_dim == 120:
+            assert min(b.nnz for b in parts) == 0 or bands < 7
+        x = _words(rng, in_dim + 3, n // 32)
+        x[:, 0] |= np.uint32(1 << 31)
+        jop = jlg.make_gf2_op(oi, ii, out_dim, in_dim)
+        want = np.asarray(jax.jit(partial(jlg.spmv_gf2,
+                                          out_rows=out_dim + 5))(
+            jop, jnp.asarray(x)))
+        got = tlg.spmv_gf2(parts, _t(x), out_dim + 5)
+        np.testing.assert_array_equal(_u(got), want)
+        assert not want[out_dim:].any()
+
+
+@pytest.mark.parametrize("in_dim,W,l2,bands", [
+    (300_000, 4, 50 << 20, 1), (3_000_000, 4, 50 << 20, 2),
+    (3_000_000, 8, 50 << 20, 4), (2_000_000, 8, 50 << 20, 3),
+    (10, 16, None, 1)])
+def test_choose_bands_sizes_the_slice_of_x_from_the_l2(in_dim, W, l2, bands):
+    assert tlg.choose_bands(in_dim, W, l2) == bands
+    if l2:
+        assert -(-in_dim // bands) * W * 4 <= l2 * tlg.BAND_L2_SHARE + W * 4
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_transpose32x2_mirror_is_the_bit_transpose(seed):
+    x = _words(np.random.default_rng(seed), 32, 2)
+    x[seed] |= np.uint32(1 << 31)
+    for col, got in enumerate(tgf2.transpose32x2_np(x[:, 0], x[:, 1])):
+        bits = tgf2.unpack_bits_np(x[:, col:col + 1], 32)
+        np.testing.assert_array_equal(
+            tgf2.unpack_bits_np(got[:, None], 32), bits.T)
+
+
+@pytest.mark.parametrize("n", [32, 64, 160, 512])
+@pytest.mark.parametrize("N", [1, 255, 256, 257, 1000])
+def test_gram_gf2_tile_mirror_matches_jax(N, n):
+    """The gram_gf2 kernel's K-tiles, transposes, mma fragments and parity
+    packing (ops/gf2.py::gram_gf2_tiles_np) against the JAX package's
+    gram_gf2, with bit 31 set in every word."""
+    rng = np.random.default_rng(N * 7 + n)
+    v, av = _words(rng, N, n // 32), _words(rng, N, n // 32)
+    v |= np.uint32(1 << 31)
+    av |= np.uint32(1 << 31)
+    want = np.asarray(jax.jit(jgf2.gram_gf2, static_argnums=2)(
+        jnp.concatenate([jnp.asarray(v), jnp.asarray(av)], axis=1),
+        jnp.asarray(av), 2 * n))
+    got = tgf2.gram_gf2_tiles_np(v, av)
+    assert got.shape == (2 * n, n // 32)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_spmv_gf2_empty_spill_and_empty_operator():
@@ -205,10 +280,10 @@ def test_spmv_gf2_empty_spill_and_empty_operator():
     x = _words(np.random.default_rng(1), 7, 2)
     jop = jlg.make_gf2_op(np.arange(60) % 20, np.arange(60) % 7, 20, 7)
     np.testing.assert_array_equal(
-        _u(tlg.spmv_gf2(op, _t(x), 24)),
+        _u(tlg.spmv_gf2((op,), _t(x), 24)),
         np.asarray(jlg.spmv_gf2(jop, jnp.asarray(x), 24)))
     empty = tlg.make_gf2_op(np.zeros(0, int), np.zeros(0, int), 5, 4)
-    assert not tlg.spmv_gf2(empty, _t(x[:4]), 8).any()
+    assert not tlg.spmv_gf2((empty,), _t(x[:4]), 8).any()
 
 
 DEDUP_CASES = [
@@ -249,6 +324,10 @@ def test_kernel_constants_match_the_python():
         == tgf2.MAX_N
     gram = (kernels.CSRC / "gram_gf2.cu").read_text()
     assert "#define GG_TICKET (2 * GF2_MAXN * GF2_MAXW)" in gram
+    assert int(re.search(r"#define GG_K (\d+)", gram).group(1)) == tgf2.GG_K
+    for name in ("GG_REGION_A", "GG_REGION_B"):
+        assert int(re.search(rf"#define {name} (\d+)", gram).group(1)) \
+            == getattr(tgf2, name)
     assert tgf2._GRAM_SCRATCH == 2 * tgf2.MAX_N * (tgf2.MAX_N // 32) + 1
     for name in ("spmv_gf2", "gram_gf2", "semi_inverse_gf2",
                  "orthogonalize_gf2"):

@@ -6,7 +6,8 @@ for bit (CPU tensors, so the plain versions of the four GF(2) kernels).
     operators carried over by convert.gf2_op_from_jax), all ten outputs
     equal at every iteration;
   * whole solves, left and right, n = 32 and 64, dedup on and off,
-    including the seed-9 instance whose reference operator breaks down;
+    including the seed-9 instance whose reference operator breaks down,
+    and on operators split into 2, 3 and 7 column bands;
   * a resume from a JAX GF(2) state (convert.gf2_state_from_numpy);
   * left_p2_n32 byte-identical to its golden kernel file;
   * salvage (utils/salvage.py) against the JAX package's, both fields;
@@ -100,7 +101,7 @@ def _ops_from_jax(js):
     def conv(op):
         return gf2_op_from_jax({k: (np.asarray(v) if hasattr(v, "shape")
                                     else v) for k, v in vars(op).items()})
-    return conv(js.first_op), conv(js.second_op)
+    return (conv(js.first_op),), (conv(js.second_op),)
 
 
 @pytest.mark.parametrize("right", [False, True])
@@ -162,6 +163,24 @@ def test_solve_matches_jax(inst, n, right, dedup):
         np.testing.assert_array_equal(got.vtM, want.vtM)
     if inst == "seed9":     # the breakdown without dedup, cured with it
         assert got.product_zero is dedup
+
+
+@pytest.mark.parametrize("right", [False, True])
+@pytest.mark.parametrize("bands", [2, 3, 7])
+def test_banded_solve_matches_jax(bands, right):
+    """A whole solve on operators split into column bands (the layout the
+    solver takes where x outgrows the card's L2) against the JAX package's
+    unbanded solve."""
+    jM, tM = _dup_columns()
+    js = jlg.BlockLanczosGF2(jM, n=32, right=right, dedup=False)
+    ts = tlg.BlockLanczosGF2(tM, n=32, right=right, dedup=False, device="cpu")
+    fwd = tlg.make_gf2_bands(tM.i, tM.j, tM.nrows, tM.ncols, bands)
+    bwd = tlg.make_gf2_bands(tM.j, tM.i, tM.ncols, tM.nrows, bands)
+    ts.first_op, ts.second_op = (fwd, bwd) if right else (bwd, fwd)
+    want, got = js.solve(), ts.solve()
+    assert (got.iterations, got.v_nonzero, got.product_zero) == \
+        (want.iterations, want.v_nonzero, want.product_zero)
+    np.testing.assert_array_equal(got.kernel, want.kernel)
 
 
 def test_resume_from_jax_gf2_state():
