@@ -86,37 +86,6 @@
 #define GG_RING_B (GG_STAGES * GG_SLOTS * 32 * 4)
 #define GG_SMEM_WORDS (GG_RING_A + GG_RING_B + 2 * GG_SLOTS * GG_STRIDE)
 
-// The 32 x 32 bit transpose across a warp, of two matrices at once: lane l
-// holds row l of each (bit c is element (l, c)) and gets column l (bit c is
-// element (c, l)).  Stage j swaps the j x j blocks off the diagonal of every
-// 2j x 2j block: a lane keeps the bits of mask K (lo below, ~lo above the
-// j boundary of lanes) and gives away the others of x1 and of x2, the latter
-// rotated into the free half, in one shuffle (a rotation never wraps here).
-__device__ __forceinline__ void transpose32x2(u32& x1, u32& x2, int lane) {
-#pragma unroll
-  for (int s = 0; s < 5; ++s) {
-    const int j = 16 >> s;
-    const u32 lo = s == 0 ? 0x0000ffffu : s == 1 ? 0x00ff00ffu
-                 : s == 2 ? 0x0f0f0f0fu : s == 3 ? 0x33333333u : 0x55555555u;
-    const bool up = lane & j;
-    const u32 K = up ? ~lo : lo;
-    const int r = up ? j : 32 - j;
-    const u32 give = (x1 & ~K) | __funnelshift_l(x2 & ~K, x2 & ~K, r);
-    const u32 o = __shfl_xor_sync(GF2_FULL_MASK, give, j);
-    x1 = (x1 & K) | __funnelshift_l(o & K, o & K, 32 - r);
-    x2 = (x2 & K) | (o & ~K);
-  }
-}
-
-// c += popc(A & B) on one 16 x 8 x 256 tile of bits.
-__device__ __forceinline__ void mma_b1(int (&c)[4], const u32 (&a)[4],
-                                       const u32 (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
 __device__ __forceinline__ void cp_async4(u32* dst, const int* src, bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),

@@ -18,7 +18,10 @@ version, which the wrapper takes for CPU tensors only:
     tiles, transposes and fragment layout in NumPy for the CPU tests;
   * `semi_inverse_gf2` (csrc/semi_inverse_gf2.cu): the two-phase bit
     Gauss-Jordan, with the invariant checks and the orthogonalize
-    right-hand side, and the solver state's stop / inv_ok latch.
+    right-hand side, and the solver state's stop / inv_ok latch;
+    `semi_inverse_gf2_warp_np` mirrors its one-warp elimination.
+`orthogonalize_gf2_tiles_np` mirrors the tiles of the orthogonalize_gf2
+kernel (models/lanczos_gf2.py) on the binary tensor cores.
 The plain versions of the n x n products (`matmul_gf2`, `transpose_bits`)
 count bits in float64 matrix products (exact: every sum is an integer below
 2^53) and keep the parity.  `dedup_lines` is a verbatim copy of the JAX
@@ -323,6 +326,112 @@ def gram_gf2_tiles_np(v: np.ndarray, av: np.ndarray) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# The orthogonalize_gf2 kernel's tiles on the binary tensor cores, mirrored
+# in NumPy
+# ---------------------------------------------------------------------------
+
+OG_ROWS = 32         # rows a warp tile (csrc/orthogonalize_gf2.cu)
+
+
+def _low_bytes_np(c0, c1, c2, c3) -> np.ndarray:
+    """The kernel's low_bytes: the low byte of count j as byte j."""
+    return ((c0 & 0xff) | ((c1 & 0xff) << 8) | ((c2 & 0xff) << 16)
+            | ((c3 & 0xff) << 24)).astype(np.uint32)
+
+
+def orthogonalize_gf2_tiles_np(v, p, av, rhs, d):
+    """The orthogonalize_gf2 kernel's update, step for step, in NumPy (the
+    halt aside): rhs transposed by 32 x 32 blocks (transpose32x2_np) into
+    fragment order Bf[n8 tile, K-step, lane] = (b0, b1); per warp tile of
+    OG_ROWS rows, lane 4 g + t holds words 4 i + t of rows 8 h + g of
+    [v | p] (zero past 2W words and past N) and of Av; for every output word
+    q, the two m16 tiles' counts over the K-steps of 8 k-words (those
+    holding a v word only, for q >= W) by mma_b1_np, their parities packed
+    with low bytes, a mask and a shift, reduced and scattered over the four
+    lanes of a group (shuffle-xor 2, then 1), and the masked selects on d.
+    v, p, av: (N, W) words; rhs (2n, 2W) words with a zero bottom-right
+    block; d (n,) 0/1.  Returns (v_next, p_next) as uint32, equal to
+    orthogonalize_gf2_plain's for a running state."""
+    v, p, av, rhs = (np.asarray(a).view(np.uint32) for a in (v, p, av, rhs))
+    N, W = v.shape
+    n = W * WORD
+    KW = 2 * W
+    KS, KSV = -(-KW // 8), -(-W // 8)
+    XI, AI, QG = 2 * KS, -(-W // 4), -(-KW // 4)
+    lane = np.arange(WORD)
+    g, t = lane >> 2, lane & 3
+    # the CTA's prologue: block (k-word w, column words 2 c2, 2 c2 + 1)
+    Bf = np.zeros((2 * n // 8, KS, WORD, 2), np.uint32)
+    for w in range(8 * KS):
+        for c2 in range(W):
+            x1 = x2 = np.zeros(WORD, np.uint32)
+            if w < KW:
+                x1, x2 = rhs[32 * w + lane, 2 * c2], rhs[32 * w + lane,
+                                                         2 * c2 + 1]
+            y = transpose32x2_np(x1, x2)
+            s, j = w >> 3, w & 7
+            for h in range(2):
+                c = 64 * c2 + 32 * h + lane
+                Bf[c >> 3, s, 4 * (c & 7) + (j & 3), j >> 2] = y[h]
+    cm = pack_bits_np(np.asarray(d, np.uint32).reshape(1, n))[0]
+    tiles = max(1, -(-N // OG_ROWS))
+    rows = (OG_ROWS * np.arange(tiles)[:, None, None]
+            + 8 * np.arange(4)[None, :, None] + g)        # (tile, h, lane)
+    live = rows < N
+    pad = np.zeros((tiles * OG_ROWS - N, W), np.uint32)
+    X = np.concatenate([np.concatenate([v, p], 1),
+                        np.zeros((N, 4 * XI - KW), np.uint32)], 1)
+    X = np.concatenate([X, np.zeros((len(pad), X.shape[1]), np.uint32)])
+    A = np.concatenate([av, np.zeros((N, 4 * AI - W), np.uint32)], 1)
+    A = np.concatenate([A, np.zeros((len(pad), A.shape[1]), np.uint32)])
+    x = np.stack([X[rows, 4 * i + t] for i in range(XI)], -1)
+    a = np.stack([A[rows, 4 * i + t] for i in range(AI)], -1)
+    v_next, p_next = v.copy(), p.copy()
+    t2, t1 = (t & 2) != 0, (t & 1) != 0
+    for qg in range(QG):
+        part = np.zeros((tiles, 4, WORD, 4), np.uint32)
+        for qq in range(4):
+            q = 4 * qg + qq
+            if q >= KW:
+                continue
+            acc = np.zeros((tiles, 2, 4, WORD, 4), np.int64)
+            for s in range(KS if q < W else KSV):
+                for m in range(2):
+                    af = np.stack([x[:, 2 * m, :, 2 * s],
+                                   x[:, 2 * m + 1, :, 2 * s],
+                                   x[:, 2 * m, :, 2 * s + 1],
+                                   x[:, 2 * m + 1, :, 2 * s + 1]], -1)
+                    for jj in range(4):
+                        bf = np.broadcast_to(Bf[4 * q + jj, s],
+                                             (tiles, WORD, 2))
+                        acc[:, m, jj] += mma_b1_np(af, bf)
+            for h in range(4):
+                c, e0 = acc[:, h >> 1], 2 * (h & 1)
+                p0 = _low_bytes_np(*(c[:, jj, :, e0] for jj in range(4)))
+                p1 = _low_bytes_np(*(c[:, jj, :, e0 + 1] for jj in range(4)))
+                part[:, h, :, qq] = (((p0 & 0x01010101)
+                                      | ((p1 << 1) & 0x02020202))
+                                     << (2 * t).astype(np.uint32))
+        qw = 4 * qg + t                          # lane t's output word
+        for h in range(4):
+            P = part[:, h]
+            k0 = np.where(t2, P[..., 2], P[..., 0]) | np.where(
+                t2, P[..., 0], P[..., 2])[:, lane ^ 2]
+            k1 = np.where(t2, P[..., 3], P[..., 1]) | np.where(
+                t2, P[..., 1], P[..., 3])[:, lane ^ 2]
+            upd = np.where(t1, k1, k0) | np.where(t1, k0, k1)[:, lane ^ 1]
+            xw = x[:, h, :, qg]
+            for tile, ln in zip(*np.nonzero(live[:, h] & (qw < KW))):
+                r, q, u = rows[tile, h, ln], qw[ln], upd[tile, ln]
+                if q < W:
+                    aw = a[tile, h, ln, qg] if qg < AI else 0
+                    v_next[r, q] = ((aw & cm[q]) | (xw[tile, ln] & ~cm[q])) ^ u
+                else:
+                    p_next[r, q - W] = (xw[tile, ln] & ~cm[q - W]) ^ u
+    return v_next, p_next
+
+
+# ---------------------------------------------------------------------------
 # The semi-inverse kernel and its plain version
 # ---------------------------------------------------------------------------
 
@@ -367,6 +476,65 @@ def semi_inverse_gf2_core(U: torch.Tensor, n: int):
     M2 = torch.where((d1 == 1)[:, None], U & cm[None, :],
                      torch.zeros_like(U))
     _, winv, d, npiv = _eliminate_plain(M2, diag_words(d1))
+    return winv, d, npiv
+
+
+SI2_WARP_MAXW = 2    # csrc/semi_inverse_gf2.cu: W up to it, one warp
+_NO_PIVOT = 0x7fffffff
+
+
+def semi_inverse_gf2_warp_np(U) -> tuple:
+    """The semi_inverse_gf2 kernel's one-warp elimination (which it runs for
+    W <= SI2_WARP_MAXW, and its sweeps up to W = 8), step for step, in
+    NumPy: lane l holds physical rows
+    l + 32 q and their keys pk = pos << 10 | row; each step takes the
+    candidates' keys (bit j set, pk >= j << 10), the least over the lane's
+    rows and then over the warp, the pivot row's words from its slot and
+    lane, the masked XOR into every other row with bit j (M's words from
+    word j // 32 on only), and the swap of logical rows piv and j as an XOR
+    of (piv ^ j) << 10 into both keys.  Phase 2 re-eliminates U masked by
+    d1 from eye * d1.  U: (n, W) words.  Returns (winv (n, W) uint32 in
+    logical order, d (n,) uint32, npiv)."""
+    U = np.asarray(U).view(np.uint32)
+    n, W = U.shape
+    lane = np.arange(WORD)
+    row = lane[None, :] + WORD * np.arange(W)[:, None]    # (slot, lane)
+
+    def eliminate(m, w, with_w):
+        """m, w (slot, lane, word); returns (d, npiv, pos)."""
+        pk = row * 1025
+        d = np.zeros(n, np.uint32)
+        for j in range(n):
+            jw, b = divmod(j, WORD)
+            bit = ((m[:, :, jw] >> np.uint32(b)) & 1) == 1
+            key = np.where(bit & (pk >= j << 10), pk, _NO_PIVOT)
+            k = int(key.min(axis=0).min())        # the lane's, the warp's
+            if k == _NO_PIVOT:
+                continue
+            d[j] = 1
+            P = k & 1023
+            pm, pw = m[P >> 5, P & 31].copy(), w[P >> 5, P & 31].copy()
+            elim = (bit & (pk != k))[..., None]
+            m[:, :, jw:] ^= np.where(elim, pm[jw:], np.uint32(0))
+            if with_w:
+                w ^= np.where(elim, pw, np.uint32(0))
+            pos = pk >> 10
+            pk = np.where((pos == k >> 10) | (pos == j),
+                          pk ^ (((k >> 10) ^ j) << 10), pk)
+        return d, int(d.sum()), pk >> 10
+
+    rows_u = U[row]                                       # (slot, lane, W)
+    d1, _, _ = eliminate(rows_u.copy(), np.zeros_like(rows_u), False)
+    cm1 = pack_bits_np(d1.reshape(1, n))[0]
+    keep = (d1[row] == 1)[..., None]
+    m = np.where(keep, rows_u & cm1, np.uint32(0))
+    w = np.zeros_like(m)
+    for q in range(W):
+        w[q, :, q] = np.where(d1[row[q]] == 1, np.uint32(1) << lane.astype(
+            np.uint32), np.uint32(0))
+    d, npiv, pos = eliminate(m, w, True)
+    winv = np.zeros((n, W), np.uint32)
+    winv[pos] = w
     return winv, d, npiv
 
 

@@ -8,14 +8,17 @@ Flag-compatible with the JAX package's CLI for the part this port covers
                        [--output-file K.mtx] [--right | --left]
                        [--stop-after N] [--no-checks] [--sync-every K]
                        [--salvage [--salvage-restarts K]] [--no-dedup]
-                       [--device cuda|cpu]
+                       [--device cuda|cpu] [--single]
 
 p = 2 with n % 32 == 0 selects the bitsliced GF(2) solver (as in the JAX
 package's CLI), every other p <= 2^30 - 35 the narrow field.  Runs on the
 CUDA device by default and exits with an error when there is none;
-`--device cpu` runs the plain PyTorch versions of the kernels.  Primes
-above 2^30 - 35 (the wide field) and the mesh, overlap and checkpoint
-flags are refused with exit code 2: this port does not cover them yet.
+`--device cpu` runs the plain PyTorch versions of the kernels.  `--single`
+is accepted and changes nothing: the port always runs on one device.
+Exit code 2, before the matrix is loaded, for what this port does not
+cover yet: primes above 2^30 - 35 (the wide field); the mesh, multi-host,
+overlap and checkpoint flags; and block widths above the kernels' caps,
+n <= 64 in the narrow field and, on CUDA, n <= 512 over GF(2).
 """
 
 from __future__ import annotations
@@ -23,14 +26,23 @@ from __future__ import annotations
 import argparse
 import sys
 
+from block_lanczos_tpu_torch.ops import gf2
+from block_lanczos_tpu_torch.ops import semi_inverse as narrow
 from block_lanczos_tpu_torch.ops.gfp import PRIME_CAP
 from block_lanczos_tpu_torch.utils import mmio
 from block_lanczos_tpu_torch.utils.verbosity import VerbosityEngine
 
-# flags of the JAX package's CLI that select paths this port does not have
+# flags of the JAX package's CLI that select paths this port does not have:
+# dest -> (flag, the value that selects none of them)
 REFUSED_FLAGS = {
-    "devices": "--devices", "grid": "--grid", "overlap": "--overlap",
-    "checkpoint": "--checkpoint", "load_checkpoint": "--load-checkpoint",
+    "devices": ("--devices", None), "grid": ("--grid", None),
+    "overlap": ("--overlap", False), "checkpoint": ("--checkpoint", None),
+    "load_checkpoint": ("--load-checkpoint", False),
+    "checkpoint_dir": ("--checkpoint-dir", None),
+    "coordinator": ("--coordinator", None),
+    "num_processes": ("--num-processes", 1),
+    "process_id": ("--process-id", 0),
+    "local_devices": ("--local-devices", None),
 }
 
 
@@ -44,7 +56,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--prime", required=True, type=int,
                     help="compute modulo P (P <= 2^30 - 35)")
     ap.add_argument("--n", type=int, default=1,
-                    help="blocking factor [default 1]")
+                    help=f"blocking factor [default 1]; this port takes "
+                         f"n <= {narrow.MAX_N} in the narrow field and, on "
+                         f"CUDA, n <= {gf2.MAX_N} over GF(2)")
     ap.add_argument("--output-file",
                     help="store the block of kernel vectors")
     ap.add_argument("--right", action="store_true",
@@ -75,8 +89,12 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="run on the CUDA device [default] or on the CPU "
                          "(plain PyTorch versions of the kernels)")
+    ap.add_argument("--single", action="store_true",
+                    help="solve on a single device (a no-op: this port "
+                         "always runs on one device)")
     unsupported = ap.add_argument_group(
-        "not supported by this port yet (refused with exit code 2)")
+        "not supported by this port yet (refused with exit code 2; "
+        "--num-processes 1 and --process-id 0 are accepted)")
     unsupported.add_argument("--devices", type=int, default=None)
     unsupported.add_argument("--grid", type=int, nargs=2, default=None,
                              metavar=("R", "C"))
@@ -84,16 +102,29 @@ def build_parser() -> argparse.ArgumentParser:
     unsupported.add_argument("--checkpoint", nargs="?", const=60.0,
                              type=float, default=None, metavar="SECONDS")
     unsupported.add_argument("--load-checkpoint", action="store_true")
+    unsupported.add_argument("--checkpoint-dir", default=None)
+    unsupported.add_argument("--coordinator", default=None,
+                             metavar="HOST:PORT")
+    unsupported.add_argument("--num-processes", type=int, default=1)
+    unsupported.add_argument("--process-id", type=int, default=0)
+    unsupported.add_argument("--local-devices", type=int, default=None)
     return ap
 
 
 def _refusal(args) -> str | None:
-    for dest, flag in REFUSED_FLAGS.items():
-        if getattr(args, dest) not in (None, False):
+    for dest, (flag, default) in REFUSED_FLAGS.items():
+        if getattr(args, dest) != default:
             return f"{flag} is not supported by this port yet"
     if args.prime > PRIME_CAP:
         return (f"p > 2**30 - 35 (got {args.prime}): the wide field is not "
                 "supported by this port yet")
+    if args.prime == 2 and args.n % 32 == 0:
+        if args.device == "cuda" and args.n > gf2.MAX_N:
+            return (f"n = {args.n} is above the GF(2) kernels' cap of n <= "
+                    f"{gf2.MAX_N}: not supported by this port yet")
+    elif args.n > narrow.MAX_N:
+        return (f"n = {args.n} is above the narrow field's cap of n <= "
+                f"{narrow.MAX_N}: not supported by this port yet")
     return None
 
 

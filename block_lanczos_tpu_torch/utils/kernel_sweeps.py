@@ -35,7 +35,20 @@ variant's outputs are first held equal to the default build's:
     longer side, as built and with other ring depths (GG_STAGES);
     spmv_gf2 per product in both directions at n = 128 and 256, in 1 to 4
     column bands (and which the solver picks from the card's L2), and
-    unbanded with other (SPMV_GF2_CHUNK, SPMV_GF2_THREADS).
+    unbanded with other (SPMV_GF2_CHUNK, SPMV_GF2_THREADS);
+    orthogonalize_gf2 at n in GF2_GRAM_NS on as many random rows, as built
+    (the binary tensor cores from OG_MMA_MIN_N) and as the builds of
+    OG_VARIANTS: the CUDA-core kernel at every n, the tensor cores at every
+    n;
+  * semi_inverse_gf2 on full-rank random Grams at n in GF2_GRAM_NS, as
+    built (one warp up to W = SI2_WARP_MAXW) and as the builds of
+    SI2_VARIANTS (one thread a row at every n, SI2_WARP_MAXW = 0; the
+    one-warp elimination up to W = 4 or 8), and the timelines of the
+    default build and of the one-warp elimination up to W = 8 with
+    SI2_TIMELINE at n in SI2_TIMELINE_NS: thread 0's clock64() cycles of
+    each phase (phase 1, phase 2; the epilogue's winv and spliced rows, its
+    two n x n products c = winv spliced and winv vtAv, its checks and
+    writes) and per pivot step.
 Each variant is an nvcc build of its own into build/kernels/ (all started
 together); the solver never runs them.  Needs a CUDA device and nvcc;
 prints one JSON line last.
@@ -71,7 +84,7 @@ EXTRA = {"gram_mod": (("GRAM_UNROLL", (2, 8), (4,)),
                       ("GRAM_MMA_STAGES", (3, 4), (16, 32, 64))),
          "orthogonalize": (("ORTHO_MMA_WARPS", (2, 4), (16, 32, 64)),)}
 KERNELS = ("spmv_ell", "semi_inverse", "gram_mod", "orthogonalize",
-           "spmv_gf2", "gram_gf2")
+           "spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2")
 # GF(2): spmv_gf2's column bands and (SPMV_GF2_CHUNK, SPMV_GF2_THREADS)
 # shapes; gram_gf2 at every width class and with GG_STAGES beside the
 # default 2
@@ -79,6 +92,22 @@ GF2_BANDS = (1, 2, 3, 4)
 GF2_SPMV_SHAPES = ((4, 128), (16, 128), (8, 64), (8, 256))
 GF2_GRAM_NS = (32, 64, 128, 160, 256, 512)
 GF2_GRAM_VARIANTS = (("GG_STAGES", 3), ("GG_STAGES", 4))
+# orthogonalize_gf2 on the CUDA cores at every n and on the tensor cores at
+# every n; semi_inverse_gf2
+# with one thread a row at every n and with the one-warp elimination up to
+# n = 128 or 256 (SI2_WARP); its timeline's widths
+OG_VARIANTS = ({"OG_MMA_MIN_N": 1024}, {"OG_MMA_MIN_N": 32})
+SI2_WARP = {"SI2_WARP_MAXW": 8}
+SI2_VARIANTS = ({"SI2_WARP_MAXW": 0}, {"SI2_WARP_MAXW": 4}, SI2_WARP)
+SI2_TIMELINE_NS = (32, 128, 256, 512)
+# csrc/semi_inverse_gf2.cu's SI2_TIMELINE slots
+(T2_START, T2_LOADED, T2_PHASE1, T2_P2INIT, T2_PHASE2, T2_WINV, T2_PRODUCTS,
+ T2_CHECKS, T2_END, T2_NS_START, T2_NS_END) = range(11)
+T2_STEP1, T2_MAXN = 16, 512
+T2_STEP2 = T2_STEP1 + T2_MAXN
+T2_SLOTS = T2_STEP2 + T2_MAXN
+PHASES2 = ("loaded", "phase1", "p2init", "phase2", "winv_spliced",
+           "products", "checks_writes", "end")
 # operations of one binary m16n8k256 mma.sync (2 per multiply-add)
 MMA_B1_OPS = 2 * 16 * 8 * 256
 # csrc/semi_inverse.cu's SI_TIMELINE slots
@@ -422,6 +451,126 @@ def gram_gf2_sweeps(rows, rng, dev) -> dict:
     return out
 
 
+def ortho_gf2_sweeps(rows, rng, dev) -> dict:
+    """orthogonalize_gf2's device ms per launch at every n of GF2_GRAM_NS on
+    `rows` random rows (a right-hand side with the zero block, mixed d, a
+    running state), as built and as each build of OG_VARIANTS (held equal
+    to the default build)."""
+    import torch
+
+    from block_lanczos_tpu_torch import kernels
+    from block_lanczos_tpu_torch.models import lanczos_gf2 as G
+    from block_lanczos_tpu_torch.ops.semi_inverse import new_state
+
+    def words(r, W):
+        return torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, size=(r, W), dtype=np.int64
+        ).astype(np.int32)).to(dev)
+
+    out = {}
+    for n in GF2_GRAM_NS:
+        W = n // 32
+        v, pb, av = (words(rows, W) for _ in range(3))
+        rhs = words(2 * n, 2 * W)
+        rhs[n:, W:] = 0
+        d = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)).to(dev)
+
+        def once():
+            vk, pk, st = v.clone(), pb.clone(), new_state(dev)
+            G.orthogonalize_gf2(vk, pk, av, rhs, d, st)
+            return [vk, pk, st]
+
+        def timed():
+            vk, pk, st = v.clone(), pb.clone(), new_state(dev)
+            return device_ms(lambda: G.orthogonalize_gf2(vk, pk, av, rhs, d,
+                                                         st),
+                             "orthogonalize_gf2")
+
+        want = once()
+        out[f"n={n}"] = timed()
+        for defines in OG_VARIANTS:
+            key = f"n={n} " + " ".join(f"{k}={v}" for k, v in defines.items())
+            with kernels.variant("orthogonalize_gf2", **defines):
+                _equal(f"orthogonalize_gf2 {key}", once(), want)
+                out[key] = timed()
+        del v, pb, av
+        torch.cuda.empty_cache()
+    return out
+
+
+def _full_rank_gf2_grams(rng, n, dev):
+    """[U ; UA], U = L L^T over GF(2) with L unit lower triangular (every
+    pivot step finds a pivot), UA symmetric; (2n, n/32) words."""
+    import torch
+
+    from block_lanczos_tpu_torch.ops import gf2
+    L = np.tril(rng.integers(0, 2, size=(n, n)), -1) + np.eye(n, dtype=int)
+    C = rng.integers(0, 2, size=(n, n))
+    w = gf2.pack_bits_np(np.concatenate([(L @ L.T) % 2, (C @ C.T) % 2]))
+    return torch.from_numpy(w.view(np.int32)).to(dev)
+
+
+def semi_inverse_gf2_sweeps(rng, dev) -> dict:
+    """semi_inverse_gf2's device ms per launch at every n of GF2_GRAM_NS, as
+    built and as each build of SI2_VARIANTS, each held equal to the default
+    build; and the timelines of the default build and of the one-warp
+    elimination up to n = 256 (SI2_WARP) at SI2_TIMELINE_NS."""
+    import torch
+
+    from block_lanczos_tpu_torch import kernels
+    from block_lanczos_tpu_torch.ops import gf2
+    from block_lanczos_tpu_torch.ops.semi_inverse import new_state
+
+    grams = {n: _full_rank_gf2_grams(rng, n, dev) for n in GF2_GRAM_NS}
+
+    def run(n):
+        st = new_state(dev)
+        return [*(t.clone() for t in gf2.semi_inverse_gf2(grams[n], st)), st]
+
+    def timed(n):
+        _equal(f"semi_inverse_gf2 n={n}", run(n), want[n])
+        st = new_state(dev)
+        return device_ms(lambda: gf2.semi_inverse_gf2(grams[n], st),
+                         "semi_inverse_gf2")
+
+    want = {n: run(n) for n in GF2_GRAM_NS}
+    out = {"default": {f"n={n}": timed(n) for n in GF2_GRAM_NS}}
+    for defines in SI2_VARIANTS:
+        with kernels.variant("semi_inverse_gf2", **defines):
+            out[" ".join(f"{k}={v}" for k, v in defines.items())] = {
+                f"n={n}": timed(n) for n in GF2_GRAM_NS}
+    for key, extra in (("timeline", {}), ("timeline_warp", SI2_WARP)):
+        out[key] = {}
+        with kernels.variant("semi_inverse_gf2", SI2_TIMELINE=1,
+                             **extra) as lib:
+            lib.semi_inverse_gf2_stamps.argtypes = [ctypes.c_void_p]
+            lib.semi_inverse_gf2_stamps.restype = ctypes.c_int
+            for n in SI2_TIMELINE_NS:
+                _equal(f"semi_inverse_gf2 timeline n={n}", run(n), want[n])
+                torch.cuda.synchronize()
+                st = (ctypes.c_longlong * T2_SLOTS)()
+                if lib.semi_inverse_gf2_stamps(ctypes.addressof(st)) != 0:
+                    raise RuntimeError("semi_inverse_gf2_stamps failed")
+                out[key][f"n={n}"] = _timeline2(list(st), n)
+    return out
+
+
+def _timeline2(st, n) -> dict:
+    """semi_inverse_gf2's SI2_TIMELINE stamps: cycles by phase and the mean
+    cycles of a pivot step in each phase."""
+    cycles = st[T2_END] - st[T2_START]
+    ghz = cycles / max(st[T2_NS_END] - st[T2_NS_START], 1)
+    marks = [st[T2_START + 1 + k] for k in range(len(PHASES2))]
+    phases = dict(zip(PHASES2, np.diff([st[T2_START], *marks]).tolist()))
+    steps = {}
+    for name, first, end in (("phase1", T2_STEP1, T2_PHASE1),
+                             ("phase2", T2_STEP2, T2_PHASE2)):
+        starts = [st[first + j] for j in range(n)] + [st[end]]
+        steps[name] = statistics.mean(np.diff(starts).tolist())
+    return {"ghz": ghz, "cycles": cycles, "phases": phases,
+            "cycles_per_step": steps}
+
+
 def _timeline(st, n) -> dict:
     cycles = st[T_END] - st[T_START]
     ghz = cycles / max(st[T_NS_END] - st[T_NS_START], 1)
@@ -466,6 +615,12 @@ def _variants(names) -> list:
                 for c, t in GF2_SPMV_SHAPES]
     if "gram_gf2" in names:
         out += [("gram_gf2", {m: v}) for m, v in GF2_GRAM_VARIANTS]
+    if "semi_inverse_gf2" in names:
+        out += [("semi_inverse_gf2", d) for d in SI2_VARIANTS]
+        out += [("semi_inverse_gf2", {"SI2_TIMELINE": 1}),
+                ("semi_inverse_gf2", {"SI2_TIMELINE": 1, **SI2_WARP})]
+    if "orthogonalize_gf2" in names:
+        out += [("orthogonalize_gf2", d) for d in OG_VARIANTS]
     return out
 
 
@@ -522,8 +677,18 @@ def main(argv=None) -> int:
               f"{gg['b1_ops_per_s'] / 1e12:.1f} TOP/s")
         print(f"  gram_gf2 on {rows} rows ({args.matrix}): " + ", ".join(
             f"{k} {ms:.4f}" for k, ms in gg.items() if k.startswith("n=")))
-    if "spmv_gf2" in names:
+    if "orthogonalize_gf2" in names:
         if "gram_gf2" not in names:
+            coo = _gf2_matrix(args.matrix)
+            rows = coo[2] if coo[2] > coo[3] else coo[3]
+        res["orthogonalize_gf2"] = og = ortho_gf2_sweeps(rows, rng, dev)
+        print(f"  orthogonalize_gf2 on {rows} rows ({args.matrix}): "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in og.items()))
+    if "semi_inverse_gf2" in names:
+        res["semi_inverse_gf2"] = si2 = semi_inverse_gf2_sweeps(rng, dev)
+        _print_semi_inverse_gf2(si2)
+    if "spmv_gf2" in names:
+        if not {"gram_gf2", "orthogonalize_gf2"} & set(names):
             coo = _gf2_matrix(args.matrix)
         res["spmv_gf2"] = sg = spmv_gf2_sweeps(coo, rng, dev)
         print(f"  spmv_gf2 ({args.matrix}, L2 {sg['l2_bytes']} B, "
@@ -571,6 +736,21 @@ def main(argv=None) -> int:
         _print_dense("orthogonalize", res["orthogonalize"])
     print(json.dumps(res))
     return 0
+
+
+def _print_semi_inverse_gf2(si) -> None:
+    for key, by_n in si.items():
+        if not key.startswith("timeline"):
+            print(f"  semi_inverse_gf2 {key}: " + ", ".join(
+                f"{nk} {ms:.4f}" for nk, ms in by_n.items()))
+    for key in ("timeline", "timeline_warp"):
+        for nk, tl in si[key].items():
+            print(f"  semi_inverse_gf2 {key} {nk}: {tl['cycles']} cycles at "
+                  f"{tl['ghz']:.3f} GHz; " + ", ".join(
+                      f"{k} {c}" for k, c in tl["phases"].items())
+                  + "; cycles a pivot step: " + ", ".join(
+                      f"{k} {c:.1f}" for k, c in
+                      tl["cycles_per_step"].items()))
 
 
 def _print_semi_inverse(si) -> None:

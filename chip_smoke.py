@@ -31,8 +31,13 @@ failure:
      spmv_gf2 2, 3 and 7 column bands, some empty, and a 96 MB x past the
      L2 in one band and in the solver's bands; for gram_gf2 every W = 1 ..
      16 at N = 1, 255, 256, 257 and 20011; zero, singular and full-rank
-     Grams, a failing invariant, the check off; d all 0, all 1 and mixed
-     under running, stopped, failed and frozen states): exact equality,
+     Grams, a failing invariant, the check off, non-symmetric Grams whose
+     phase-2 pivots differ from phase 1's, on either side of the one-warp
+     elimination's last width (n = 64, 96); d all 0, all 1 and mixed under
+     running, stopped, failed and frozen states, N = 0, 1, 31, 32, 33 about
+     the tensor-core tile of 32 rows, all ones, either side of the
+     tensor-core threshold (n = 32, 64); orthogonalize_gf2 timed at 3M rows
+     too): exact equality,
      since the arithmetic is exact; time each (CUDA events, median), and
      print the binary tensor cores' measured rate (gram_gf2_rate: the
      m16n8k256 .and.popc mma.sync of gram_gf2), gram_mod's and
@@ -97,6 +102,7 @@ LOP3_OPS_PER_S = 64 * 132 * 1.98e9
 MAIN_NS = (1, 3, 4, 8, 16, 31, 32, 33, 64)
 EDGE_ROWS = 20_011          # a multiple of no tile, CTA or fold size
 FOLD_ROWS = 2_500_003       # > 8192 rows per CTA: crosses the tensor-core fold
+ORTHO_3M_ROWS = 3_000_000   # the 3Mx2M cell's rows: v, p, Av past the L2
 TIMING_REPS = 30
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 WORK = os.path.join(ROOT, "build", "chip_smoke")
@@ -622,12 +628,15 @@ def check_si_gf2(rec, rng, dev, gf2, real_grams):
     rec.set_bound(4 * (2 * n * W + n * W + n + 1 + 4 * n * W + 4),
                   3 * n * n * W + 2 * n * n * W, LOP3_OPS_PER_S)
     # the chain: 2n dependent pivot steps, each at least a warp reduction
-    # and a barrier, ~100 cycles at the 1.98 GHz boost clock
-    chain_ms = 2 * n * 100 / 1.98e9 * 1e3
+    # (~40 cycles, PERF.md) and a dependent read of the pivot row, ~80
+    # cycles at the 1.98 GHz boost clock
+    chain_ms = 2 * n * 80 / 1.98e9 * 1e3
     rec.note = ("latency-bound: the 2n pivot steps run one after another in "
                 "one CTA, so neither bytes nor operations bound it; the "
-                f"chain of 2n >= ~100-cycle steps is >= {chain_ms:.4f} ms")
-    for n in GF2_EDGE_NS + (128, 256):
+                f"chain of 2n >= ~80-cycle steps is >= {chain_ms:.4f} ms")
+    # n = 64 is the widest one-warp elimination (W = SI2_WARP_MAXW), 96 the
+    # narrowest with one thread a row
+    for n in GF2_EDGE_NS + (96, 128, 256):
         for rank in (0, n // 3, n + 7):
             got, s_k = case(f"n={n} rank<={rank}",
                             gf2_grams(rng, n, rank, dev))
@@ -637,6 +646,18 @@ def check_si_gf2(rec, rng, dev, gf2, real_grams):
         got, _ = case(f"n={n} full rank", gf2_grams(rng, n, 0, dev,
                                                     full=True))
         assert int(got.npiv[0]) == n, "expected a full-rank Gram"
+        # a dense non-symmetric U whose phase-2 pivots differ from phase
+        # 1's (drawn until one does)
+        for _ in range(40):
+            g = rand_words(rng, 2 * n, n // 32, dev)
+            U = g[:n].cpu()
+            _, _, d1, _ = gf2._eliminate_plain(U, torch.zeros_like(U))
+            if not torch.equal(gf2.semi_inverse_gf2_core(U, n)[1], d1):
+                break
+        else:
+            raise AssertionError(f"n={n}: no Gram with d != d1 drawn")
+        _, s_k = case(f"n={n} non-symmetric, d != d1", g)
+        assert int(s_k[1]) == 0, "a non-symmetric Gram passed the check"
     bad = gf2_grams(rng, 64, 20, dev)
     bad[64 + 3, 0] ^= 1 << 9      # vtAAv[3, 9] flipped: not symmetric
     _, s_k = case("n=64 failing check", bad)
@@ -716,7 +737,9 @@ def check_ortho_gf2(rec, rng, dev, G, gf2, avs, real_si, b1_rate):
     rec.agree("library yardstick n=128", upd,
               gf2.matmul_gf2(torch.cat([v, pb], dim=1), si.rhs, 256))
     rec.library_ms = median_ms(lambda: int_mm_parity(X, R))
-    for n in GF2_EDGE_NS:
+    # n = 32 runs the CUDA-core kernel, n >= 64 (OG_MMA_MIN_N) the tensor
+    # cores
+    for n in GF2_EDGE_NS + (96,):
         W = n // 32
         v, pb, av = (rand_words(rng, EDGE_ROWS, W, dev) for _ in range(3))
         rhs = rhs_block(n)
@@ -726,8 +749,25 @@ def check_ortho_gf2(rec, rng, dev, G, gf2, avs, real_si, b1_rate):
             for state in states:
                 case(f"n={n} d={kind} state={state}", v, pb, av, rhs,
                      d_of(kind, n), state)
-        v1, p1, a1 = (rand_words(rng, 1, W, dev) for _ in range(3))
-        case(f"N=1 n={n}", v1, p1, a1, rhs, d_of("mixed", n), running)
+        # either side of a warp's 32-row tile; no rows at all
+        for N in (1, 31, 32, 33, 0):
+            vn, pn, an = (rand_words(rng, N, W, dev) for _ in range(3))
+            case(f"N={N} n={n}", vn, pn, an, rhs, d_of("mixed", n), running)
+        # every count at its most (256 a K-step)
+        ones = torch.full((EDGE_ROWS, W), -1, dtype=torch.int32, device=dev)
+        ones_rhs = torch.full_like(rhs, -1)
+        ones_rhs[n:, W:] = 0
+        case(f"all ones n={n}", ones, ones.clone(), ones.clone(), ones_rhs,
+             d_of("mixed", n), running)
+    # at the height of the 3Mx2M cell (3M rows, n = 128: 240 MB moved,
+    # past the L2), timed only
+    N3 = ORTHO_3M_ROWS
+    v3, p3, a3 = (rand_words(rng, N3, 4, dev) for _ in range(3))
+    ms3 = median_ms(lambda: G.orthogonalize_gf2(v3, p3, a3, si.rhs, si.d, st))
+    b3 = gf2_ortho_bound(N3, 128, b1_rate)
+    print(f"  orthogonalize_gf2 n=128 on {N3} rows: {ms3:.4f} ms, bound "
+          f"{b3[0]:.4f} ms ({b3[1]})", flush=True)
+    del v3, p3, a3
     print(f"  orthogonalize_gf2: {rec.cases} cases equal", flush=True)
     return unpack_ms, rec.library_ms
 

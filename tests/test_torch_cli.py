@@ -32,6 +32,9 @@ def test_cli_writes_the_golden_byte_for_byte(tmp_path, name, prime, n, side):
 REFUSED = [
     ["--devices", "2"], ["--grid", "1", "1"], ["--overlap"],
     ["--checkpoint"], ["--checkpoint", "30"], ["--load-checkpoint"],
+    ["--checkpoint-dir", "cp"], ["--coordinator", "localhost:1234"],
+    ["--num-processes", "2"], ["--process-id", "1"],
+    ["--local-devices", "2"],
 ]
 
 
@@ -41,7 +44,42 @@ def test_cli_refuses_paths_of_later_slices(extra, capsys):
     rc = cli.main(["--matrix", mtx, "--prime", "65537", "--n", "4",
                    "--device", "cpu", *extra])
     assert rc == 2
-    assert "not supported" in capsys.readouterr().err
+    assert f"{extra[0]} is not supported by this port yet" \
+        in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("extra", [["--single"],
+                                   ["--num-processes", "1",
+                                    "--process-id", "0"]],
+                         ids=["single", "one-process"])
+def test_cli_takes_the_jax_clis_one_device_flags(tmp_path, extra):
+    """--single and the multi-host flags at their one-process values run
+    and write the golden, as the JAX CLI does with them on one device."""
+    name = "left_p65537_n4"
+    out = tmp_path / "kernel.mtx"
+    assert cli.main(["--matrix", os.path.join(GOLDEN, f"{name}.mtx"),
+                     "--prime", "65537", "--n", "4", "--output-file",
+                     str(out), "--device", "cpu", *extra]) == 0
+    with open(os.path.join(GOLDEN, f"{name}.kernel.mtx"), "rb") as fh:
+        assert out.read_bytes() == fh.read()
+
+
+@pytest.mark.parametrize("prime,n,device,cap", [
+    (65537, 65, "cpu", 64), (2, 100, "cuda", 64), (2, 544, "cuda", 512)])
+def test_cli_refuses_widths_above_the_caps_before_loading(
+        tmp_path, capsys, prime, n, device, cap):
+    """The matrix file does not exist: the refusal comes before loading."""
+    rc = cli.main(["--matrix", str(tmp_path / "absent.mtx"), "--prime",
+                   str(prime), "--n", str(n), "--device", device])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert f"n <= {cap}" in err and "not supported by this port yet" in err
+
+
+def test_cli_help_states_the_width_caps():
+    text = " ".join(cli.build_parser().format_help().split())
+    assert "n <= 64 in the narrow field" in text
+    assert "n <= 512 over GF(2)" in text
 
 
 @pytest.mark.parametrize("prime,n", [(1073741827, 4)])

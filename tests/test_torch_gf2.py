@@ -12,7 +12,10 @@
     spill; the column-banded layout (1 to 7 bands, some empty) and its
     banded product, and the band count the L2 size gives;
   * the gram_gf2 kernel's tiling on the binary tensor cores through its
-    NumPy mirror (transpose32x2_np, mma_b1_np, gram_gf2_tiles_np);
+    NumPy mirror (transpose32x2_np, mma_b1_np, gram_gf2_tiles_np), and the
+    orthogonalize_gf2 kernel's (orthogonalize_gf2_tiles_np);
+  * the semi_inverse_gf2 kernel's one-warp elimination through its NumPy
+    mirror (semi_inverse_gf2_warp_np), d != d1 included;
   * dedup_lines, passthrough and compacting;
   * the kernels' C constants against the Python that sizes their buffers.
 """
@@ -274,6 +277,71 @@ def test_gram_gf2_tile_mirror_matches_jax(N, n):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("n", [32, 64, 128, 160, 256, 512])
+@pytest.mark.parametrize("N", [1, 37, 1013])
+def test_orthogonalize_gf2_tile_mirror_matches_jax(N, n):
+    """The orthogonalize_gf2 kernel's rhs transpose, fragments, K-step
+    padding, packing, reduce-scatter and selects
+    (ops/gf2.py::orthogonalize_gf2_tiles_np) against the JAX package's
+    orthogonalize_gf2, with bit 31 set in v and p and N a multiple of no
+    tile."""
+    rng = np.random.default_rng(N * 11 + n)
+    W = n // 32
+    v, p, av = (_words(rng, N, W) for _ in range(3))
+    v |= np.uint32(1 << 31)
+    p |= np.uint32(1 << 31)
+    vtAv, vtAAv, winv = (_words(rng, n, W) for _ in range(3))
+    d = rng.integers(0, 2, n).astype(np.uint32)
+    d[:2] = (0, 1)
+    rhs = tgf2.orthogonalize_rhs_gf2(_t(vtAv), _t(vtAAv), _t(winv),
+                                     torch.from_numpy(d.astype(np.int32)), n)
+    jv, jp = (np.asarray(a) for a in jax.jit(
+        jlg.orthogonalize_gf2, static_argnums=7)(
+            *(jnp.asarray(a) for a in (v, av, p, d, vtAv, vtAAv, winv)), n))
+    gv, gp = tgf2.orthogonalize_gf2_tiles_np(v, p, av, rhs.numpy(), d)
+    np.testing.assert_array_equal(gv, jv)
+    np.testing.assert_array_equal(gp, jp)
+
+
+def _nonsymmetric_d_differs(rng, n):
+    """A dense non-symmetric bit matrix (density 1/2) whose phase-2 pivots
+    differ from phase 1's, drawn until one does."""
+    for _ in range(50):
+        U = tgf2.pack_bits_np(rng.integers(0, 2, size=(n, n)))
+        Ut = _t(U)
+        _, _, d1, _ = tgf2._eliminate_plain(Ut, torch.zeros_like(Ut))
+        _, d, _ = tgf2.semi_inverse_gf2_core(Ut, n)
+        if not torch.equal(d, d1):
+            return U
+    raise AssertionError("no matrix with d != d1 drawn")
+
+
+@pytest.mark.parametrize("n", [32, 64, 96, 128, 160, 256])
+@pytest.mark.parametrize("kind", ["low-rank", "full-rank", "d-not-d1"])
+def test_semi_inverse_gf2_warp_mirror_matches_jax(n, kind):
+    """The semi_inverse_gf2 kernel's one-warp elimination (keys, the lane's
+    tracked row, the pivot row from its lane, the pos swaps, M's words from
+    j's on; ops/gf2.py::semi_inverse_gf2_warp_np) against the JAX
+    package's semi_inverse_gf2 at every width the kernel or its sweeps
+    build it for (W <= 8)."""
+    rng = np.random.default_rng(n * 13 + len(kind))
+    if kind == "d-not-d1":
+        U = _nonsymmetric_d_differs(rng, n)
+    elif kind == "full-rank":
+        L = np.tril(rng.integers(0, 2, size=(n, n)), -1) + np.eye(n, dtype=int)
+        U = tgf2.pack_bits_np((L @ L.T) % 2)
+    else:
+        U = tgf2.pack_bits_np(_sym_bits(rng, n, n // 3))
+    jw, jd, jnpiv = (np.asarray(a) for a in jax.jit(
+        jgf2.semi_inverse_gf2, static_argnums=1)(jnp.asarray(U), n))
+    winv, d, npiv = tgf2.semi_inverse_gf2_warp_np(U)
+    np.testing.assert_array_equal(winv, jw)
+    np.testing.assert_array_equal(d, jd)
+    assert npiv == int(jnpiv)
+    if kind == "full-rank":
+        assert npiv == n
+
+
 def test_spmv_gf2_empty_spill_and_empty_operator():
     op = tlg.make_gf2_op(np.arange(60) % 20, np.arange(60) % 7, 20, 7)
     assert op.spill_nnz == 0 and op.ell == 3
@@ -329,6 +397,14 @@ def test_kernel_constants_match_the_python():
         assert int(re.search(rf"#define {name} (\d+)", gram).group(1)) \
             == getattr(tgf2, name)
     assert tgf2._GRAM_SCRATCH == 2 * tgf2.MAX_N * (tgf2.MAX_N // 32) + 1
+    ortho = (kernels.CSRC / "orthogonalize_gf2.cu").read_text()
+    assert int(re.search(r"#define OG_ROWS (\d+)", ortho).group(1)) \
+        == tgf2.OG_ROWS
+    si = (kernels.CSRC / "semi_inverse_gf2.cu").read_text()
+    assert int(re.search(r"#define SI2_WARP_MAXW (\d+)", si).group(1)) \
+        == tgf2.SI2_WARP_MAXW
+    assert re.search(r"#define SI2_NO_PIVOT (0x[0-9a-f]+)", si).group(1) \
+        == hex(tgf2._NO_PIVOT)
     for name in ("spmv_gf2", "gram_gf2", "semi_inverse_gf2",
                  "orthogonalize_gf2"):
         src = (kernels.CSRC / f"{name}.cu").read_text()
@@ -340,7 +416,7 @@ def test_kernel_constants_match_the_python():
     ("void spmv_gf2_kernel<4>(int const*, ...)", "spmv_gf2"),
     ("void gram_gf2_kernel<4>(int const*, ...)", "gram_gf2"),
     ("semi_inverse_gf2_kernel(int const*, int, ...)", "semi_inverse_gf2"),
-    ("void orthogonalize_gf2_kernel<8>(int*, ...)", "orthogonalize_gf2"),
+    ("void orthogonalize_gf2_mma_kernel<8>(int*, ...)", "orthogonalize_gf2"),
 ])
 def test_profile_solve_maps_gf2_kernels_to_wrappers(key, wrapper):
     from block_lanczos_tpu_torch.utils import profile_solve as ps

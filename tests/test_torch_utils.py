@@ -205,6 +205,27 @@ def test_kernel_sweeps_timeline_slots_match_the_kernel():
         0, 1, 2, 3, 4]
 
 
+def test_kernel_sweeps_gf2_timeline_slots_match_the_kernel():
+    from block_lanczos_tpu_torch.ops import gf2
+    from block_lanczos_tpu_torch.utils import kernel_sweeps as ks
+    src = (kernels.CSRC / "semi_inverse_gf2.cu").read_text()
+    names = re.search(r"enum \{(.*?)SI2_T_STEP1", src, re.S).group(1)
+    names = [w.strip().removeprefix("SI2_T_").lower()
+             for w in names.split(",") if w.strip()]
+    stamped = {"winv": "winv_spliced", "checks": "checks_writes"}
+    assert [stamped.get(k, k) for k in names] == [
+        "start", *ks.PHASES2, "ns_start", "ns_end"]
+    assert [ks.T2_START, ks.T2_END, ks.T2_NS_START, ks.T2_NS_END] == [
+        names.index(k) for k in ("start", "end", "ns_start", "ns_end")]
+    assert int(re.search(r"SI2_T_STEP1 = (\d+)", src).group(1)) \
+        == ks.T2_STEP1
+    assert ks.T2_MAXN == gf2.MAX_N
+    assert "SI2_T_STEP2 = SI2_T_STEP1 + GF2_MAXN" in src
+    assert "SI2_T_SLOTS = SI2_T_STEP2 + GF2_MAXN" in src
+    for k in names[:9]:         # every phase is stamped
+        assert f"SI2_STAMP(SI2_T_{k.upper()})" in src, k
+
+
 @pytest.mark.parametrize("key,kernel,wrapper", [
     ("spmv_ell_kernel(int const*, ...)", "spmv_ell_kernel", "spmv_ell"),
     ("void spmv_ell_kernel<4>(int const*, ...)", "spmv_ell_kernel",
