@@ -1,8 +1,8 @@
 """Carrying the JAX package's data across to the port.
 
 The solver has no weights; what it carries between runs is its state and
-its operator layout.  Both arrive here as NumPy arrays, so this module
-needs nothing of the JAX package:
+its operator layout, for each of the three fields.  Both arrive here as
+NumPy arrays, so this module needs nothing of the JAX package:
 
   * `state_from_numpy` takes the {v, p, iteration} checkpoint dict that the
     JAX solver's `solve(resume_state=...)` accepts (uint32 blocks, an
@@ -15,7 +15,14 @@ needs nothing of the JAX package:
   * the GF(2) pair: `gf2_state_from_numpy` takes the JAX BlockLanczosGF2's
     {v, p, iteration} state of packed uint32 words and returns int32 word
     patterns on the port's device, and `gf2_op_from_jax` turns a JAX
-    `GF2Op`'s arrays into the port's column-major GF2Op.
+    `GF2Op`'s arrays into the port's column-major GF2Op;
+  * the wide pair: `wide_state_from_numpy` takes the JAX
+    BlockLanczosWide's {v, p, iteration} state of (rows, n, 2) uint32
+    (lo, hi) pair blocks and returns int64 residues on the port's device,
+    and `wide_op_from_jax` turns a JAX `WideHybridOp`'s arrays into the
+    port's HybridOp with int64 values: its slab and spill hold Montgomery
+    pairs, val * 2^64 mod p, taken out of that form on the host with
+    Python ints.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from block_lanczos_tpu_torch.models.lanczos import state_rows
 from block_lanczos_tpu_torch.models.lanczos_gf2 import (GF2Op,
                                                         gf2_op_from_arrays)
 from block_lanczos_tpu_torch.ops.gfp import GFp, _invmod_int
+from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.ops.spmm import HybridOp, hybrid_op_from_arrays
 
 
@@ -114,4 +122,59 @@ def gf2_op_from_jax(arrays: dict) -> GF2Op:
         valid=np.array(valid.T, order="C").view(np.int32),
         rowptr=rowptr.astype(np.int32),
         sp_cols=np.asarray(arrays["spill_in"])[:s_nnz].astype(np.int32),
+    ), out_dim, int(arrays["in_dim"]))
+
+
+def _unpair(pairs) -> np.ndarray:
+    """(..., 2) uint32 (lo, hi) pairs -> (...) Python ints."""
+    pairs = np.asarray(pairs)
+    return (pairs[..., 1].astype(object) << 32) + pairs[..., 0].astype(object)
+
+
+def wide_state_from_numpy(state: dict, device) -> dict:
+    """The JAX wide solver's NumPy {v, p, iteration[, rowmap]} state of
+    (rows, n, 2) uint32 pair blocks as the port's resume state: int64
+    residues on `device`, in true row order."""
+    out = {"iteration": int(state["iteration"])}
+    for name in ("v", "p"):
+        vals = _unpair(state_rows(state, name))
+        if vals.size and int(vals.max()) >= 1 << 62:
+            raise ValueError(f"state block {name!r} holds values >= 2^62; "
+                             "not wide-field residues")
+        out[name] = torch.from_numpy(
+            np.ascontiguousarray(vals.astype(np.int64))).to(device)
+    return out
+
+
+def _from_mont64(p: int, pairs) -> np.ndarray:
+    """Montgomery pairs (val * 2^64 mod p) -> int64 standard residues."""
+    rinv = _invmod_int(1 << 64, p)
+    return ((_unpair(pairs) * rinv) % p).astype(np.int64)
+
+
+def wide_op_from_jax(arrays: dict, p: int) -> HybridOp:
+    """The port's wide HybridOp (int64 values) from a JAX WideHybridOp's
+    NumPy arrays.
+
+    `arrays` holds the JAX op's fields: out_dim, in_dim, nnz, ell, cols
+    (out_pad, L) int32 and vals (out_pad, L, 2) Montgomery uint32 pairs,
+    and its spill WideSparseOp as spill_nnz, spill_in_idx, spill_val_mont
+    ((nnzp, 2) pairs) and spill_rowptr (out_dim + 1).
+    """
+    GFpWide.make(p)
+    out_dim, ell = int(arrays["out_dim"]), int(arrays["ell"])
+    cols = np.asarray(arrays["cols"], np.int32)[:out_dim]
+    vals = _from_mont64(p, np.asarray(arrays["vals"])[:out_dim])
+    s_nnz = int(arrays["spill_nnz"])
+    rowptr = np.asarray(arrays["spill_rowptr"], np.int64)
+    if rowptr.shape != (out_dim + 1,) or int(rowptr[-1]) != s_nnz:
+        raise ValueError("spill rowptr does not cover the spill entries")
+    return hybrid_op_from_arrays(p, dict(
+        ell=ell, nnz=int(arrays["nnz"]),
+        cols=np.ascontiguousarray(cols.T),
+        vals=np.ascontiguousarray(vals.T),
+        rowptr=rowptr.astype(np.int32),
+        sp_cols=np.asarray(arrays["spill_in_idx"])[:s_nnz].astype(np.int32),
+        sp_vals=_from_mont64(
+            p, np.asarray(arrays["spill_val_mont"])[:s_nnz]).reshape(-1),
     ), out_dim, int(arrays["in_dim"]))

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels of `csrc/`.
 
 Each `csrc/<name>.cu` (four narrow-field kernels on `modp.cuh`, four
-GF(2) kernels on `gf2.cuh`) is compiled by nvcc, at first use, into its own
+GF(2) kernels on `gf2.cuh`, four wide-field kernels on `modp64.cuh`) is
+compiled by nvcc, at first use, into its own
 shared library with a plain C interface and loaded with ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -72,6 +73,21 @@ SIGNATURES = {
     # v, p_blk, av, rhs, d, N, W, state, stream
     "orthogonalize_gf2": ("orthogonalize_gf2", (_P, _P, _P, _P, _P, _L, _I,
                                                 _P, _P)),
+    # the wide-field kernels (u64 residues; p, mu, pinv, r2 of GFpWide)
+    # cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y, out_dim,
+    # out_rows, n, p, mu, pinv, r2, stream
+    "spmv_wide": ("spmv_wide", (_P, _P, _I, _L, _P, _P, _P, _P, _P, _L, _L,
+                                _I, _U, _U, _U, _U, _P)),
+    # v, av, n, N, p, mu, pinv, r2, scratch, out, stream
+    "gram_wide": ("gram_wide", (_P, _P, _I, _L, _U, _U, _U, _U, _P, _P,
+                                _P)),
+    # grams, n, p, mu, pinv, r2, check, winv, d, npiv, rhs, state, stream
+    "semi_inverse_wide": ("semi_inverse_wide", (_P, _I, _U, _U, _U, _U, _I,
+                                                _P, _P, _P, _P, _P, _P)),
+    # v, p_blk, av, rhs, d, N, n, p, mu, pinv, r2, state, stream
+    "orthogonalize_wide": ("orthogonalize_wide", (_P, _P, _P, _P, _P, _L,
+                                                  _I, _U, _U, _U, _U, _P,
+                                                  _P)),
 }
 
 _lock = threading.Lock()
@@ -204,15 +220,16 @@ def _library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check_operands(name: str, *tensors) -> None:
-    """Raise unless every tensor is a contiguous int32 tensor on one CUDA
-    device: the kernels take raw pointers and check nothing themselves."""
+def check_operands(name: str, *tensors, dtype=torch.int32) -> None:
+    """Raise unless every tensor is a contiguous `dtype` (default int32)
+    tensor on one CUDA device: the kernels take raw pointers and check
+    nothing themselves."""
     dev = tensors[0].device
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev \
-                or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError(f"{name} needs contiguous int32 tensors on one "
-                             f"CUDA device (got {t.dtype} on {t.device})")
+                or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} needs contiguous {dtype} tensors on "
+                             f"one CUDA device (got {t.dtype} on {t.device})")
 
 
 def launch(name: str, *args) -> None:

@@ -8,9 +8,9 @@ in u64, reduce % p" idiom.  The JAX package's 15-bit limb splits and
 integer datapath; they are not reproduced.  Only the canonical residues
 have to match, and they do bit for bit.
 
-The prime is capped at 2^30 - 35 like the reference; p = 2 is a valid
-narrow field (the GF(2) bitsliced path needs n % 32 == 0 and is a later
-slice of the port).
+The prime is capped at 2^30 - 35 like the reference (larger primes take
+the wide field, ops/gfp_wide.py); p = 2 is a valid narrow field (the GF(2)
+bitsliced path, models/lanczos_gf2.py, needs n % 32 == 0).
 """
 
 from __future__ import annotations

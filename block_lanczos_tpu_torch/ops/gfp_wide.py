@@ -1,0 +1,261 @@
+"""Exact GF(p) arithmetic for the wide field, 2^30 - 35 < p < 2^62.
+
+Residues are held in int64 tensors: every residue is below p < 2^62, so it
+is non-negative there, and the wide kernels (csrc/*_wide.cu) read the same
+storage as `unsigned long long`.  The JAX package's (..., 2) uint32 pairs,
+its 15-bit limb sums and its pair Montgomery multiply (ops/gfp_wide.py
+there) exist only because the TPU has no 64-bit integer datapath; they are
+not reproduced.  Only the canonical residues in [0, p) have to match, and
+they do bit for bit.
+
+Three layers:
+  * `GFpWide`: p and the constants the kernels take with it (mu for the
+    Barrett fold, -p^-1 mod 2^64 and 2^128 mod p for the Montgomery
+    reduction, csrc/modp64.cuh), and a host inverse;
+  * the plain PyTorch versions of the field's operations on int64 tensors.
+    A product of two residues can reach 2^124, which int64 cannot hold, so
+    `mulmod` splits both factors into 31-bit halves (every partial product
+    is below 2^62) and recombines them mod p by Horner, shifting a residue
+    left by as many bits as keep it below 2^63 (2 at p = 2^61 - 1, 1 at the
+    largest 62-bit prime) and reducing with `%` after each shift.  Sums
+    never hold more than two residues (< 2^63) unless `sum_mod` first splits
+    them into 31-bit halves;
+  * NumPy mirrors of the kernels' reduction steps (the 64 x 64 -> 128-bit
+    product, the lazy 128-bit sums and their Barrett fold of the high word,
+    REDC, the exact 128-bit reduction, the Montgomery Fermat inverse), step
+    for step, with the bounds that csrc/modp64.cuh proves asserted, so that
+    the CPU tests hold them against Python ints.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from block_lanczos_tpu_torch.ops.gfp import (_invmod_int, barrett_mu,
+                                             barrett_reduce_np, umul64hi_np)
+
+WIDE_PRIME_CAP = (1 << 62) - 1
+WIDE_FOLD = 8  # csrc/modp64.cuh: raw products summed between two folds
+_R = 1 << 64
+_M31 = (1 << 31) - 1
+
+
+@dataclasses.dataclass(frozen=True)
+class GFpWide:
+    """The field GF(p) for an odd prime 3 <= p < 2^62, with the constants
+    of the kernels' reductions (csrc/modp64.cuh)."""
+
+    p: int
+    mu: int     # floor(2^64 / p): Barrett fold of a 128-bit sum's high word
+    pinv: int   # -p^-1 mod 2^64: Montgomery REDC with R = 2^64
+    r2: int     # 2^128 mod p: R^2, to leave the Montgomery scale
+
+    @staticmethod
+    def make(p: int) -> "GFpWide":
+        p = int(p)
+        if p < 3 or p % 2 == 0:
+            raise ValueError("GFpWide requires an odd prime p >= 3")
+        if p > WIDE_PRIME_CAP:
+            raise ValueError(f"wide p is capped at 2**62 - 1 (got {p})")
+        return GFpWide(p=p, mu=barrett_mu(p), pinv=(-_invmod_int(p, _R)) % _R,
+                       r2=(_R * _R) % p)
+
+    @property
+    def kernel_args(self) -> tuple:
+        """(p, mu, pinv, r2), in the order the wide kernels take them."""
+        return self.p, self.mu, self.pinv, self.r2
+
+    def invmod(self, a: int) -> int:
+        return _invmod_int(int(a), self.p)
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch field operations on int64 tensors of residues in [0, p)
+# ---------------------------------------------------------------------------
+
+def _i64(a) -> torch.Tensor:
+    return torch.as_tensor(a).to(torch.int64)
+
+
+def modadd(p: int, a, b) -> torch.Tensor:
+    s = _i64(a) + _i64(b)                # < 2p < 2^63
+    return torch.where(s >= p, s - p, s)
+
+
+def modsub(p: int, a, b) -> torch.Tensor:
+    d = _i64(a) - _i64(b)
+    return torch.where(d < 0, d + p, d)
+
+
+def modneg(p: int, a) -> torch.Tensor:
+    a = _i64(a)
+    return torch.where(a == 0, a, p - a)
+
+
+def _shift_step(p: int) -> int:
+    """The most bits a residue below p can be shifted left by and stay
+    below 2^63."""
+    return 63 - int(p).bit_length()
+
+
+def shl_mod(p: int, x: torch.Tensor, bits: int) -> torch.Tensor:
+    """x * 2^bits mod p for residues x, in steps that stay below 2^63."""
+    step = _shift_step(p)
+    while bits > 0:
+        k = min(step, bits)
+        x = (x << k) % p
+        bits -= k
+    return x
+
+
+def mulmod(p: int, a, b) -> torch.Tensor:
+    """a * b mod p elementwise (broadcasting), exact in int64: with
+    a = a1 2^31 + a0 and b = b1 2^31 + b0, every partial product is below
+    2^62 and a1 b0 + a0 b1 below 2^63; Horner in 2^31 recombines them."""
+    a, b = _i64(a), _i64(b)
+    a1, a0, b1, b0 = a >> 31, a & _M31, b >> 31, b & _M31
+    x = shl_mod(p, (a1 * b1) % p, 31)
+    x = modadd(p, x, (a1 * b0 + a0 * b1) % p)
+    x = shl_mod(p, x, 31)
+    return modadd(p, x, (a0 * b0) % p)
+
+
+def modpow(p: int, a, e: int) -> torch.Tensor:
+    """a^e mod p elementwise, e a Python int >= 0 (square-and-multiply)."""
+    base = _i64(a)
+    acc = torch.ones_like(base)
+    for bit in bin(int(e))[2:]:
+        acc = mulmod(p, acc, acc)
+        if bit == "1":
+            acc = mulmod(p, acc, base)
+    return acc
+
+
+def modinv(p: int, a) -> torch.Tensor:
+    """a^-1 mod p by Fermat (a^(p-2)); 0 maps to 0."""
+    return modpow(p, a, p - 2)
+
+
+def sum_mod(p: int, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """Exact sum of residues along `dim`, mod p: the residues are split
+    into 31-bit halves, whose int64 sums are exact for up to 2^32 terms,
+    then recombined."""
+    if x.shape[dim] >= 1 << 32:
+        raise ValueError("sum_mod sums at most 2^32 - 1 terms")
+    hi = (x >> 31).sum(dim) % p
+    lo = (x & _M31).sum(dim) % p
+    return modadd(p, shl_mod(p, hi, 31), lo)
+
+
+def index_add_mod(p: int, out_rows: int, index: torch.Tensor,
+                  x: torch.Tensor) -> torch.Tensor:
+    """(out_rows, ...) sums mod p of the rows of x by index (a scatter of
+    residues), through the 31-bit halves as in `sum_mod`."""
+    shape = (out_rows,) + tuple(x.shape[1:])
+    hi = torch.zeros(shape, dtype=torch.int64, device=x.device)
+    lo = torch.zeros(shape, dtype=torch.int64, device=x.device)
+    hi.index_add_(0, index, x >> 31)
+    lo.index_add_(0, index, x & _M31)
+    return modadd(p, shl_mod(p, hi % p, 31), lo % p)
+
+
+def matmul_mod(p: int, X: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """(..., k) @ (k, m) mod p with small k: one reduced product and one
+    reduced addition per step."""
+    X, B = _i64(X), _i64(B)
+    acc = torch.zeros(X.shape[:-1] + B.shape[1:], dtype=torch.int64,
+                      device=X.device)
+    for k in range(X.shape[-1]):
+        acc = modadd(p, acc, mulmod(p, X[..., k:k + 1], B[k]))
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of the kernels' arithmetic (csrc/modp64.cuh), step for step
+# ---------------------------------------------------------------------------
+
+_U64 = np.uint64
+
+
+def mul128_np(a, b):
+    """(lo, hi) of the exact 128-bit product of uint64 arrays: a * b and
+    __umul64hi(a, b), as mac128 forms them."""
+    a, b = np.asarray(a, _U64), np.asarray(b, _U64)
+    with np.errstate(over="ignore"):
+        return a * b, umul64hi_np(a, b)
+
+
+def redc_np(f: GFpWide, hi, lo) -> np.ndarray:
+    """T * 2^-64 mod p for T = hi 2^64 + lo < p 2^64, as redc computes it:
+    m = lo * pinv mod 2^64, r = hi + hi(m p) + (lo != 0) < 2p, one
+    conditional subtract."""
+    hi, lo = np.asarray(hi, _U64), np.asarray(lo, _U64)
+    t = [(int(h) << 64) + int(l) for h, l in zip(hi.flat, lo.flat)]
+    assert all(v < f.p << 64 for v in t), "REDC input >= p 2^64"
+    with np.errstate(over="ignore"):
+        m = lo * _U64(f.pinv)
+        r = hi + umul64hi_np(m, _U64(f.p)) + (lo != 0).astype(_U64)
+        assert (r < _U64(2 * f.p)).all(), "REDC result out of [0, 2p)"
+        return np.where(r >= _U64(f.p), r - _U64(f.p), r)
+
+
+def mont_mul_np(f: GFpWide, a, b) -> np.ndarray:
+    """a * b * 2^-64 mod p for residues a, b (the product's high word is
+    below p, so REDC takes it as it is)."""
+    lo, hi = mul128_np(a, b)
+    return redc_np(f, hi, lo)
+
+
+def fold_np(f: GFpWide, hi) -> np.ndarray:
+    """The fold of a 128-bit sum: its high word reduced mod p by Barrett
+    (csrc/modp.cuh::barrett_reduce, exact for every u64)."""
+    return barrett_reduce_np(np.asarray(hi, _U64), f.p)
+
+
+def reduce128_np(f: GFpWide, hi, lo) -> np.ndarray:
+    """T mod p for any 128-bit T = hi 2^64 + lo, as reduce128 computes it:
+    fold the high word below p, REDC (T 2^-64 mod p), then a Montgomery
+    product with 2^128 mod p (back to T mod p)."""
+    t = redc_np(f, fold_np(f, hi), lo)
+    return mont_mul_np(f, t, np.full_like(t, f.r2))
+
+
+def lazy_dot_wide(f: GFpWide, a, b, base: int = 0) -> int:
+    """(base + sum a[k] b[k]) mod p over residues as the kernels sum it: a
+    128-bit accumulator that starts at the base, takes raw products and
+    is folded once every WIDE_FOLD of them; then reduce128.  Python ints;
+    asserts that the accumulator stays below 2^128."""
+    assert 0 <= base < f.p
+    acc = base
+    for k, (x, y) in enumerate(zip(a, b)):
+        acc += int(x) * int(y)
+        assert acc < 1 << 128, "lazy sum left 128 bits"
+        if k % WIDE_FOLD == WIDE_FOLD - 1:
+            hi = int(fold_np(f, np.uint64(acc >> 64)))
+            acc = (hi << 64) | (acc & (_R - 1))
+    return int(reduce128_np(f, np.uint64(acc >> 64),
+                            np.uint64(acc & (_R - 1))))
+
+
+def to_mont_np(f: GFpWide, a) -> np.ndarray:
+    """a 2^64 mod p: a Montgomery product with 2^128 mod p."""
+    a = np.asarray(a, _U64)
+    return mont_mul_np(f, a, np.full_like(a, f.r2))
+
+
+def inv_mont_np(f: GFpWide, am) -> np.ndarray:
+    """The Montgomery form of a^-1 from that of a (a != 0), as inv_mont
+    computes it: a~^(p - 2) by right-to-left square-and-multiply on
+    Montgomery products, starting from 2^64 mod p (the form of 1)."""
+    base = np.asarray(am, _U64).copy()
+    r = to_mont_np(f, np.ones_like(base))
+    e = f.p - 2
+    while e:
+        if e & 1:
+            r = mont_mul_np(f, r, base)
+        base = mont_mul_np(f, base, base)
+        e >>= 1
+    return r

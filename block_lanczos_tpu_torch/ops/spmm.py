@@ -38,10 +38,11 @@ class HybridOp:
     nnz: int
     ell: int
     cols: torch.Tensor     # (ell, out_dim) int32
-    vals: torch.Tensor     # (ell, out_dim) int32, residues in [0, p)
+    vals: torch.Tensor     # (ell, out_dim) int32 residues in [0, p); int64
+                           # for a wide prime (ops/wide_ops.py)
     rowptr: torch.Tensor   # (out_dim + 1,) int32, spill row boundaries
     sp_cols: torch.Tensor  # (spill_nnz,) int32
-    sp_vals: torch.Tensor  # (spill_nnz,) int32
+    sp_vals: torch.Tensor  # (spill_nnz,) int32; int64 for a wide prime
 
     @property
     def device(self) -> torch.device:
@@ -105,16 +106,17 @@ def choose_ell_width(counts: np.ndarray, spill_cost: float = 3.0) -> int:
 
 
 def build_hybrid_arrays(out_idx, in_idx, vals, out_dim: int,
-                        ell: int | None = None):
+                        ell: int | None = None, dtype=np.int32):
     """Host construction of the column-major slab and the CSR spill.
 
-    vals are residues in [0, p).  Returns a dict of NumPy arrays (cols,
+    vals are residues in [0, p), stored as `dtype` (int32 for the narrow
+    field, int64 for the wide one).  Returns a dict of NumPy arrays (cols,
     vals, rowptr, sp_cols, sp_vals) plus ell and nnz.  Within a row the
     entries keep their input order; the first `ell` go to the slab.
     """
     out_idx = np.asarray(out_idx, np.int64)
     in_idx = np.asarray(in_idx, np.int32)
-    vals = np.asarray(vals, np.uint32)
+    vals = np.asarray(vals, np.uint64 if dtype == np.int64 else np.uint32)
     nnz = len(vals)
     order = np.argsort(out_idx, kind="stable")
     out_idx, in_idx, vals = out_idx[order], in_idx[order], vals[order]
@@ -128,7 +130,7 @@ def build_hybrid_arrays(out_idx, in_idx, vals, out_dim: int,
     in_slab = pos < ell
     flat = (pos * out_dim + out_idx)[in_slab]   # column-major (ell, out_dim)
     cols = np.zeros(ell * out_dim, np.int32)
-    svals = np.zeros(ell * out_dim, np.int32)
+    svals = np.zeros(ell * out_dim, dtype)
     cols[flat] = in_idx[in_slab]
     svals[flat] = vals[in_slab]
     sp = ~in_slab
@@ -142,7 +144,7 @@ def build_hybrid_arrays(out_idx, in_idx, vals, out_dim: int,
                 vals=svals.reshape(ell, out_dim),
                 rowptr=rowptr.astype(np.int32),
                 sp_cols=in_idx[sp].astype(np.int32),
-                sp_vals=vals[sp].astype(np.int32))
+                sp_vals=vals[sp].astype(dtype))
 
 
 def hybrid_op_from_arrays(p: int, arrays: dict, out_dim: int,

@@ -1,5 +1,5 @@
-"""Solver command-line interface of the port (narrow field and bitsliced
-GF(2), one device).
+"""Solver command-line interface of the port (the narrow field, the wide
+field and bitsliced GF(2), one device).
 
 Flag-compatible with the JAX package's CLI for the part this port covers
 (reference: sequential/lanczos_modp.c:124-194):
@@ -10,15 +10,15 @@ Flag-compatible with the JAX package's CLI for the part this port covers
                        [--salvage [--salvage-restarts K]] [--no-dedup]
                        [--device cuda|cpu] [--single]
 
-p = 2 with n % 32 == 0 selects the bitsliced GF(2) solver (as in the JAX
-package's CLI), every other p <= 2^30 - 35 the narrow field.  Runs on the
-CUDA device by default and exits with an error when there is none;
-`--device cpu` runs the plain PyTorch versions of the kernels.  `--single`
-is accepted and changes nothing: the port always runs on one device.
-Exit code 2, before the matrix is loaded, for what this port does not
-cover yet: primes above 2^30 - 35 (the wide field); the mesh, multi-host,
-overlap and checkpoint flags; and block widths above the kernels' caps,
-n <= 64 in the narrow field and, on CUDA, n <= 512 over GF(2).
+p = 2 with n % 32 == 0 selects the bitsliced GF(2) solver, 2^30 - 35 < p <
+2^62 the wide field (as in the JAX package's CLI; p >= 2^62 exits 1), every
+other p the narrow field.  Runs on the CUDA device by default and exits
+with an error when there is none; `--device cpu` runs the plain PyTorch
+versions of the kernels.  `--single` is accepted and changes nothing: the
+port always runs on one device.  Exit code 2, before the matrix is loaded,
+for what this port does not cover yet: the mesh, multi-host, overlap and
+checkpoint flags; and block widths above the kernels' caps, n <= 64 in the
+narrow and the wide field and, on CUDA, n <= 512 over GF(2).
 """
 
 from __future__ import annotations
@@ -28,7 +28,9 @@ import sys
 
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.ops import semi_inverse as narrow
+from block_lanczos_tpu_torch.ops import wide_ops as wide
 from block_lanczos_tpu_torch.ops.gfp import PRIME_CAP
+from block_lanczos_tpu_torch.ops.gfp_wide import WIDE_PRIME_CAP
 from block_lanczos_tpu_torch.utils import mmio
 from block_lanczos_tpu_torch.utils.verbosity import VerbosityEngine
 
@@ -50,14 +52,16 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="lanczos-modp-torch",
         description="block Lanczos kernel vectors of a sparse matrix mod p "
-                    "(PyTorch + CUDA, narrow field and GF(2), one device)")
+                    "(PyTorch + CUDA, p < 2^62 and GF(2), one device)")
     ap.add_argument("--matrix", required=True,
                     help="MatrixMarket file containing the sparse matrix")
     ap.add_argument("--prime", required=True, type=int,
-                    help="compute modulo P (P <= 2^30 - 35)")
+                    help="compute modulo P (P < 2^62; P > 2^30 - 35 "
+                         "takes the wide field)")
     ap.add_argument("--n", type=int, default=1,
                     help=f"blocking factor [default 1]; this port takes "
-                         f"n <= {narrow.MAX_N} in the narrow field and, on "
+                         f"n <= {narrow.MAX_N} in the narrow field, "
+                         f"n <= {wide.MAX_N} in the wide field and, on "
                          f"CUDA, n <= {gf2.MAX_N} over GF(2)")
     ap.add_argument("--output-file",
                     help="store the block of kernel vectors")
@@ -116,9 +120,10 @@ def _refusal(args) -> str | None:
         if getattr(args, dest) != default:
             return f"{flag} is not supported by this port yet"
     if args.prime > PRIME_CAP:
-        return (f"p > 2**30 - 35 (got {args.prime}): the wide field is not "
-                "supported by this port yet")
-    if args.prime == 2 and args.n % 32 == 0:
+        if args.n > wide.MAX_N:
+            return (f"n = {args.n} is above the wide field's cap of n <= "
+                    f"{wide.MAX_N}: not supported by this port yet")
+    elif args.prime == 2 and args.n % 32 == 0:
         if args.device == "cuda" and args.n > gf2.MAX_N:
             return (f"n = {args.n} is above the GF(2) kernels' cap of n <= "
                     f"{gf2.MAX_N}: not supported by this port yet")
@@ -130,6 +135,11 @@ def _refusal(args) -> str | None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    if args.prime > WIDE_PRIME_CAP:
+        # the reference stops at 2^30 - 35; the JAX package at 2^62
+        print(f"p is capped at 2**62 - 1 (got {args.prime})",
+              file=sys.stderr)
+        return 1
     reason = _refusal(args)
     if reason is not None:
         print(reason, file=sys.stderr)
@@ -148,7 +158,16 @@ def main(argv=None) -> int:
     print(f"  - {M.nrows} x {M.ncols} with {M.nnz} nz", file=sys.stderr)
 
     try:
-        if args.prime == 2 and args.n % 32 == 0:
+        if args.prime > PRIME_CAP:
+            print("  - wide field (p > 2^30): native 64-bit residues",
+                  file=sys.stderr)
+            from block_lanczos_tpu_torch.models.lanczos_wide import \
+                BlockLanczosWide
+            solver = BlockLanczosWide(M, n=args.n, right=right,
+                                      check_invariants=not args.no_checks,
+                                      sync_every=args.sync_every,
+                                      device=args.device)
+        elif args.prime == 2 and args.n % 32 == 0:
             # the factorization case: bitsliced GF(2), 32 elements per word
             print("  - GF(2) bitsliced path (p = 2, n % 32 == 0)",
                   file=sys.stderr)

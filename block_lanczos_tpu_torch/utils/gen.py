@@ -16,6 +16,8 @@ from block_lanczos_tpu_torch.utils import mmio
 # BENCH_PRIME; chip_smoke.py and utils/profile_solve.py build it from here.
 BENCH_NROWS, BENCH_NCOLS, BENCH_DENSITY, BENCH_SEED = 300_000, 200_000, 15, 42
 BENCH_PRIME = 1073741789
+# the wide field's bench prime (bench.py's "wide p61" cell): 2^61 - 1
+WIDE_BENCH_PRIME = (1 << 61) - 1
 
 
 def random_sparse(nrows: int, ncols: int, row_density: int, seed: int = 0,

@@ -49,6 +49,18 @@ variant's outputs are first held equal to the default build's:
     each phase (phase 1, phase 2; the epilogue's winv and spliced rows, its
     two n x n products c = winv spliced and winv vtAv, its checks and
     writes) and per pivot step.
+  * the wide field, on the bench matrix at 2^61 - 1: spmv_wide per
+    direction at n = 4 as built and with (SPMV_WIDE_CHUNK,
+    SPMV_WIDE_THREADS) in WIDE_SPMV_SHAPES; gram_wide at n in {4, 8, 32} on
+    the bench's rows as built and with GW_ROWS_PER_LANE in WIDE_GRAM_ROWS;
+    orthogonalize_wide at n in WIDE_NS as built (a thread a row up to
+    OW_ROW_MAX_N = 8) and with the tile path at every n (OW_ROW_MAX_N =
+    0); semi_inverse_wide as built on full-rank Grams at n in WIDE_NS,
+    and its timeline with SIW_TIMELINE at n in SIW_TIMELINE_NS: thread 0's
+    clock64() cycles of each phase, of a pivot step in each phase, and of
+    the Fermat inverse, with its cycles a bit of the exponent p - 2 (a
+    squaring on the dependent chain and, on a set bit, a product beside
+    it).
 Each variant is an nvcc build of its own into build/kernels/ (all started
 together); the solver never runs them.  Needs a CUDA device and nvcc;
 prints one JSON line last.
@@ -84,7 +96,27 @@ EXTRA = {"gram_mod": (("GRAM_UNROLL", (2, 8), (4,)),
                       ("GRAM_MMA_STAGES", (3, 4), (16, 32, 64))),
          "orthogonalize": (("ORTHO_MMA_WARPS", (2, 4), (16, 32, 64)),)}
 KERNELS = ("spmv_ell", "semi_inverse", "gram_mod", "orthogonalize",
-           "spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2")
+           "spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2",
+           "spmv_wide", "gram_wide", "semi_inverse_wide",
+           "orthogonalize_wide")
+WIDE_KERNELS = KERNELS[8:]
+# the wide field: spmv_wide's (SPMV_WIDE_CHUNK, SPMV_WIDE_THREADS), gram_wide's
+# GW_ROWS_PER_LANE, orthogonalize_wide's tile path at every n
+WIDE_SPMV_SHAPES = tuple((c, t) for c in (2, 4, 8) for t in (64, 128, 256))
+WIDE_GRAM_ROWS = (16, 32, 64, 128, 256)
+WIDE_GRAM_NS = (4, 8, 32)
+WIDE_NS = (1, 2, 4, 8, 16, 32, 64)
+WIDE_ORTHO_VARIANTS = ({"OW_ROW_MAX_N": 0},)
+SIW_TIMELINE_NS = (1, 4, 16, 64)
+# csrc/semi_inverse_wide.cu's SIW_TIMELINE slots
+(TW_START, TW_LOADED, TW_PHASE1, TW_P2INIT, TW_PHASE2, TW_SIG, TW_WINV,
+ TW_CHECK, TW_END, TW_NS_START, TW_NS_END, TW_INV_START,
+ TW_INV_END) = range(13)
+TW_STEP1, TW_MAXN = 16, 64
+TW_STEP2 = TW_STEP1 + TW_MAXN
+TW_SLOTS = TW_STEP2 + TW_MAXN
+PHASES_W = ("loaded", "phase1", "p2init", "phase2", "inverse_sig", "winv",
+            "check", "rhs_end")
 # GF(2): spmv_gf2's column bands and (SPMV_GF2_CHUNK, SPMV_GF2_THREADS)
 # shapes; gram_gf2 at every width class and with GG_STAGES beside the
 # default 2
@@ -621,7 +653,145 @@ def _variants(names) -> list:
                 ("semi_inverse_gf2", {"SI2_TIMELINE": 1, **SI2_WARP})]
     if "orthogonalize_gf2" in names:
         out += [("orthogonalize_gf2", d) for d in OG_VARIANTS]
+    if "spmv_wide" in names:
+        out += [("spmv_wide", {"SPMV_WIDE_CHUNK": c, "SPMV_WIDE_THREADS": t})
+                for c, t in WIDE_SPMV_SHAPES]
+    if "gram_wide" in names:
+        out += [("gram_wide", {"GW_ROWS_PER_LANE": r})
+                for r in WIDE_GRAM_ROWS]
+    if "orthogonalize_wide" in names:
+        out += [("orthogonalize_wide", d) for d in WIDE_ORTHO_VARIANTS]
+    if "semi_inverse_wide" in names:
+        out += [("semi_inverse_wide", {"SIW_TIMELINE": 1})]
     return out
+
+
+def _key(defines) -> str:
+    return ",".join(f"{k}={v}" for k, v in sorted(defines.items()))
+
+
+def wide_sweeps(names, rng, dev) -> dict:
+    """The wide kernels on the bench matrix at 2^61 - 1 (module docstring);
+    every variant's output held equal to the default build's."""
+    import torch
+
+    from block_lanczos_tpu_torch import kernels
+    from block_lanczos_tpu_torch.models import lanczos_wide as LW
+    from block_lanczos_tpu_torch.ops import wide_ops as wo
+    from block_lanczos_tpu_torch.ops.semi_inverse import new_state
+    from block_lanczos_tpu_torch.utils import gen
+    from block_lanczos_tpu_torch.utils.mmio import COOMatrix
+
+    i, j, x = gen.random_sparse(gen.BENCH_NROWS, gen.BENCH_NCOLS,
+                                gen.BENCH_DENSITY, gen.BENCH_SEED)
+    p = gen.WIDE_BENCH_PRIME
+    M = COOMatrix(gen.BENCH_NROWS, gen.BENCH_NCOLS, len(x),
+                  i.astype(np.int32), j.astype(np.int32),
+                  x.astype(np.uint64), p)
+    s = LW.BlockLanczosWide(M, n=4, device=dev)
+    f = s.f
+
+    def rand(rows, n):
+        return torch.from_numpy(rng.integers(0, 1 << 62, (rows, n),
+                                             dtype=np.int64) % p).to(dev)
+
+    def variants(name, fns, kernel):
+        """{build: {case: ms}} for the default build and each variant of
+        `name`, fns = {case: (call, want)}."""
+        out = {"default": {k: device_ms(fn, kernel)
+                           for k, (fn, _) in fns.items()}}
+        for _, d in (v for v in _variants([name]) if v[0] == name):
+            with kernels.variant(name, **d):
+                for k, (fn, want) in fns.items():
+                    _equal(f"{name} {_key(d)} {k}", [fn()], [want])
+                out[_key(d)] = {k: device_ms(fn, kernel)
+                                for k, (fn, _) in fns.items()}
+        return out
+
+    res = {}
+    if "spmv_wide" in names:
+        fns = {}
+        for d, (op, in_rows, out_rows) in {
+                "Mt*v": (s.first_op, s.np_rows, s.mp_rows),
+                "M*tmp": (s.second_op, s.mp_rows, s.np_rows)}.items():
+            xv = rand(in_rows, 4)
+            call = (lambda op=op, xv=xv, out_rows=out_rows:
+                    wo.spmv_wide(f, op, xv, out_rows))
+            fns[f"{d} n=4"] = (call, call())
+        res["spmv_wide"] = variants("spmv_wide", fns, "spmv_wide_kernel")
+    if "gram_wide" in names:
+        fns = {}
+        for n in WIDE_GRAM_NS:
+            v, av = rand(s.np_rows, n), rand(s.np_rows, n)
+            call = lambda v=v, av=av: wo.gram_wide(v, av, f)  # noqa: E731
+            fns[f"n={n}"] = (call, call().clone())
+        res["gram_wide"] = variants("gram_wide", fns, "gram_wide_kernel")
+    if "orthogonalize_wide" in names:
+        fns = {}
+        for n in WIDE_NS:
+            v, pb, av = (rand(s.np_rows, n) for _ in range(3))
+            rhs = rand(2 * n, 2 * n)
+            rhs[n:, n:] = 0
+            d = torch.from_numpy(rng.integers(0, 2, n).astype(np.int32)
+                                 ).to(dev)
+
+            def call(v=v, pb=pb, av=av, rhs=rhs, d=d):
+                vk, pk = v.clone(), pb.clone()
+                LW.orthogonalize_wide(vk, pk, av, rhs, d, f, new_state(dev))
+                return torch.cat([vk, pk], 1)
+            fns[f"n={n}"] = (call, call())
+        res["orthogonalize_wide"] = variants("orthogonalize_wide", fns,
+                                             "orthogonalize_wide")
+    if "semi_inverse_wide" in names:
+        by_n, grams, want = {}, {}, {}
+
+        def run(n):
+            st = new_state(dev)
+            return [*(t.clone() for t in
+                      wo.semi_inverse_wide(grams[n], f, st)), st]
+
+        for n in WIDE_NS:
+            B = rng.integers(0, 1 << 62, (n, n + 2)).astype(object) % p
+            U = torch.from_numpy(((B @ B.T) % p).astype(np.int64)).to(dev)
+            grams[n] = torch.cat([U, U])
+            want[n] = run(n)
+            st = new_state(dev)
+            by_n[f"n={n}"] = device_ms(
+                lambda: wo.semi_inverse_wide(grams[n], f, st),
+                "semi_inverse_wide_kernel")
+        timeline = {}
+        with kernels.variant("semi_inverse_wide", SIW_TIMELINE=1) as lib:
+            lib.semi_inverse_wide_stamps.argtypes = [ctypes.c_void_p]
+            lib.semi_inverse_wide_stamps.restype = ctypes.c_int
+            for n in SIW_TIMELINE_NS:
+                _equal(f"semi_inverse_wide timeline n={n}", run(n), want[n])
+                torch.cuda.synchronize()
+                st = (ctypes.c_longlong * TW_SLOTS)()
+                if lib.semi_inverse_wide_stamps(ctypes.addressof(st)) != 0:
+                    raise RuntimeError("semi_inverse_wide_stamps failed")
+                timeline[f"n={n}"] = _timeline_wide(list(st), n, p)
+        res["semi_inverse_wide"] = {"default": by_n, "timeline": timeline}
+    return res
+
+
+def _timeline_wide(st, n, p) -> dict:
+    """semi_inverse_wide's SIW_TIMELINE stamps: cycles by phase, the mean
+    cycles of a pivot step in each phase, the Fermat inverse's cycles and
+    its cycles a bit of the exponent p - 2 (inv_mont's loop runs once a
+    bit: a squaring, and on a set bit a product beside it)."""
+    cycles = st[TW_END] - st[TW_START]
+    ghz = cycles / max(st[TW_NS_END] - st[TW_NS_START], 1)
+    marks = [st[TW_START + 1 + k] for k in range(len(PHASES_W))]
+    phases = dict(zip(PHASES_W, np.diff([st[TW_START], *marks]).tolist()))
+    steps = {}
+    for name, first, end in (("phase1", TW_STEP1, TW_PHASE1),
+                             ("phase2", TW_STEP2, TW_PHASE2)):
+        starts = [st[first + j] for j in range(n)] + [st[end]]
+        steps[name] = statistics.mean(np.diff(starts).tolist())
+    inverse = st[TW_INV_END] - st[TW_INV_START]
+    return {"ghz": ghz, "cycles": cycles, "phases": phases,
+            "cycles_per_step": steps, "inverse_cycles": inverse,
+            "cycles_per_bit": inverse / (p - 2).bit_length()}
 
 
 def _print_dense(name, res) -> None:
@@ -695,6 +865,19 @@ def main(argv=None) -> int:
               f"auto bands {sg['auto']}), ms per product: " + ", ".join(
                   f"{k} {ms:.4f}" for k, ms in sg.items()
                   if k not in ("l2_bytes", "auto")))
+    if set(names) & set(WIDE_KERNELS):
+        wide = wide_sweeps(names, rng, dev)
+        res.update(wide)
+        for name, builds in wide.items():
+            for build, by_case in builds.items():
+                if build == "timeline":
+                    for k, t in by_case.items():
+                        print(f"  {name} timeline {k}: {json.dumps(t)}",
+                              flush=True)
+                    continue
+                print(f"  {name} {build}: " + ", ".join(
+                    f"{k} {ms:.4f}" for k, ms in by_case.items()),
+                    flush=True)
     if not set(names) & {"spmv_ell", "semi_inverse", "gram_mod",
                          "orthogonalize"}:
         print(json.dumps(res))

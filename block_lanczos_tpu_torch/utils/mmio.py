@@ -1,11 +1,14 @@
-"""MatrixMarket IO for the narrow field (the port's own copy).
+"""MatrixMarket IO (the port's own copy).
 
 Same semantics as the JAX package's reader and writer, which follow the
 reference (sequential/mmio.c and sequential/lanczos_modp.c:199-263):
 sparse "coordinate integer general" matrices in, dense "array integer
-general" kernel blocks out.  Coefficients are reduced mod p at load time
-with the reference's rule for negative entries: the value is read as a
-u32 (two's complement), then reduced mod p.  Parsing is NumPy only.
+general" kernel blocks out.  Coefficients are reduced mod p at load time.
+For p <= 2^30 - 35 with the reference's rule for negative entries: the
+value is read as a u32 (two's complement), then reduced mod p (uint32
+out).  For a wide prime (p > 2^30 - 35) as the JAX package reads it: the
+value is parsed as an int64 and reduced mathematically, v mod p >= 0, so
+p + 5 loads as 5 and -1 as p - 1 (uint64 out).  Parsing is NumPy only.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from block_lanczos_tpu_torch.ops.gfp import PRIME_CAP
 
 
 @dataclasses.dataclass
@@ -23,7 +28,7 @@ class COOMatrix:
     nnz: int
     i: np.ndarray   # int32
     j: np.ndarray   # int32
-    x: np.ndarray   # uint32, in [0, p)
+    x: np.ndarray   # uint32 in [0, p); uint64 for a wide prime
     prime: int
 
 
@@ -93,10 +98,14 @@ def load_mtx(path: str, prime: int, verbose: bool = False) -> COOMatrix:
     arr = np.array(toks[:3 * nnz], dtype=np.int64).reshape(nnz, 3)
     del toks
     _validate_indices(arr[:, 0] - 1, arr[:, 1] - 1, nrows, ncols)
-    # reference semantics: value scanned into u32 (two's complement for
-    # negatives), then reduced mod p as a u64
-    mx = (arr[:, 2].astype(np.uint32).astype(np.uint64)
-          % np.uint64(prime)).astype(np.uint32)
+    if prime > PRIME_CAP:
+        # wide prime: mathematical v mod p (int64 % positive >= 0)
+        mx = (arr[:, 2] % np.int64(prime)).astype(np.uint64)
+    else:
+        # reference semantics: value scanned into u32 (two's complement
+        # for negatives), then reduced mod p as a u64
+        mx = (arr[:, 2].astype(np.uint32).astype(np.uint64)
+              % np.uint64(prime)).astype(np.uint32)
     return COOMatrix(nrows=nrows, ncols=ncols, nnz=nnz,
                      i=(arr[:, 0] - 1).astype(np.int32),
                      j=(arr[:, 1] - 1).astype(np.int32),

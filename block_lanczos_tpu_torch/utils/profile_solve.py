@@ -6,10 +6,12 @@
         --n 128 256
     python -m block_lanczos_tpu_torch.utils.profile_solve --field gf2 \
         --n 128 256 --matrix 3Mx2M
+    python -m block_lanczos_tpu_torch.utils.profile_solve --field wide --n 4
 
 Builds the matrix, runs the solver's iteration on the card, and reports for
-a window of iterations far from the solve's end (narrow field: 4096/n, 1024
-at n = 4, 128 at n = 32; GF(2): 16384/n, 128 at n = 128, 64 at n = 256):
+a window of iterations far from the solve's end (narrow and wide field:
+4096/n, 1024 at n = 4, 128 at n = 32; GF(2): 16384/n, 128 at n = 128, 64
+at n = 256):
   * the wall time per iteration (host clock, synchronised at both ends),
     without and then with torch.profiler, and the host's issue time per
     iteration: the wall of the enqueue loop alone, taken before the sync
@@ -21,8 +23,8 @@ at n = 4, 128 at n = 32; GF(2): 16384/n, 128 at n = 128, 64 at n = 256):
   * the device's busy share of the profiled window (kernel time / wall) and
     hence its idle share, which is the host's launch overhead.
 Matrices: `bench` is utils/gen.py's BENCH_* configuration (the one bench.py
-and chip_smoke.py use), mod BENCH_PRIME for the narrow field and mod 2 for
-GF(2); `3Mx2M` is the JAX bench's factorization-scale GF(2) instance
+and chip_smoke.py use), mod BENCH_PRIME for the narrow field, mod
+WIDE_BENCH_PRIME = 2^61 - 1 for the wide field and mod 2 for GF(2); `3Mx2M` is the JAX bench's factorization-scale GF(2) instance
 (random_sparse(3000000, 2000000, 17, seed=42) mod 2, 51M entries before the
 reduction), generated in memory (about 8 s of NumPy on the H100's host)
 and shared by the widths of one call.  Every window starts from the solver's own xoshiro
@@ -63,26 +65,37 @@ def wrapper_of(kernel: str, wrappers) -> str | None:
 
 def _matrix(name: str, prime: int):
     from block_lanczos_tpu_torch.utils import gen
+    from block_lanczos_tpu_torch.ops.gfp import PRIME_CAP
     from block_lanczos_tpu_torch.utils.mmio import COOMatrix
     dims = {"bench": (gen.BENCH_NROWS, gen.BENCH_NCOLS, gen.BENCH_DENSITY,
                       gen.BENCH_SEED),
             "3Mx2M": (3_000_000, 2_000_000, 17, 42)}[name]
     i, j, x = gen.random_sparse(*dims)
+    dtype = np.uint64 if prime > PRIME_CAP else np.uint32
     return COOMatrix(dims[0], dims[1], len(x), i.astype(np.int32),
-                     j.astype(np.int32), (x % prime).astype(np.uint32), prime)
+                     j.astype(np.int32), (x % prime).astype(dtype), prime)
 
 
-def profile_width(M, gf2: bool, n: int, label: str) -> dict:
-    """Profile a window of iterations at block width n on the matrix M
-    (mod 2 for GF(2)); prints the breakdown and returns its JSON record."""
+def profile_width(M, field: str, n: int, label: str) -> dict:
+    """Profile a window of iterations at block width n on the matrix M (mod
+    2 for GF(2)) in `field` ("narrow", "wide" or "gf2"); prints the
+    breakdown and returns its JSON record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from block_lanczos_tpu_torch.ops.semi_inverse import new_state
 
+    gf2 = field == "gf2"
     iters = (16384 if gf2 else 4096) // n
     t0 = time.perf_counter()
-    if gf2:
+    if field == "wide":
+        from block_lanczos_tpu_torch.models import lanczos_wide as L
+        s = L.BlockLanczosWide(M, n=n)
+
+        def step(ws):
+            L.iteration_step(s.f, s.mp_rows, s.np_rows, True, s.first_op,
+                             s.second_op, v, p_blk, state, ws)
+    elif gf2:
         from block_lanczos_tpu_torch.models import lanczos_gf2 as L
         s = L.BlockLanczosGF2(M, n=n)
 
@@ -142,7 +155,6 @@ def profile_width(M, gf2: bool, n: int, label: str) -> dict:
     busy_ms = sum(per_kernel.values())
     iter_ms = prof_s / iters * 1e3
     card = _card()
-    field = "gf2" if gf2 else "narrow"
     bands = ([len(op) for op in (s.first_op, s.second_op)]
              if gf2 else None)
     print(f"card: {card}; {field} n={n}, matrix {label} ({M.nrows} x "
@@ -180,7 +192,8 @@ def profile_width(M, gf2: bool, n: int, label: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--field", choices=("narrow", "gf2"), default="narrow")
+    ap.add_argument("--field", choices=("narrow", "wide", "gf2"),
+                    default="narrow")
     ap.add_argument("--n", type=int, nargs="+", default=None,
                     help="block widths, profiled one after another on one "
                          "matrix [default 4 narrow, 128 GF(2)]")
@@ -195,11 +208,13 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_solve needs a CUDA device")
     t0 = time.perf_counter()
-    M = _matrix(args.matrix, 2 if gf2 else gen.BENCH_PRIME)
+    prime = {"narrow": gen.BENCH_PRIME, "wide": gen.WIDE_BENCH_PRIME,
+             "gf2": 2}[args.field]
+    M = _matrix(args.matrix, prime)
     print(f"matrix {args.matrix}: {M.nrows} x {M.ncols}, {M.nnz} entries, "
           f"generated in {time.perf_counter() - t0:.1f} s")
     for n in args.n or [128 if gf2 else 4]:
-        profile_width(M, gf2, n, args.matrix)
+        profile_width(M, args.field, n, args.matrix)
     return 0
 
 

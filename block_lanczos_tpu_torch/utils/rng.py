@@ -47,7 +47,17 @@ class Xoshiro256Plus:
         return out
 
     def fill_mod(self, count: int, prime: int) -> np.ndarray:
-        """Draw `count` values of random64() % prime as uint32.
+        """Draw `count` values of random64() % prime as uint32."""
+        return self._fill(count, prime, np.uint32)
+
+    def fill_mod64(self, count: int, prime: int) -> np.ndarray:
+        """The same stream as fill_mod, kept whole as uint64: the wide
+        field's v0 (p < 2^62).  At a narrow prime the values equal
+        fill_mod's."""
+        return self._fill(count, prime, np.uint64)
+
+    def _fill(self, count: int, prime: int, dtype) -> np.ndarray:
+        """`count` values of random64() % prime as `dtype`.
 
         The stream is drawn by up to LANES generators side by side in
         NumPy.  The state update is linear over GF(2), so the state m draws
@@ -56,7 +66,7 @@ class Xoshiro256Plus:
         l m .. l m + m - 1 of the stream; the generator then holds the
         state after the last value, as if it had drawn them one by one."""
         if count == 0:
-            return np.zeros(0, np.uint32)
+            return np.zeros(0, dtype)
         lanes = min(LANES, count)
         m = -(-count // lanes)
         S = np.zeros((256, lanes), np.float32)
@@ -69,7 +79,7 @@ class Xoshiro256Plus:
             done += k
         s0, s1, s2, s3 = (_bits_to_u64(S[64 * w:64 * w + 64])
                           for w in range(4))
-        out = np.empty((m, lanes), np.uint32)
+        out = np.empty((m, lanes), dtype)
         last, tail = divmod(count, m)          # the stream ends in lane
         if tail == 0:                          # `last` after `tail` draws
             last, tail = last - 1, m

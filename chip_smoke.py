@@ -8,8 +8,8 @@ CUDA toolkit (nvcc).  Phases, each of which raises (non-zero exit) on
 failure:
 
   0. print the card's name and power limit; require CUDA;
-  1. build the eight CUDA kernels from block_lanczos_tpu_torch/csrc/ (four
-     narrow-field, four bitsliced GF(2));
+  1. build the twelve CUDA kernels from block_lanczos_tpu_torch/csrc/ (four
+     narrow-field, four bitsliced GF(2), four wide-field);
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes (the bench matrix, n = 4 and n = 32) and at edge
      shapes (p = 2 and 3, n = 1, an empty spill, one long spill row, N not a
@@ -44,7 +44,19 @@ failure:
      orthogonalize's n = 32 times and bounds beside the card, and the GF(2)
      kernels' n = 128 times, bounds (the GF(2) products' at the measured
      binary rate, n = 256's too) and library yardsticks (torch._int_mm of
-     the unpacked bits for gram_gf2 and orthogonalize_gf2);
+     the unpacked bits for gram_gf2 and orthogonalize_gf2); then the wide
+     kernels (u64 residues) at 2^30 + 3, 2^61 - 1 and 4611686018427387847,
+     every n in {1, 2, 3, 4, 8, 16, 32, 64}: spmv_wide on the bench
+     operators at 2^61 - 1 (timed at n = 4) and on an edge matrix with a
+     long spill row, the lazy sums' worst case (every value and x at p - 1,
+     rows longer than the fold in slab and spill) aligned and not, a zero
+     x, an empty spill; gram_wide at the bench's rows (timed, and all
+     p - 1), N = 0 and 1, zero blocks; semi_inverse_wide on the bench's
+     Grams (timed), full-rank, rank-deficient and zero Grams, one whose
+     phase-2 pivots differ from phase 1's (d != d1), a failing check, the
+     check off, a frozen state; orthogonalize_wide at the bench's rows
+     (timed) and with d all 0, all 1 and mixed under running, stopped,
+     failed and frozen states, all p - 1, N = 1, misaligned views;
   3. solve the 9 goldens on the card (left_p2_n32 through the GF(2)
      solver): every kernel file must be byte-identical to its golden;
   4. the main path at full size: generate the bench matrix (300000 x
@@ -68,7 +80,16 @@ failure:
      CUDA kernels), each from its own xoshiro v0 (the same bits): the
      unpacked v and p must be equal;
   8. a timed block of 100 GF(2) iterations at n = 256, with launch counts;
-  9. print the kernels JSON line (eight kernels), the card line, and the
+  9. the wide slice at full size: the bench matrix file loaded at
+     p = 2^61 - 1 through the wide loader and solved by BlockLanczosWide at
+     n = 4, left kernel, invariant checks on, to convergence (the JAX
+     bench's wide cell, bench.py:124-140 and 471-473, whole); the final
+     check and the port's wide checker on the kernel file must pass, and
+     the launch counts must show every wide kernel in every iteration;
+  10. 50 iterations of BlockLanczosWide and of the narrow BlockLanczos at
+     the narrow bench prime, n = 4, each from its own xoshiro v0: v and p
+     must be equal;
+  11. print the kernels JSON line (twelve kernels), the card line, and the
      result line.
 
 Scratch files go to build/chip_smoke/ in the checkout.  Design
@@ -815,6 +836,374 @@ def check_gf2_kernels(recs, rng, dev, sg):
           f"product {o_lib:.4f} ms + unpack {o_unpack:.4f} ms", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The wide-field kernels (2^30 - 35 < p < 2^62, u64 residues)
+# ---------------------------------------------------------------------------
+
+WIDE_PRIMES = (1073741827, (1 << 61) - 1, 4611686018427387847)  # 2^30 + 3,
+# 2^61 - 1 (the bench's) and the largest prime below 2^62
+WIDE_NS = (1, 2, 3, 4, 8, 16, 32, 64)
+# A 64 x 64 -> 128-bit multiply-add on the CUDA cores: a * b (3 IMADs),
+# __umul64hi (4) and the carry add, counted as 8 integer multiply-adds (2
+# operations each) against the float32 rate, as the narrow bounds count one.
+WIDE_MAC_OPS = 2 * 8
+# semi_inverse_wide's dependent chain, in cycles: a pivot step at least a
+# warp ballot and a dependent shared-memory read (~80, as for the narrow and
+# GF(2) eliminations), and the Fermat inverse 254 a bit of the exponent p - 2
+# (a squaring on the chain, a product beside it), as utils/kernel_sweeps.py's
+# SIW_TIMELINE build measured it on an H100 80GB HBM3 at 700 W (PERF.md):
+# the floor of this design's inverse, which a faster one would lower.
+WIDE_STEP_CYCLES = 80
+WIDE_INV_BIT_CYCLES = 254
+BOOST_HZ = 1.98e9
+
+
+def rand_wide(rng, rows, n, p, device):
+    """(rows, n) int64 residues drawn over the full 62 bits, reduced."""
+    import torch
+    return torch.from_numpy(
+        rng.integers(0, 1 << 62, size=(rows, n), dtype=np.int64) % p
+    ).to(device)
+
+
+def wide_spmv_work(op, n, out_rows):
+    """(bytes, operations): 12 B of slab (int32 column, int64 value) per
+    true nonzero, x read, y written, rowptr; one wide multiply-add per
+    nonzero and column."""
+    return (12 * op.nnz + 8 * op.in_dim * n + 8 * out_rows * n
+            + 4 * (op.out_dim + 1), WIDE_MAC_OPS * op.nnz * n)
+
+
+def wide_gram_bound(N, n):
+    """v and Av read once, G written; N 2n n wide multiply-adds."""
+    return bound(8 * (2 * N * n + 2 * n * n), WIDE_MAC_OPS * N * 2 * n * n)
+
+
+def wide_ortho_bound(N, n):
+    """v, p, Av read, v and p written, rhs and d read; 3 n^2 wide
+    multiply-adds a row."""
+    return bound(8 * (5 * N * n + 4 * n * n) + 4 * (n + 4),
+                 WIDE_MAC_OPS * 3 * N * n * n)
+
+
+def check_spmv_wide(rec, rng, dev, wo, ws):
+    """spmv_wide against spmv_wide_plain: the bench operators at 2^61 - 1
+    in both directions at n = 4 (timed); at every prime of WIDE_PRIMES and
+    every n of WIDE_NS an edge matrix with one long spill row in both
+    directions; the lazy sums' worst case (every value and x at p - 1, rows
+    longer than the fold in slab and spill); a zero x; x and y off their
+    16-byte alignment; an empty spill."""
+    import torch
+    from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
+    from block_lanczos_tpu_torch.utils import gen
+
+    f = ws.f
+    ms, plain, nbytes, nops = [], [], [], []
+    for name, op, in_rows, out_rows in (
+            ("Mt*v", ws.first_op, ws.np_rows, ws.mp_rows),
+            ("M*tmp", ws.second_op, ws.mp_rows, ws.np_rows)):
+        x = rand_wide(rng, in_rows, 4, f.p, dev)
+        rec.agree(f"bench {name} n=4", wo.spmv_wide(f, op, x, out_rows),
+                  wo.spmv_wide_plain(op, x, out_rows))
+        k_ms = median_ms(lambda: wo.spmv_wide(f, op, x, out_rows))
+        p_ms = median_ms(lambda: wo.spmv_wide_plain(op, x, out_rows), reps=3)
+        nb, no = wide_spmv_work(op, 4, out_rows)
+        b = bound(nb, no)
+        ms.append(k_ms)
+        plain.append(p_ms)
+        nbytes.append(nb)
+        nops.append(no)
+        print(f"  spmv_wide {name} n=4: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+              f"bound {b[0]:.4f} ms ({b[1]}), library_ms: none", flush=True)
+    rec.ms, rec.plain_ms = statistics.mean(ms), statistics.mean(plain)
+    rec.set_bound(statistics.mean(nbytes), statistics.mean(nops))
+    i, j, _ = gen.random_sparse(3001, 1517, 7, seed=17)
+    i = np.concatenate([i, np.full(3000, 17), np.arange(40)])
+    j = np.concatenate([j, rng.integers(0, 1517, 3000), np.arange(40)])
+    for p in WIDE_PRIMES:
+        fe = GFpWide.make(p)
+        x = rng.integers(0, 1 << 62, i.size, dtype=np.int64) % p
+        for out_dim, in_dim, oi, ii in ((3001, 1517, i, j),
+                                        (1517, 3001, j, i)):
+            op = wo.make_wide_op(fe, oi, ii, x, out_dim, in_dim)
+            if out_dim == 3001:
+                assert op.spill_nnz >= 3000, "long spill row missing"
+            op = op.to(dev)
+            for n in WIDE_NS:
+                xb = rand_wide(rng, in_dim + 5, n, p, dev)
+                rec.agree(f"edge p={p} n={n} out={out_dim}",
+                          wo.spmv_wide(fe, op, xb, out_dim + 13),
+                          wo.spmv_wide_plain(op, xb, out_dim + 13))
+            xz = torch.zeros((in_dim, 4), dtype=torch.int64, device=dev)
+            rec.agree(f"zero x p={p} out={out_dim}",
+                      wo.spmv_wide(fe, op, xz, out_dim),
+                      wo.spmv_wide_plain(op, xz, out_dim))
+        # worst case of the lazy sums, at every vector width and off the
+        # 16-byte alignment
+        fold = 8
+        wi = np.concatenate([np.repeat(np.arange(300), 2 * fold + 5),
+                             np.full(600, 7), np.arange(40) * 3])
+        wj = rng.integers(0, 250, wi.size)
+        op = wo.make_wide_op(fe, wi, wj, np.full(wi.size, p - 1), 300, 250,
+                             ell=2 * fold + 3).to(dev)
+        assert op.spill_nnz > 600 + 300
+        for n in WIDE_NS:
+            for skew in (0, 1):
+                xf = torch.full((250 * n + skew,), p - 1, dtype=torch.int64,
+                                device=dev)
+                yf = torch.empty((307 * n + skew,), dtype=torch.int64,
+                                 device=dev)
+                xb, yb = xf[skew:].view(250, n), yf[skew:].view(307, n)
+                rec.agree(f"all p-1 p={p} n={n} misaligned={skew}",
+                          wo.spmv_wide(fe, op, xb, 307, out=yb),
+                          wo.spmv_wide_plain(op, xb, 307))
+        op = wo.make_wide_op(fe, np.arange(999) % 333, np.arange(999) % 71,
+                             np.arange(1, 1000), 333, 71).to(dev)
+        assert op.spill_nnz == 0
+        xb = rand_wide(rng, 71, 3, p, dev)
+        rec.agree(f"empty spill p={p}", wo.spmv_wide(fe, op, xb, 341),
+                  wo.spmv_wide_plain(op, xb, 341))
+
+
+def check_gram_wide(rec, rng, dev, wo, ws):
+    """gram_wide against gram_wide_plain: [v | Av]^T Av at the bench's rows
+    at n = 4 (timed) and all p - 1 there; every prime and n of WIDE_NS at
+    EDGE_ROWS, all p - 1, zero blocks, N = 1 and N = 0."""
+    import torch
+    from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
+
+    f, N = ws.f, ws.np_rows
+    v, av = rand_wide(rng, N, 4, f.p, dev), rand_wide(rng, N, 4, f.p, dev)
+    rec.agree("bench n=4", wo.gram_wide(v, av, f),
+              wo.gram_wide_plain(v, av, f.p))
+    rec.ms = median_ms(lambda: wo.gram_wide(v, av, f))
+    rec.plain_ms = median_ms(lambda: wo.gram_wide_plain(v, av, f.p), reps=3)
+    rec.bound_ms, rec.bound_by = wide_gram_bound(N, 4)
+    full = torch.full((N, 4), f.p - 1, dtype=torch.int64, device=dev)
+    rec.agree("bench all p-1 n=4", wo.gram_wide(full, full, f),
+              wo.gram_wide_plain(full, full, f.p))
+    for p in WIDE_PRIMES:
+        fe = GFpWide.make(p)
+        for n in WIDE_NS:
+            v = rand_wide(rng, EDGE_ROWS, n, p, dev)
+            av = rand_wide(rng, EDGE_ROWS, n, p, dev)
+            rec.agree(f"p={p} n={n}", wo.gram_wide(v, av, fe),
+                      wo.gram_wide_plain(v, av, p))
+            full = torch.full((EDGE_ROWS, n), p - 1, dtype=torch.int64,
+                              device=dev)
+            rec.agree(f"all p-1 p={p} n={n}", wo.gram_wide(full, full, fe),
+                      wo.gram_wide_plain(full, full, p))
+        for n in (1, 4, 64):
+            for N in (0, 1):
+                v, av = rand_wide(rng, N, n, p, dev), rand_wide(rng, N, n, p,
+                                                                dev)
+                rec.agree(f"N={N} p={p} n={n}", wo.gram_wide(v, av, fe),
+                          wo.gram_wide_plain(v, av, p))
+            z = torch.zeros((EDGE_ROWS, n), dtype=torch.int64, device=dev)
+            rec.agree(f"zero p={p} n={n}", wo.gram_wide(z, z, fe),
+                      wo.gram_wide_plain(z, z, p))
+
+
+def wide_grams(rng, p, n, kind, device):
+    """[U ; UA] (2n, n) int64: U symmetric of full rank ("full"), of rank
+    n - 1 or 1 ("deficient"), zero ("zero"), or with rows 0 and 1 zero and
+    the rest random ("d!=d1": phase 1 pivots columns 0 and 1 on rows 2 and
+    3, phase 2's masked block U[d1, d1] has zero rows there, so d != d1);
+    UA symmetric."""
+    import torch
+    r = lambda *s: rng.integers(0, 1 << 62, size=s).astype(object) % p  # noqa
+    if kind == "full":
+        L = np.tril(r(n, n), -1) + np.eye(n, dtype=object)
+        D = r(n) % (p - 1) + 1                    # in [1, p - 1]
+        U = (L * D[None, :]) @ L.T % p            # L D L^T: full rank
+    elif kind == "deficient":
+        B = r(n, max(n - 1, 1))
+        U = B @ B.T % p
+    elif kind == "zero":
+        U = np.zeros((n, n), object)
+    else:
+        U = np.zeros((n, n), object)
+        U[2:] = r(n - 2, n)
+    A = r(n, n)
+    UA = (A + A.T) % p
+    return torch.from_numpy(np.concatenate([U, UA]).astype(np.int64)
+                            ).to(device)
+
+
+def check_si_wide(rec, rng, dev, wo, ws, real_grams):
+    """semi_inverse_wide against semi_inverse_wide_plain: the bench's real
+    Grams (n = 4, timed); at every prime and n of WIDE_NS full-rank,
+    rank-deficient and zero Grams, and (n >= 4) one whose phase-2 pivots
+    differ from phase 1's (d != d1); a failing check; the check off; a
+    frozen state."""
+    import torch
+    from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
+    from block_lanczos_tpu_torch.ops.semi_inverse import new_state
+
+    def case(what, grams, fe, check=True, state=None):
+        s_k = new_state(dev) if state is None else state.clone()
+        s_p = s_k.clone()
+        got = wo.semi_inverse_wide(grams, fe, s_k, check)
+        want = wo.semi_inverse_wide_plain(grams, fe.p, s_p, check)
+        for a, b in zip(got, want):
+            rec.agree(what, a, b)
+        rec.agree(what + " state", s_k, s_p)
+        return got, s_k
+
+    f = ws.f
+    case("bench gram n=4", real_grams, f)
+    state = new_state(dev)
+    rec.ms = median_ms(lambda: wo.semi_inverse_wide(real_grams, f, state))
+    rec.plain_ms = median_ms(
+        lambda: wo.semi_inverse_wide_plain(real_grams, f.p, new_state(dev)),
+        reps=3)
+    # grams read; winv, d, npiv, rhs, state written; two eliminations of M
+    # and W (4 n^3 wide multiply-adds), the check and the right-hand side
+    # (2 n^3), the Fermat chain (~2 x 62 Montgomery products)
+    n = 4
+    rec.set_bound(8 * (2 * n * n + n * n + 4 * n * n) + 4 * (n + 1 + 4),
+                  WIDE_MAC_OPS * (6 * n ** 3 + 124))
+    bits = (f.p - 2).bit_length()
+    chain_ms = ((2 * n * WIDE_STEP_CYCLES + bits * WIDE_INV_BIT_CYCLES)
+                / BOOST_HZ * 1e3)
+    rec.note = ("latency-bound: 2n pivot steps and the Fermat inverse's "
+                "chain of squarings run one after another in one CTA, so "
+                "neither bytes nor operations bound it; the chain of 2n >= "
+                f"~{WIDE_STEP_CYCLES}-cycle steps and {bits} "
+                f"{WIDE_INV_BIT_CYCLES}-cycle exponent bits is >= "
+                f"{chain_ms:.4f} ms")
+    for p in WIDE_PRIMES:
+        fe = GFpWide.make(p)
+        for n in WIDE_NS:
+            kinds = ["full", "deficient", "zero"] + (["d!=d1"] if n >= 4
+                                                     else [])
+            for kind in kinds:
+                got, s_k = case(f"p={p} n={n} {kind}",
+                                wide_grams(rng, p, n, kind, dev), fe)
+                if kind == "full":
+                    assert int(got.npiv[0]) == n, "expected full rank"
+                if kind == "zero":
+                    assert int(got.npiv[0]) == 0 and int(s_k[0]) == 1
+        grams = wide_grams(rng, p, 8, "d!=d1", dev)
+        d1 = wo._eliminate_plain(p, grams[:8].cpu(), None)[2]
+        got, _ = case(f"p={p} d!=d1 n=8", grams, fe)
+        assert not torch.equal(got.d.cpu().long(), d1), "expected d != d1"
+        bad = wide_grams(rng, p, 8, "full", dev)
+        bad[8, 1] = (bad[8, 1] + 1) % p          # vtAAv no longer symmetric
+        _, s_k = case(f"p={p} failing check", bad, fe)
+        assert int(s_k[1]) == 0, "the check should fail"
+        _, s_k = case(f"p={p} check off", bad, fe, check=False)
+        assert int(s_k[1]) == 1
+        frozen = torch.tensor([1, 1, 9, 1], dtype=torch.int32, device=dev)
+        _, s_k = case(f"p={p} frozen", bad, fe, state=frozen)
+        assert s_k.tolist() == [1, 1, 9, 1]
+
+
+def check_ortho_wide(rec, rng, dev, LW, wo, ws, v, av, si):
+    """orthogonalize_wide against orthogonalize_wide_plain: the bench's
+    rows at n = 4 with the real right-hand side (timed), running and
+    halted; at every prime and n of WIDE_NS d all 0, all 1 and mixed under
+    running, stopped, failed-invariant and frozen states; all p - 1; N = 1;
+    misaligned views."""
+    import torch
+    from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
+
+    def case(what, v, pb, av, rhs, d, fe, state, skew=0):
+        st_k = torch.tensor(state, dtype=torch.int32, device=dev)
+        st_p = st_k.clone()
+        vk = skewed(v, skew) if skew else v.clone()
+        pk = skewed(pb, skew) if skew else pb.clone()
+        avk = skewed(av, skew) if skew else av
+        vp, pp = v.clone(), pb.clone()
+        LW.orthogonalize_wide(vk, pk, avk, rhs, d, fe, st_k)
+        LW.orthogonalize_wide_plain(vp, pp, av, rhs, d, fe.p, st_p)
+        rec.agree(what + " v", vk, vp)
+        rec.agree(what + " p", pk, pp)
+        rec.agree(what + " state", st_k, st_p)
+        if state[0] or not state[1]:
+            rec.agree(what + " frozen v", vk, v)
+
+    f = ws.f
+    pb = rand_wide(rng, v.shape[0], 4, f.p, dev)
+    for state in ([0, 1, 0, 0], [1, 1, 0, 0]):
+        case(f"bench n=4 state={state}", v, pb, av, si.rhs, si.d, f, state)
+    st = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device=dev)
+    vk, pk = v.clone(), pb.clone()
+    rec.ms = median_ms(
+        lambda: LW.orthogonalize_wide(vk, pk, av, si.rhs, si.d, f, st))
+    rec.plain_ms = median_ms(
+        lambda: LW.orthogonalize_wide_plain(vk, pk, av, si.rhs, si.d, f.p,
+                                            st.clone()), reps=3)
+    rec.bound_ms, rec.bound_by = wide_ortho_bound(v.shape[0], 4)
+
+    def rhs_block(n, p, value=None):
+        rhs = torch.zeros((2 * n, 2 * n), dtype=torch.int64, device=dev)
+        if value is None:
+            rhs[:n] = rand_wide(rng, n, 2 * n, p, dev)
+            rhs[n:, :n] = rand_wide(rng, n, n, p, dev)
+        else:
+            rhs[:n] = value
+            rhs[n:, :n] = value
+        return rhs
+
+    def d_of(kind, n):
+        d = {"0": np.zeros(n), "1": np.ones(n),
+             "mixed": rng.integers(0, 2, n)}[kind]
+        if kind == "mixed" and n > 1:
+            d[:2] = (0, 1)
+        return torch.from_numpy(d.astype(np.int32)).to(dev)
+
+    states = ([0, 1, 0, 0], [1, 1, 0, 0], [0, 0, 0, 0], [1, 1, 5, 1])
+    for p in WIDE_PRIMES:
+        fe = GFpWide.make(p)
+        for n in WIDE_NS:
+            vv, pp, aa = (rand_wide(rng, EDGE_ROWS, n, p, dev)
+                          for _ in range(3))
+            rhs = rhs_block(n, p)
+            for kind in ("0", "1", "mixed"):
+                for state in (states if kind == "mixed" else states[:1]):
+                    case(f"p={p} n={n} d={kind} state={state}", vv, pp, aa,
+                         rhs, d_of(kind, n), fe, state)
+            full = torch.full((EDGE_ROWS, n), p - 1, dtype=torch.int64,
+                              device=dev)
+            case(f"all p-1 p={p} n={n}", full, full, full,
+                 rhs_block(n, p, p - 1), d_of("mixed", n), fe, states[0])
+            one = [rand_wide(rng, 1, n, p, dev) for _ in range(3)]
+            case(f"N=1 p={p} n={n}", *one, rhs_block(n, p),
+                 d_of("mixed", n), fe, states[0])
+            case(f"misaligned p={p} n={n}", vv, pp, aa, rhs,
+                 d_of("mixed", n), fe, states[0], skew=1)
+
+
+def check_wide_kernels(recs, rng, dev, ws):
+    """Phase 2 of the wide kernels, on the bench operators of the wide
+    solver `ws` (2^61 - 1, n = 4): every kernel against its plain version
+    at 2^30 + 3, 2^61 - 1 and 4611686018427387847, every n of WIDE_NS, then
+    the timing lines."""
+    from block_lanczos_tpu_torch.models import lanczos_wide as LW
+    from block_lanczos_tpu_torch.ops import wide_ops as wo
+    from block_lanczos_tpu_torch.ops.semi_inverse import new_state
+
+    f = ws.f
+    check_spmv_wide(recs["spmv_wide"], rng, dev, wo, ws)
+    v = rand_wide(rng, ws.np_rows, 4, f.p, dev)
+    tmp = wo.spmv_wide(f, ws.first_op, v, ws.mp_rows)
+    av = wo.spmv_wide(f, ws.second_op, tmp, ws.np_rows)
+    grams = wo.gram_wide(v, av, f)
+    check_gram_wide(recs["gram_wide"], rng, dev, wo, ws)
+    check_si_wide(recs["semi_inverse_wide"], rng, dev, wo, ws, grams)
+    si = wo.semi_inverse_wide(grams, f, new_state(dev))
+    check_ortho_wide(recs["orthogonalize_wide"], rng, dev, LW, wo, ws, v, av,
+                     si)
+    for name in ("spmv_wide", "gram_wide", "semi_inverse_wide",
+                 "orthogonalize_wide"):
+        r = recs[name]
+        print(f"  {name} n=4, p=2^61-1: {r.ms:.4f} ms, plain "
+              f"{r.plain_ms:.4f} ms, bound {r.bound_ms:.6f} ms "
+              f"({r.bound_by}), library_ms: none; {r.cases} cases equal"
+              + (f"; {r.note}" if r.note else ""), flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -827,6 +1216,7 @@ def main() -> int:
     from block_lanczos_tpu_torch import kernels
     from block_lanczos_tpu_torch.models import lanczos as L
     from block_lanczos_tpu_torch.models import lanczos_gf2 as G
+    from block_lanczos_tpu_torch.models import lanczos_wide as LW
     from block_lanczos_tpu_torch.ops import dense, spmm
     from block_lanczos_tpu_torch.ops import semi_inverse as si_mod
     from block_lanczos_tpu_torch.ops.gfp import LAZY_FOLD, GFp
@@ -865,6 +1255,20 @@ def main() -> int:
             "orthogonalize_gf2",
             "block_lanczos_tpu_torch/csrc/orthogonalize_gf2.cu",
             "block_lanczos_tpu/models/lanczos_gf2.py:175"),
+        "spmv_wide": KernelRecord(
+            "spmv_wide", "block_lanczos_tpu_torch/csrc/spmv_wide.cu",
+            "block_lanczos_tpu/ops/wide_ops.py:322"),
+        "gram_wide": KernelRecord(
+            "gram_wide", "block_lanczos_tpu_torch/csrc/gram_wide.cu",
+            "block_lanczos_tpu/ops/wide_ops.py:47"),
+        "semi_inverse_wide": KernelRecord(
+            "semi_inverse_wide",
+            "block_lanczos_tpu_torch/csrc/semi_inverse_wide.cu",
+            "block_lanczos_tpu/ops/wide_ops.py:131"),
+        "orthogonalize_wide": KernelRecord(
+            "orthogonalize_wide",
+            "block_lanczos_tpu_torch/csrc/orthogonalize_wide.cu",
+            "block_lanczos_tpu/models/lanczos_wide.py:30"),
     }
     rng = np.random.default_rng(2024)
 
@@ -896,6 +1300,18 @@ def main() -> int:
               for name, ops in (("Mt", gsolver.first_op),
                                 ("M", gsolver.second_op)) for b in ops),
           flush=True)
+
+    # the same file at 2^61 - 1 (bench.py:124-140, 471-473): the wide
+    # field's input, through the wide loader
+    wprime = gen.WIDE_BENCH_PRIME
+    t3 = time.time()
+    Mw = mmio.load_mtx(mtx, wprime)
+    assert Mw.x.dtype == np.uint64
+    wsolver = LW.BlockLanczosWide(Mw, n=4, device=dev)
+    print(f"  mod 2^61 - 1: loaded and wide layout built in "
+          f"{time.time() - t3:.1f} s: bwd ell {wsolver.sp.bwd.ell} spill "
+          f"{wsolver.sp.bwd.spill_nnz}, fwd ell {wsolver.sp.fwd.ell} spill "
+          f"{wsolver.sp.fwd.spill_nnz}", flush=True)
 
     # ---- phase 2: kernels against their plain versions ---------------------
     print("phase 2: kernels against their plain versions (tolerance 0: the "
@@ -1070,6 +1486,10 @@ def main() -> int:
     check_gf2_kernels(recs, rng, dev, gsolver)
     torch.cuda.synchronize()
 
+    # the wide kernels
+    check_wide_kernels(recs, rng, dev, wsolver)
+    torch.cuda.synchronize()
+
     # ---- phase 3: goldens on the card --------------------------------------
     print("phase 3: goldens on the card", flush=True)
     with open(os.path.join(GOLDEN, "MANIFEST.txt")) as fh:
@@ -1221,8 +1641,54 @@ def main() -> int:
     for name in ("gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"):
         assert counts256[name] >= r256.iterations, counts256
 
-    # ---- phase 9: summary ----------------------------------------------------
+    # ---- phase 9: the wide slice at full size -----------------------------
+    print(f"phase 9: wide full solve of the bench matrix, p=2^61-1, n=4, "
+          "left kernel, invariant checks on", flush=True)
+    LW.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    wres = wsolver.solve(verbose=True)
+    torch.cuda.synchronize()
+    total_s = time.time() - t0
+    wcounts = LW.launch_counts()
+    wit = wres.iterations
+    print(f"  iterations {wit} (expected about "
+          f"{wsolver.expected_iterations}); loop {wres.elapsed:.3f} s, "
+          f"{wres.elapsed / max(wit, 1) * 1e3:.4f} ms/iter; solve() "
+          f"{total_s:.3f} s [{card}]", flush=True)
+    print(f"  launches during the solve: {wcounts}", flush=True)
+    assert wres.v_nonzero and wres.product_zero, "wide final check failed"
+    assert wres.kernel.dtype == np.uint64
+    kpath = os.path.join(WORK, "bench_wide.kernel.mtx")
+    mmio.write_kernel_mtx(kpath, wres.kernel, wsolver.n_eff, 4)
+    t0 = time.time()
+    checker.check_kernel_file(mtx, kpath, wprime, verbose=True)
+    print(f"  the port's wide checker: OK in {time.time() - t0:.1f} s",
+          flush=True)
+    assert wcounts["spmv_wide"] >= 2 * wit, wcounts
+    for name in ("gram_wide", "semi_inverse_wide", "orthogonalize_wide"):
+        assert wcounts[name] >= wit, wcounts
+
+    # ---- phase 10: the wide field against the narrow one -------------------
+    print(f"phase 10: 50 iterations of BlockLanczosWide and of the narrow "
+          f"BlockLanczos at p={prime}, n=4", flush=True)
+    w4 = LW.BlockLanczosWide(M, n=4, device=dev)
+    n4 = L.BlockLanczos(M, n=4, device=dev)
+    assert (w4.np_rows, w4.mp_rows) == (n4.np_rows, n4.mp_rows)
+    w4.solve(stop_after=50, on_iteration=grab("wide"))
+    n4.solve(stop_after=50, on_iteration=grab("narrow4"))
+    (wv, wp, wit50), (nv, np_, nit50) = last["wide"], last["narrow4"]
+    assert wit50 == nit50 == 50, (wit50, nit50)
+    for name, a, b in (("v", wv, nv), ("p", wp, np_)):
+        if not torch.equal(a, b.long()):
+            raise AssertionError(f"wide and narrow {name} differ after 50 "
+                                 "iterations")
+    print(f"  v and p equal after 50 iterations ({w4.np_rows} x 4)",
+          flush=True)
+
+    # ---- phase 11: summary ---------------------------------------------------
     counts.update(gcounts)
+    counts.update(wcounts)
     print(json.dumps({"kernels": [recs[k].as_json(counts[k]) for k in recs]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

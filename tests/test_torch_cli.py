@@ -82,13 +82,15 @@ def test_cli_help_states_the_width_caps():
     assert "n <= 512 over GF(2)" in text
 
 
-@pytest.mark.parametrize("prime,n", [(1073741827, 4)])
-def test_cli_refuses_fields_of_later_slices(prime, n, capsys):
+def test_cli_takes_the_first_wide_prime(capsys):
+    """2^30 + 3, the first prime above the narrow field's cap, takes the
+    wide field (p >= 2^62 is refused: test_torch_wide_solver.py::
+    test_cli_wide_caps)."""
     mtx = os.path.join(GOLDEN, "left_p2_n32.mtx")
-    rc = cli.main(["--matrix", mtx, "--prime", str(prime), "--n", str(n),
-                   "--device", "cpu"])
-    assert rc == 2
-    assert "not supported" in capsys.readouterr().err
+    rc = cli.main(["--matrix", mtx, "--prime", "1073741827", "--n", "4",
+                   "--stop-after", "2", "--device", "cpu"])
+    assert rc == 0
+    assert "wide field" in capsys.readouterr().err
 
 
 def test_cli_stop_after_and_output_are_exclusive(tmp_path):

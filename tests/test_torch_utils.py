@@ -170,7 +170,8 @@ def test_kernel_build_needs_nvcc(monkeypatch):
         kernels.load_all()
     assert set(kernels.SIGNATURES) == {
         "spmv_ell", "gram_mod", "semi_inverse", "orthogonalize",
-        "spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"}
+        "spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2",
+        "spmv_wide", "gram_wide", "semi_inverse_wide", "orthogonalize_wide"}
     for name in kernels.SIGNATURES:
         assert (kernels.CSRC / f"{name}.cu").exists()
 
