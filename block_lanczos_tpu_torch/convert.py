@@ -20,9 +20,9 @@ NumPy arrays, so this module needs nothing of the JAX package:
     BlockLanczosWide's {v, p, iteration} state of (rows, n, 2) uint32
     (lo, hi) pair blocks and returns int64 residues on the port's device,
     and `wide_op_from_jax` turns a JAX `WideHybridOp`'s arrays into the
-    port's HybridOp with int64 values: its slab and spill hold Montgomery
-    pairs, val * 2^64 mod p, taken out of that form on the host with
-    Python ints.
+    port's HybridOp: its slab and spill hold Montgomery pairs, val * 2^64
+    mod p, taken out of that form on the host with Python ints, and stored
+    in the port's narrow (int32 signed) or int64 slab.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 from block_lanczos_tpu_torch.models.lanczos import state_rows
 from block_lanczos_tpu_torch.models.lanczos_gf2 import (GF2Op,
                                                         gf2_op_from_arrays)
+from block_lanczos_tpu_torch.ops import wide_ops
 from block_lanczos_tpu_torch.ops.gfp import GFp, _invmod_int
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.ops.spmm import HybridOp, hybrid_op_from_arrays
@@ -153,8 +154,10 @@ def _from_mont64(p: int, pairs) -> np.ndarray:
 
 
 def wide_op_from_jax(arrays: dict, p: int) -> HybridOp:
-    """The port's wide HybridOp (int64 values) from a JAX WideHybridOp's
-    NumPy arrays.
+    """The port's wide HybridOp from a JAX WideHybridOp's NumPy arrays,
+    with the slab that ops/wide_ops.py::make_wide_op would pick (int32
+    signed coefficients when every coefficient fits, else int64
+    residues).
 
     `arrays` holds the JAX op's fields: out_dim, in_dim, nnz, ell, cols
     (out_pad, L) int32 and vals (out_pad, L, 2) Montgomery uint32 pairs,
@@ -169,12 +172,14 @@ def wide_op_from_jax(arrays: dict, p: int) -> HybridOp:
     rowptr = np.asarray(arrays["spill_rowptr"], np.int64)
     if rowptr.shape != (out_dim + 1,) or int(rowptr[-1]) != s_nnz:
         raise ValueError("spill rowptr does not cover the spill entries")
+    sp_vals = _from_mont64(
+        p, np.asarray(arrays["spill_val_mont"])[:s_nnz]).reshape(-1)
+    narrow = wide_ops.narrow_fits(p, vals, sp_vals)
     return hybrid_op_from_arrays(p, dict(
         ell=ell, nnz=int(arrays["nnz"]),
         cols=np.ascontiguousarray(cols.T),
-        vals=np.ascontiguousarray(vals.T),
+        vals=np.ascontiguousarray(wide_ops.slab_values(p, vals.T, narrow)),
         rowptr=rowptr.astype(np.int32),
         sp_cols=np.asarray(arrays["spill_in_idx"])[:s_nnz].astype(np.int32),
-        sp_vals=_from_mont64(
-            p, np.asarray(arrays["spill_val_mont"])[:s_nnz]).reshape(-1),
+        sp_vals=wide_ops.slab_values(p, sp_vals, narrow),
     ), out_dim, int(arrays["in_dim"]))

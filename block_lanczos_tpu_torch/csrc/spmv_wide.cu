@@ -11,49 +11,77 @@
 //           + sum_{e in rowptr[r] .. rowptr[r+1]} sp_vals[e] * x[sp_cols[e], j]
 //
 // mod p for r < out_dim, and y[r, :] = 0 for out_dim <= r < out_rows.  The
-// values are standard residues (not Montgomery forms); the layout is the
-// narrow field's (ops/spmm.py: column-major (L, out_dim) slab of int32
-// columns, here with int64 values).  The port's layout has no input bands:
-// mod-p sums are associative, so one monolithic pass equals JAX's bands.
+// layout is the narrow field's (ops/spmm.py: column-major (L, out_dim) slab
+// of int32 columns); the port's layout has no input bands: mod-p sums are
+// associative, so one monolithic pass equals JAX's bands.  Two slabs
+// (ops/wide_ops.py::make_wide_op picks one per operator):
+//   * narrow coefficients (`narrow` != 0): every value is an int32 signed
+//     coefficient c, the operator's entry's representative in (-p/2, p/2)
+//     (the field's matrices carry small signed coefficients; the bench's
+//     are below 2^20).  8 bytes a slab entry, as in spmv_ell.  x < 2^62 is
+//     cut into three 21-bit limbs, and x_k * c (|x_k c| < 2^52) goes into a
+//     signed 64-bit sum by one IMAD.WIDE: no sign rule, no 128-bit carry,
+//     and each sum is reduced into [0, p) once every SPMV_WIDE_NARROW_FOLD
+//     = 512 entries (2^62 + 1023 * 2^52 < 2^63, so up to 1023 would do);
+//     y = s_0 + s_1 2^21 + s_2 2^42, reduced once (reduce128);
+//   * u64 residues (any operator): 12 bytes a slab entry; the products are
+//     summed raw in 128 bits (mac128) and folded by Barrett once a chunk
+//     (modp64.cuh proves the budget), each output reduced once.
+// ops/gfp_wide.py mirrors both step for step.
 //
-// Design.  One thread owns one row and a group of VW lanes (VW = 4 when
-// n % 4 == 0 and x, y are 16-byte aligned, else 2 or 1): at n = 4 a
-// thread is a row and gathers x[col, 0..4) as two 16-byte loads (a 32-byte
-// sector).  The slab and then the row's spill are walked in chunks of
-// SPMV_WIDE_CHUNK <= WIDE_FOLD entries: a chunk's column/value loads and its
-// gathers are issued together, the products are summed raw in 128 bits
-// (mac128), and the sum's high word is folded by Barrett once per chunk
-// (modp64.cuh proves the budget); each output is reduced once, by
-// reduce128, at the end.
-// Empty slab slots (value 0) skip their gather.
+// Design.  A thread owns one row and a group of VW lanes of x (VW = 2 when
+// n is even and x, y are 16-byte aligned, else 1; SPMV_WIDE_VW = 4 lets a
+// thread take n % 4 == 0 rows whole): at n = 4 two neighbouring threads
+// share a row, each gathering one 16-byte half of its 32-byte sector, so a
+// warp's gather is 16 whole sectors.  The slab and then the row's spill are
+// walked in chunks of SPMV_WIDE_CHUNK entries, whose gathers are issued
+// together; the next chunk's (column, value) pairs are loaded before this
+// chunk's gathers, so the slab's HBM latency overlaps the L2's, and they
+// load evict-first, so the stream sweeps less of x out of the L2.  Empty
+// slab slots (value 0) skip their gather.  A thread is held to 64
+// registers (4 CTAs of 256 an SM).
 //
-// What bounds it on an H100 (PERF.md): at the bench size, n = 4, bytes and
-// operations come close.  Bytes: 12 B of slab (int32 column + int64 value)
-// per nonzero, x read once and y written once, rowptr: ~70 MB for M^T,
-// 0.021 ms at 3.35 TB/s.  Operations: a 64 x 64 -> 128-bit multiply-add is
-// about 8 integer instructions (a * b as 3 IMADs, __umul64hi as 4, the
-// carry add), so 4.5 M nonzeros x 4 columns x 8 = 144 M instructions,
-// 0.002 ms at 67 T/s; the gather of x from the L2 (32 B a nonzero at
-// n = 4) comes on top, as in spmv_ell.
+// What bounds it on an H100 (PERF.md).  The bytes (8 B of narrow slab a
+// nonzero, x read once and y written once, rowptr: ~52 MB for M^T, 0.016 ms
+// at 3.35 TB/s) and, above them, the L2: every nonzero gathers one 32-byte
+// sector of x at n = 4, the same 144 MB of sectors a launch as spmv_ell's
+// 16-byte rows, and x is twice spmv_ell's (9.6 MB for M^T).  The parent
+// design (u64 slab, one thread a row, 106 registers) ran 0.0695 / 0.0547 ms
+// (M^T / M) and its loads alone (-DSPMV_WIDE_GATHER_ONLY: the products
+// replaced by XORs, timing only) 0.0670 / 0.0483: the loads and the
+// occupancy they left held it back, not the 64-bit products.  This design
+// runs 0.0574 / 0.0521, its own loads alone 0.0527 / 0.0516, spmv_ell
+// 0.0461 / 0.0417 (utils/kernel_sweeps.py; VW = 4 at 64 registers spills,
+// VW = 1 is 20% slower).
 #include <cstdint>
 
 #include "modp64.cuh"
 
-// Threads a block, and entries a thread gathers at a time and folds after
-// (at most WIDE_FOLD): 4 x 256 was the fastest of {2, 4, 8} x {64, 128,
-// 256} in both directions at the bench size, n = 4, on an H100 80GB HBM3 at
-// 700 W, 25-35% ahead of 8 x 128 (fewer registers at VW = 4, which holds 4
-// u64 of x an entry, so more warps an SM; utils/kernel_sweeps.py builds
-// with -DSPMV_WIDE_CHUNK=c and -DSPMV_WIDE_THREADS=t; PERF.md).
+// Threads a block, entries a thread gathers at a time (at most WIDE_FOLD)
+// and the widest vector of x a thread takes: chosen by
+// utils/kernel_sweeps.py on an H100 80GB HBM3 at 700 W (PERF.md).
 #ifndef SPMV_WIDE_THREADS
 #define SPMV_WIDE_THREADS 256
 #endif
 #ifndef SPMV_WIDE_CHUNK
 #define SPMV_WIDE_CHUNK 4
 #endif
-#if SPMV_WIDE_CHUNK < 1 || SPMV_WIDE_CHUNK > WIDE_FOLD
-#error "SPMV_WIDE_CHUNK must be in [1, WIDE_FOLD]"
+#ifndef SPMV_WIDE_VW
+#define SPMV_WIDE_VW 2
 #endif
+// CTAs an SM must hold (__launch_bounds__): 4 caps a thread at 64
+// registers (66 uncapped at VW = 2), so 32 warps an SM
+#ifndef SPMV_WIDE_MIN_BLOCKS
+#define SPMV_WIDE_MIN_BLOCKS 4
+#endif
+#if SPMV_WIDE_CHUNK < 1 || SPMV_WIDE_CHUNK > WIDE_FOLD || \
+    (SPMV_WIDE_VW != 1 && SPMV_WIDE_VW != 2 && SPMV_WIDE_VW != 4)
+#error "SPMV_WIDE_CHUNK must be in [1, WIDE_FOLD], SPMV_WIDE_VW 1, 2 or 4"
+#endif
+// Entries summed into the narrow slab's signed limb sums between two
+// reductions (at most 1023; a multiple of the chunk).
+#define SPMV_WIDE_NARROW_FOLD 512
+#define SPMV_WIDE_LIMB_BITS 21
 
 template <int VW>
 __device__ __forceinline__ void load_x(const u64* p, u64 (&o)[VW]) {
@@ -79,38 +107,139 @@ __device__ __forceinline__ void store_y(u64* p, const u64 (&a)[VW]) {
   }
 }
 
-// acc[l] += sum over one chunk of up to SPMV_WIDE_CHUNK entries (col, val)
-// of val * x[col, lane0 + l], then the fold.
-template <int VW>
-__device__ __forceinline__ void chunk(const int (&col)[SPMV_WIDE_CHUNK],
-                                      const u64 (&val)[SPMV_WIDE_CHUNK],
-                                      const u64* __restrict__ x, int n,
-                                      int lane0, const WideField& f,
-                                      U128 (&acc)[VW]) {
-  u64 xv[SPMV_WIDE_CHUNK][VW];
-#pragma unroll
-  for (int u = 0; u < SPMV_WIDE_CHUNK; ++u) {
-    if (val[u] != 0) {
-      load_x<VW>(x + static_cast<long long>(col[u]) * n + lane0, xv[u]);
-    } else {
-#pragma unroll
-      for (int l = 0; l < VW; ++l) xv[u][l] = 0;
-    }
-  }
-#pragma unroll
-  for (int u = 0; u < SPMV_WIDE_CHUNK; ++u)
-#pragma unroll
-    for (int l = 0; l < VW; ++l) mac128(acc[l], val[u], xv[u][l]);
-#pragma unroll
-  for (int l = 0; l < VW; ++l) fold128(acc[l], f);
+// s mod p in [0, p) for a signed sum |s| < 2^63.
+__device__ __forceinline__ u64 smod(long long s, const WideField& f) {
+  const bool neg = s < 0;
+  const u64 r = barrett_reduce(static_cast<u64>(neg ? -s : s), f.p, f.mu);
+  return neg && r != 0 ? f.p - r : r;
 }
 
-template <int VW>
-__global__ void __launch_bounds__(SPMV_WIDE_THREADS)
-    spmv_wide_kernel(const int* __restrict__ cols, const u64* __restrict__ vals,
+// One output's running sum, by slab kind.
+template <bool NARROW>
+struct Sum;
+
+template <>
+struct Sum<false> {  // u64 residues: a 128-bit lazy sum
+  typedef u64 Val;
+  U128 a;
+  __device__ __forceinline__ void zero() { a = {0, 0}; }
+  __device__ __forceinline__ void add(u64 v, u64 x) { mac128(a, v, x); }
+  __device__ __forceinline__ void fold(const WideField& f) { fold128(a, f); }
+  __device__ __forceinline__ u64 finish(const WideField& f) {
+    return reduce128(a, f);
+  }
+  __device__ __forceinline__ void mix(u64 v, u64 x) { a.lo ^= v ^ x; }
+};
+
+template <>
+struct Sum<true> {  // signed coefficients: three signed 21-bit limb sums
+  typedef int Val;
+  long long s[3];
+  __device__ __forceinline__ void zero() { s[0] = s[1] = s[2] = 0; }
+  __device__ __forceinline__ void add(int c, u64 x) {
+    constexpr u64 M = (1ull << SPMV_WIDE_LIMB_BITS) - 1;
+    const int x0 = static_cast<int>(x & M);
+    const int x1 = static_cast<int>((x >> SPMV_WIDE_LIMB_BITS) & M);
+    const int x2 = static_cast<int>(x >> (2 * SPMV_WIDE_LIMB_BITS));
+    s[0] += static_cast<long long>(x0) * c;  // one IMAD.WIDE each
+    s[1] += static_cast<long long>(x1) * c;
+    s[2] += static_cast<long long>(x2) * c;
+  }
+  __device__ __forceinline__ void fold(const WideField& f) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) s[k] = static_cast<long long>(smod(s[k], f));
+  }
+  // r0 + r1 2^21 + r2 2^42 < 2^105, reduced once
+  __device__ __forceinline__ u64 finish(const WideField& f) {
+    fold(f);
+    const u64 r0 = s[0], r1 = s[1], r2 = s[2];
+    U128 t = {r1 << SPMV_WIDE_LIMB_BITS, r1 >> (64 - SPMV_WIDE_LIMB_BITS)};
+    add128(t, r0);
+    const u64 lo2 = r2 << (2 * SPMV_WIDE_LIMB_BITS);
+    t.hi += r2 >> (64 - 2 * SPMV_WIDE_LIMB_BITS);
+    add128(t, lo2);
+    return reduce128(t, f);
+  }
+  __device__ __forceinline__ void mix(int c, u64 x) {
+    s[0] ^= static_cast<long long>(x ^ static_cast<u64>(c));
+  }
+};
+
+// The entries k0 .. k0 + SPMV_WIDE_CHUNK - 1 (< count) of one walk, at
+// element index at(k): their columns and values.  The slab and spill are
+// read once, so they load evict-first (ld.global.cs) and sweep less of x
+// out of the L2.
+template <bool NARROW, typename At>
+__device__ __forceinline__ void load_chunk(
+    int k0, int count, At at, const int* __restrict__ cols,
+    const typename Sum<NARROW>::Val* __restrict__ vals,
+    int (&col)[SPMV_WIDE_CHUNK],
+    typename Sum<NARROW>::Val (&val)[SPMV_WIDE_CHUNK]) {
+#pragma unroll
+  for (int u = 0; u < SPMV_WIDE_CHUNK; ++u) {
+    const bool in = k0 + u < count;
+    const long long s = at(k0 + u);
+    val[u] = in ? __ldcs(vals + s) : 0;
+    col[u] = in ? __ldcs(cols + s) : 0;
+  }
+}
+
+// acc[l] += sum over the `count` entries of one walk (the slab row or the
+// spill row) of val * x[col, lane0 + l].
+template <int VW, bool NARROW, typename At>
+__device__ __forceinline__ void walk(
+    int count, At at, const int* __restrict__ cols,
+    const typename Sum<NARROW>::Val* __restrict__ vals,
+    const u64* __restrict__ x, int n, int lane0, const WideField& f,
+    Sum<NARROW> (&acc)[VW], int& since) {
+  typedef typename Sum<NARROW>::Val V;
+  int col[SPMV_WIDE_CHUNK];
+  V val[SPMV_WIDE_CHUNK];
+  if (count > 0) load_chunk<NARROW>(0, count, at, cols, vals, col, val);
+  for (int k0 = 0; k0 < count; k0 += SPMV_WIDE_CHUNK) {
+    u64 xv[SPMV_WIDE_CHUNK][VW];
+#pragma unroll
+    for (int u = 0; u < SPMV_WIDE_CHUNK; ++u) {
+      if (val[u] != 0) {
+        load_x<VW>(x + static_cast<long long>(col[u]) * n + lane0, xv[u]);
+      } else {
+#pragma unroll
+        for (int l = 0; l < VW; ++l) xv[u][l] = 0;
+      }
+    }
+    V cur[SPMV_WIDE_CHUNK];
+#pragma unroll
+    for (int u = 0; u < SPMV_WIDE_CHUNK; ++u) cur[u] = val[u];
+    // the next chunk's pairs, in flight during this chunk's gathers
+    if (k0 + SPMV_WIDE_CHUNK < count)
+      load_chunk<NARROW>(k0 + SPMV_WIDE_CHUNK, count, at, cols, vals, col,
+                         val);
+#pragma unroll
+    for (int u = 0; u < SPMV_WIDE_CHUNK; ++u)
+#pragma unroll
+      for (int l = 0; l < VW; ++l) {
+#ifdef SPMV_WIDE_GATHER_ONLY
+        acc[l].mix(cur[u], xv[u][l]);
+#else
+        acc[l].add(cur[u], xv[u][l]);
+#endif
+      }
+    since += SPMV_WIDE_CHUNK;
+    if (since >= (NARROW ? SPMV_WIDE_NARROW_FOLD : SPMV_WIDE_CHUNK)) {
+      since = 0;
+#pragma unroll
+      for (int l = 0; l < VW; ++l) acc[l].fold(f);
+    }
+  }
+}
+
+template <int VW, bool NARROW>
+__global__ void __launch_bounds__(SPMV_WIDE_THREADS, SPMV_WIDE_MIN_BLOCKS)
+    spmv_wide_kernel(const int* __restrict__ cols,
+                     const typename Sum<NARROW>::Val* __restrict__ vals,
                      int ell, long long ld, const int* __restrict__ rowptr,
                      const int* __restrict__ sp_cols,
-                     const u64* __restrict__ sp_vals,
+                     const typename Sum<NARROW>::Val* __restrict__ sp_vals,
                      const u64* __restrict__ x, u64* __restrict__ y,
                      long long out_dim, long long out_rows, int n, int groups,
                      WideField f) {
@@ -119,57 +248,66 @@ __global__ void __launch_bounds__(SPMV_WIDE_THREADS)
   if (t >= out_rows * groups) return;
   const long long r = t / groups;
   const int lane0 = static_cast<int>(t - r * groups) * VW;
-  U128 acc[VW];
+  Sum<NARROW> acc[VW];
 #pragma unroll
-  for (int l = 0; l < VW; ++l) acc[l] = {0, 0};
-  if (r < out_dim) {
-    int col[SPMV_WIDE_CHUNK];
-    u64 val[SPMV_WIDE_CHUNK];
-    for (int k0 = 0; k0 < ell; k0 += SPMV_WIDE_CHUNK) {
-#pragma unroll
-      for (int u = 0; u < SPMV_WIDE_CHUNK; ++u) {
-        const bool in = k0 + u < ell;
-        const long long s = static_cast<long long>(k0 + u) * ld + r;
-        val[u] = in ? __ldg(vals + s) : 0ull;
-        col[u] = in ? __ldg(cols + s) : 0;
-      }
-      chunk<VW>(col, val, x, n, lane0, f, acc);
-    }
-    const int e1 = __ldg(rowptr + r + 1);
-    for (int e0 = __ldg(rowptr + r); e0 < e1; e0 += SPMV_WIDE_CHUNK) {
-#pragma unroll
-      for (int u = 0; u < SPMV_WIDE_CHUNK; ++u) {
-        const bool in = e0 + u < e1;
-        val[u] = in ? __ldg(sp_vals + e0 + u) : 0ull;
-        col[u] = in ? __ldg(sp_cols + e0 + u) : 0;
-      }
-      chunk<VW>(col, val, x, n, lane0, f, acc);
-    }
-  }
+  for (int l = 0; l < VW; ++l) acc[l].zero();
   u64 out[VW];
+  if (r < out_dim) {
+    int since = 0;
+    walk<VW, NARROW>(ell, [=](int k) { return static_cast<long long>(k) * ld + r; },
+                     cols, vals, x, n, lane0, f, acc, since);
+    const int e0 = __ldg(rowptr + r);
+    walk<VW, NARROW>(__ldg(rowptr + r + 1) - e0,
+                     [=](int k) { return static_cast<long long>(e0) + k; },
+                     sp_cols, sp_vals, x, n, lane0, f, acc, since);
 #pragma unroll
-  for (int l = 0; l < VW; ++l) out[l] = r < out_dim ? reduce128(acc[l], f) : 0ull;
+    for (int l = 0; l < VW; ++l) out[l] = acc[l].finish(f);
+  } else {
+#pragma unroll
+    for (int l = 0; l < VW; ++l) out[l] = 0;
+  }
   store_y<VW>(y + r * n + lane0, out);
 }
 
-template <int VW>
-static void launch(const int* cols, const u64* vals, int ell, long long ld,
-                   const int* rowptr, const int* sp_cols, const u64* sp_vals,
+template <int VW, bool NARROW>
+static void launch(const int* cols, const void* vals, int ell, long long ld,
+                   const int* rowptr, const int* sp_cols, const void* sp_vals,
                    const u64* x, u64* y, long long out_dim, long long out_rows,
                    int n, const WideField& f, cudaStream_t stream) {
+  typedef typename Sum<NARROW>::Val V;
   const int threads = SPMV_WIDE_THREADS;
   const int groups = n / VW;
   const long long total = out_rows * groups;
   if (total <= 0) return;
   const unsigned blocks = static_cast<unsigned>((total + threads - 1) / threads);
-  spmv_wide_kernel<VW><<<blocks, threads, 0, stream>>>(
-      cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y, out_dim, out_rows,
-      n, groups, f);
+  spmv_wide_kernel<VW, NARROW><<<blocks, threads, 0, stream>>>(
+      cols, static_cast<const V*>(vals), ell, ld, rowptr, sp_cols,
+      static_cast<const V*>(sp_vals), x, y, out_dim, out_rows, n, groups, f);
 }
 
-extern "C" int spmv_wide(const int* cols, const u64* vals, int ell,
+template <bool NARROW>
+static void launch_vw(int vw, const int* cols, const void* vals, int ell,
+                      long long ld, const int* rowptr, const int* sp_cols,
+                      const void* sp_vals, const u64* x, u64* y,
+                      long long out_dim, long long out_rows, int n,
+                      const WideField& f, cudaStream_t s) {
+  if constexpr (SPMV_WIDE_VW >= 4) {  // built only where it may be taken
+    if (vw == 4)
+      return launch<4, NARROW>(cols, vals, ell, ld, rowptr, sp_cols, sp_vals,
+                               x, y, out_dim, out_rows, n, f, s);
+  }
+  if constexpr (SPMV_WIDE_VW >= 2) {
+    if (vw == 2)
+      return launch<2, NARROW>(cols, vals, ell, ld, rowptr, sp_cols, sp_vals,
+                               x, y, out_dim, out_rows, n, f, s);
+  }
+  launch<1, NARROW>(cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y,
+                    out_dim, out_rows, n, f, s);
+}
+
+extern "C" int spmv_wide(const int* cols, const void* vals, int ell,
                          long long ld, const int* rowptr, const int* sp_cols,
-                         const u64* sp_vals, const u64* x, u64* y,
+                         const void* sp_vals, int narrow, const u64* x, u64* y,
                          long long out_dim, long long out_rows, int n,
                          unsigned long long p, unsigned long long mu,
                          unsigned long long pinv, unsigned long long r2,
@@ -179,14 +317,14 @@ extern "C" int spmv_wide(const int* cols, const u64* vals, int ell,
   const WideField f{p, mu, pinv, r2};
   const uintptr_t align =
       reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y);
-  if (n % 4 == 0 && align % 16 == 0)
-    launch<4>(cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y, out_dim,
-              out_rows, n, f, s);
-  else if (n % 2 == 0 && align % 16 == 0)
-    launch<2>(cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y, out_dim,
-              out_rows, n, f, s);
+  int vw = 1;
+  if (align % 16 == 0) vw = n % 4 == 0 ? 4 : n % 2 == 0 ? 2 : 1;
+  if (vw > SPMV_WIDE_VW) vw = SPMV_WIDE_VW;
+  if (narrow)
+    launch_vw<true>(vw, cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y,
+                    out_dim, out_rows, n, f, s);
   else
-    launch<1>(cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y, out_dim,
-              out_rows, n, f, s);
+    launch_vw<false>(vw, cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y,
+                     out_dim, out_rows, n, f, s);
   return static_cast<int>(cudaGetLastError());
 }

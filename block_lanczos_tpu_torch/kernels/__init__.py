@@ -74,10 +74,10 @@ SIGNATURES = {
     "orthogonalize_gf2": ("orthogonalize_gf2", (_P, _P, _P, _P, _P, _L, _I,
                                                 _P, _P)),
     # the wide-field kernels (u64 residues; p, mu, pinv, r2 of GFpWide)
-    # cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y, out_dim,
+    # cols, vals, ell, ld, rowptr, sp_cols, sp_vals, narrow, x, y, out_dim,
     # out_rows, n, p, mu, pinv, r2, stream
-    "spmv_wide": ("spmv_wide", (_P, _P, _I, _L, _P, _P, _P, _P, _P, _L, _L,
-                                _I, _U, _U, _U, _U, _P)),
+    "spmv_wide": ("spmv_wide", (_P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _L,
+                                _L, _I, _U, _U, _U, _U, _P)),
     # v, av, n, N, p, mu, pinv, r2, scratch, out, stream
     "gram_wide": ("gram_wide", (_P, _P, _I, _L, _U, _U, _U, _U, _P, _P,
                                 _P)),

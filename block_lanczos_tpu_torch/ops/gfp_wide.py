@@ -259,3 +259,141 @@ def inv_mont_np(f: GFpWide, am) -> np.ndarray:
         base = mont_mul_np(f, base, base)
         e >>= 1
     return r
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of gram_wide's tensor-core sums (csrc/gram_wide.cu)
+# ---------------------------------------------------------------------------
+
+GW_LIMBS = 8                  # u8 limbs of a residue below 2^62
+GW_CLASSES = 2 * GW_LIMBS - 1  # shift classes s + t
+GW_FOLDED_MAX_N = 4           # n up to which the limbs fold into M and N
+GW_FOLDED_FOLD_ROWS = 32768   # rows between recombinations, folded limbs
+GW_CLASS_FOLD_ROWS = 4096     # and shift classes
+GW_MAX_CTAS = 1024            # CTAs along the rows at most
+GW_MAX_CTA_WARPS = 16         # warp residues a CTA adds as halves at most
+_S32 = 1 << 31
+
+
+def limbs_np(a) -> np.ndarray:
+    """(..., 8) int64 u8 limbs of residues below 2^62 (limb s is byte s),
+    as the kernel's __byte_perm transpose takes them apart."""
+    a = np.asarray(a, _U64)
+    limbs = np.stack([(a >> _U64(8 * s)) & _U64(0xFF)
+                      for s in range(GW_LIMBS)], -1).astype(np.int64)
+    assert (limbs[..., GW_LIMBS - 1] < 64).all(), "top limb >= 2^6"
+    return limbs
+
+
+def limb_weights_np(f: GFpWide) -> list:
+    """2^(8k) mod p for k < GW_CLASSES, as reduce128 forms them from the
+    128-bit power of two."""
+    return [int(reduce128_np(f, np.uint64((1 << 8 * k) >> 64),
+                             np.uint64((1 << 8 * k) & (_R - 1))))
+            for k in range(GW_CLASSES)]
+
+
+def gram_limb_sums_np(v, av, folded: bool) -> np.ndarray:
+    """The kernel's s32 sums over a block of rows of [v | Av]^T Av's limb
+    products: folded, (2n, 8, n, 8) with [i, s, j, t] = sum_r x_s y_t (one
+    limb pair an entry, A's rows (i, s), B's columns (j, t)); else the
+    shift classes, (15, 2n, n) with [s + t, i, j] summing every pair of
+    the class.  Asserts that each fits the s32 accumulator."""
+    X = limbs_np(np.concatenate([np.asarray(v), np.asarray(av)], 1))
+    Y = limbs_np(av)
+    S = np.einsum("ris,rjt->isjt", X, Y)
+    if not folded:
+        C = np.zeros((GW_CLASSES,) + S.shape[::2], np.int64)
+        for s in range(GW_LIMBS):
+            for t in range(GW_LIMBS):
+                C[s + t] += S[:, s, :, t]
+        S = C
+    assert (S >= 0).all() and (S < _S32).all(), "an s32 limb sum overflows"
+    return S
+
+
+def gram_wide_tc_np(f: GFpWide, v, av, folded: bool | None = None,
+                    ctas: int = 3, warps: int = 2) -> np.ndarray:
+    """[v | Av]^T Av mod p (2n, n) as gram_wide sums it, with Python ints
+    and every bound asserted: `ctas` row ranges (CTAs) of `warps` row
+    ranges (warps) each; in each warp's, s32 limb sums over blocks of the
+    fold rows (folded limbs up to n = GW_FOLDED_MAX_N, one limb pair a sum,
+    added by shift class at the flush; shift classes above), recombined
+    with the weights 2^(8(s+t)) mod p into a 128-bit running sum folded
+    after each block, reduced once (reduce128); every warp's residue added
+    as two 31-bit halves (the CTA's sum in shared memory, then the
+    scratch's u64 atomics), recombined hi 2^31 + lo and reduced by the
+    last CTA."""
+    v, av = np.asarray(v, _U64), np.asarray(av, _U64)
+    N, n = v.shape
+    folded = n <= GW_FOLDED_MAX_N if folded is None else folded
+    fold_rows = GW_FOLDED_FOLD_ROWS if folded else GW_CLASS_FOLD_ROWS
+    assert 1 <= ctas <= GW_MAX_CTAS and 1 <= warps <= GW_MAX_CTA_WARPS
+    w = limb_weights_np(f)
+    lo = np.zeros((2 * n, n), object)
+    hi = np.zeros((2 * n, n), object)
+    per = -(-N // (ctas * warps)) if N else 0
+    for c in range(ctas * warps):
+        rows = slice(c * per, min(N, (c + 1) * per))
+        acc = np.zeros((2 * n, n), object)
+        for r0 in range(rows.start, max(rows.start, rows.stop), fold_rows):
+            blk = slice(r0, min(rows.stop, r0 + fold_rows))
+            S = gram_limb_sums_np(v[blk], av[blk], folded).astype(object)
+            if folded:   # the flush adds an entry's 64 sums by shift class
+                S = np.stack([sum(S[:, s, :, k - s]
+                                  for s in range(max(0, k - 7), min(k, 7) + 1))
+                              for k in range(GW_CLASSES)])
+                assert (S < 8 * _S32).all(), "a class sum past 2^34"
+            part = sum(S[k] * w[k] for k in range(GW_CLASSES))
+            acc = acc + part
+            assert (acc < 1 << 128).all(), "a running sum left 128 bits"
+            acc = (np.vectorize(lambda a: int(fold_np(
+                f, np.uint64(a >> 64))))(acc).astype(object) << 64) \
+                + (acc & (_R - 1))
+        r = np.vectorize(lambda a: int(reduce128_np(
+            f, np.uint64(a >> 64), np.uint64(a & (_R - 1)))))(acc)
+        r = r.astype(object)
+        lo, hi = lo + (r & _M31), hi + (r >> 31)
+    assert (lo < 1 << 45).all() and (hi < 1 << 45).all(), "a half past 2^45"
+    t = (hi << 31) + lo
+    out = np.vectorize(lambda a: int(reduce128_np(
+        f, np.uint64(a >> 64), np.uint64(a & (_R - 1)))))(t)
+    return np.asarray(out, np.int64).reshape(2 * n, n)
+
+
+# ---------------------------------------------------------------------------
+# Mirror of spmv_wide's narrow slab (csrc/spmv_wide.cu, Sum<true>)
+# ---------------------------------------------------------------------------
+
+NARROW_LIMB_BITS = 21     # x < 2^62 in three limbs
+NARROW_FOLD = 512         # entries between two reductions of the sums
+
+
+def smod_np(f: GFpWide, s: int) -> int:
+    """s mod p for a signed sum |s| < 2^63, as smod takes it: Barrett of
+    |s|, negated for s < 0."""
+    assert -(1 << 63) < s < 1 << 63, "a signed limb sum left int64"
+    r = int(barrett_reduce_np(np.uint64(abs(s)), f.p))
+    return f.p - r if s < 0 and r else r
+
+
+def narrow_dot_np(f: GFpWide, cs, xs) -> int:
+    """sum c[k] x[k] mod p over signed coefficients |c| <= 2^31 - 1 and
+    residues x, as the narrow slab's kernel sums it: x cut into three
+    21-bit limbs, one signed 64-bit sum a limb (asserted to stay in int64)
+    reduced into [0, p) every NARROW_FOLD entries, then s_0 + s_1 2^21 +
+    s_2 2^42 in 128 bits, reduce128."""
+    m = (1 << NARROW_LIMB_BITS) - 1
+    s = [0, 0, 0]
+    for k, (c, x) in enumerate(zip(cs, xs)):
+        c, x = int(c), int(x)
+        assert abs(c) < _S32 and 0 <= x < f.p
+        for i in range(3):
+            s[i] += ((x >> NARROW_LIMB_BITS * i) & m) * c
+            assert -(1 << 63) < s[i] < 1 << 63, "a limb sum left int64"
+        if k % NARROW_FOLD == NARROW_FOLD - 1:
+            s = [smod_np(f, a) for a in s]
+    r = [smod_np(f, a) for a in s]
+    t = r[0] + (r[1] << NARROW_LIMB_BITS) + (r[2] << 2 * NARROW_LIMB_BITS)
+    assert t < 1 << 105
+    return int(reduce128_np(f, np.uint64(t >> 64), np.uint64(t & (_R - 1))))

@@ -38,11 +38,12 @@ class HybridOp:
     nnz: int
     ell: int
     cols: torch.Tensor     # (ell, out_dim) int32
-    vals: torch.Tensor     # (ell, out_dim) int32 residues in [0, p); int64
-                           # for a wide prime (ops/wide_ops.py)
+    vals: torch.Tensor     # (ell, out_dim) int32 residues in [0, p); for a
+                           # wide prime int64 residues or int32 signed
+                           # coefficients (ops/wide_ops.py)
     rowptr: torch.Tensor   # (out_dim + 1,) int32, spill row boundaries
     sp_cols: torch.Tensor  # (spill_nnz,) int32
-    sp_vals: torch.Tensor  # (spill_nnz,) int32; int64 for a wide prime
+    sp_vals: torch.Tensor  # (spill_nnz,) of the slab's kind
 
     @property
     def device(self) -> torch.device:
@@ -110,13 +111,17 @@ def build_hybrid_arrays(out_idx, in_idx, vals, out_dim: int,
     """Host construction of the column-major slab and the CSR spill.
 
     vals are residues in [0, p), stored as `dtype` (int32 for the narrow
-    field, int64 for the wide one).  Returns a dict of NumPy arrays (cols,
-    vals, rowptr, sp_cols, sp_vals) plus ell and nnz.  Within a row the
-    entries keep their input order; the first `ell` go to the slab.
+    field, int64 for the wide one), or signed coefficients (a signed
+    integer array: the wide field's narrow slab, int32).  Returns a dict of
+    NumPy arrays (cols, vals, rowptr, sp_cols, sp_vals) plus ell and nnz.
+    Within a row the entries keep their input order; the first `ell` go to
+    the slab.
     """
     out_idx = np.asarray(out_idx, np.int64)
     in_idx = np.asarray(in_idx, np.int32)
-    vals = np.asarray(vals, np.uint64 if dtype == np.int64 else np.uint32)
+    vals = np.asarray(vals)
+    if vals.dtype.kind != "i":
+        vals = vals.astype(np.uint64 if dtype == np.int64 else np.uint32)
     nnz = len(vals)
     order = np.argsort(out_idx, kind="stable")
     out_idx, in_idx, vals = out_idx[order], in_idx[order], vals[order]

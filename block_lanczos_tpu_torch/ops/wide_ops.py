@@ -5,10 +5,14 @@ kernels, csrc/modp64.cuh), three kernels with their plain versions:
 
   * `spmv_wide` (csrc/spmv_wide.cu): y = op * x mod p over the narrow
     field's hybrid ELL + CSR-spill layout (ops/spmm.py), built here with
-    int64 values in standard form.  JAX's Montgomery-form pair slab, its
-    limb prefix sums and its input bands only change the layout; mod-p sums
-    are associative, so the residues are the same;
-  * `gram_wide` (csrc/gram_wide.cu): [v | Av]^T Av mod p in one launch;
+    one of two slabs: int32 signed coefficients (each entry's
+    representative in (-p/2, p/2)) when every coefficient of the operator
+    fits in 31 bits, else int64 residues in standard form.  JAX's
+    Montgomery-form pair slab, its limb prefix sums and its input bands
+    only change the layout; mod-p sums are associative, so the residues
+    are the same;
+  * `gram_wide` (csrc/gram_wide.cu): [v | Av]^T Av mod p in one launch, on
+    the u8-limb tensor cores;
   * `semi_inverse_wide` (csrc/semi_inverse_wide.cu): the two-phase masked
     Gauss-Jordan on the n x n Gram, the invariant checks and the update's
     right-hand side, with the narrow solver's state ([stop, inv_ok,
@@ -20,6 +24,8 @@ version (ops/gfp_wide.py's int64 arithmetic) for CPU tensors only.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -30,7 +36,10 @@ from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.ops.semi_inverse import FROZEN, SemiInverse
 
 MAX_N = 64  # csrc/semi_inverse_wide.cu SIW_MAXN, orthogonalize_wide OW_MAX_N
-_GRAM_SCRATCH = (1 << 20) + 1  # csrc/gram_wide.cu GW_SCRATCH + the ticket
+# csrc/gram_wide.cu GW_SCRATCH: two 31-bit halves an entry of G, the ticket
+_GRAM_SCRATCH = 2 * 2 * MAX_N * MAX_N + 1
+# the narrow slab's coefficients: |c| <= 2^31 - 1 (csrc/spmv_wide.cu)
+NARROW_COEF_MAX = (1 << 31) - 1
 _scratch: dict = {}
 
 
@@ -38,10 +47,44 @@ _scratch: dict = {}
 # Layout (host, NumPy): the narrow field's hybrid layout with int64 values
 # ---------------------------------------------------------------------------
 
+def signed_coefficients(p: int, residues) -> np.ndarray:
+    """Each residue's representative in (-p/2, p/2), int64."""
+    r = np.asarray(residues).astype(np.int64)
+    return np.where(r > p // 2, r - p, r)
+
+
+def narrow_fits(p: int, *residues) -> bool:
+    """Whether every residue's signed representative fits the narrow
+    slab's int32 coefficient (|c| <= 2^31 - 1)."""
+    return all(not a.size or
+               int(np.abs(signed_coefficients(p, a)).max()) <= NARROW_COEF_MAX
+               for a in map(np.asarray, residues))
+
+
+def slab_values(p: int, residues, narrow: bool) -> np.ndarray:
+    """The values as the chosen slab stores them: int32 signed
+    coefficients (narrow) or int64 residues."""
+    if narrow:
+        return signed_coefficients(p, residues).astype(np.int32)
+    return np.asarray(residues).astype(np.int64)
+
+
+def u64_slab(op: spmm.HybridOp) -> spmm.HybridOp:
+    """The same operator on the u64 slab (its coefficients taken mod p;
+    an operator on the u64 slab comes back as it is)."""
+    if op.vals.dtype == torch.int64:
+        return op
+    return dataclasses.replace(
+        op, vals=torch.remainder(op.vals.to(torch.int64), op.p),
+        sp_vals=torch.remainder(op.sp_vals.to(torch.int64), op.p))
+
+
 def make_wide_op(f: GFpWide, out_idx, in_idx, vals, out_dim: int,
                  in_dim: int, ell: int | None = None) -> spmm.HybridOp:
-    """A CPU HybridOp with int64 values from COO arrays (values are
-    reduced mod p here); `.to(device)` moves it."""
+    """A CPU HybridOp from COO arrays (values are reduced mod p here);
+    `.to(device)` moves it.  Its slab holds int32 signed coefficients when
+    every coefficient fits (narrow_fits), else int64 residues; u64_slab
+    gives the same operator on the u64 slab."""
     v = np.asarray(vals)
     if v.dtype.kind == "i":
         v = (v % np.int64(f.p)).astype(np.uint64)
@@ -49,8 +92,10 @@ def make_wide_op(f: GFpWide, out_idx, in_idx, vals, out_dim: int,
         v = v.astype(np.uint64) % np.uint64(f.p)
     else:
         v = (v.astype(object) % f.p).astype(np.uint64)
-    arrays = spmm.build_hybrid_arrays(out_idx, in_idx, v, out_dim, ell,
-                                      dtype=np.int64)
+    narrow = narrow_fits(f.p, v)
+    arrays = spmm.build_hybrid_arrays(
+        out_idx, in_idx, slab_values(f.p, v, narrow), out_dim, ell,
+        dtype=np.int32 if narrow else np.int64)
     return spmm.hybrid_op_from_arrays(f.p, arrays, out_dim, in_dim)
 
 
@@ -70,12 +115,14 @@ def spmv_wide_plain(op: spmm.HybridOp, x: torch.Tensor,
                     out_rows: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the spmv_wide kernel: per slab slot a
     reduced product added mod p, then the spill's reduced products summed
-    by row (index_add_mod); (out_rows, n) int64, zero rows past out_dim."""
+    by row (index_add_mod); (out_rows, n) int64, zero rows past out_dim.
+    Either slab: signed coefficients are taken mod p first."""
     out_rows = op.out_dim if out_rows is None else int(out_rows)
     spmm._check_args(op, x, out_rows)
     p = op.p
     n = x.shape[1]
     xl = x.to(torch.int64)
+    op = u64_slab(op)
     y = torch.zeros((op.out_dim, n), dtype=torch.int64, device=x.device)
     for k in range(op.ell):
         y = gw.modadd(p, y, gw.mulmod(p, op.vals[k][:, None],
@@ -109,12 +156,14 @@ def spmv_wide(f: GFpWide, op: spmm.HybridOp, x: torch.Tensor,
         out = torch.empty((out_rows, n), dtype=torch.int64, device=x.device)
     elif out.shape != (out_rows, n):
         raise ValueError(f"out must be ({out_rows}, {n})")
-    kernels.check_operands("spmv_wide", x, out, op.vals, op.sp_vals,
-                           dtype=torch.int64)
+    narrow = op.vals.dtype == torch.int32
+    kernels.check_operands("spmv_wide", x, out, dtype=torch.int64)
+    kernels.check_operands("spmv_wide", op.vals, op.sp_vals,
+                           dtype=torch.int32 if narrow else torch.int64)
     kernels.check_operands("spmv_wide", op.cols, op.rowptr, op.sp_cols)
     kernels.launch("spmv_wide", op.cols.data_ptr(), op.vals.data_ptr(),
                    op.ell, op.out_dim, op.rowptr.data_ptr(),
-                   op.sp_cols.data_ptr(), op.sp_vals.data_ptr(),
+                   op.sp_cols.data_ptr(), op.sp_vals.data_ptr(), int(narrow),
                    x.data_ptr(), out.data_ptr(), op.out_dim, out_rows, n,
                    *f.kernel_args)
     spmv_wide.launches += 1

@@ -50,9 +50,16 @@ variant's outputs are first held equal to the default build's:
     two n x n products c = winv spliced and winv vtAv, its checks and
     writes) and per pivot step.
   * the wide field, on the bench matrix at 2^61 - 1: spmv_wide per
-    direction at n = 4 as built and with (SPMV_WIDE_CHUNK,
-    SPMV_WIDE_THREADS) in WIDE_SPMV_SHAPES; gram_wide at n in {4, 8, 32} on
-    the bench's rows as built and with GW_ROWS_PER_LANE in WIDE_GRAM_ROWS;
+    direction at n = 4 on the narrow slab and on the u64 slab, as built and
+    as the builds of WIDE_SPMV_VARIANTS (the gather-only floor, the vector
+    width, the prefetch, chunk and CTA sizes), beside spmv_ell on the same
+    entries at the narrow bench prime at n = 4 and 8; gram_wide at n in
+    WIDE_GRAM_NS on the
+    bench's rows as built and as the builds of WIDE_GRAM_VARIANTS (the
+    shift classes at every n, ring depths, warps and stage rows, small
+    folds), and the folded kernel's GW_TIMELINE at n in GW_TIMELINE_NS
+    (where its time goes: the start spread, the row loop, the flush, the
+    scratch adds, the finish; cycles a chunk, the share waiting);
     orthogonalize_wide at n in WIDE_NS as built (a thread a row up to
     OW_ROW_MAX_N = 8) and with the tile path at every n (OW_ROW_MAX_N =
     0); semi_inverse_wide as built on full-rank Grams at n in WIDE_NS,
@@ -100,11 +107,31 @@ KERNELS = ("spmv_ell", "semi_inverse", "gram_mod", "orthogonalize",
            "spmv_wide", "gram_wide", "semi_inverse_wide",
            "orthogonalize_wide")
 WIDE_KERNELS = KERNELS[8:]
-# the wide field: spmv_wide's (SPMV_WIDE_CHUNK, SPMV_WIDE_THREADS), gram_wide's
-# GW_ROWS_PER_LANE, orthogonalize_wide's tile path at every n
-WIDE_SPMV_SHAPES = tuple((c, t) for c in (2, 4, 8) for t in (64, 128, 256))
-WIDE_GRAM_ROWS = (16, 32, 64, 128, 256)
-WIDE_GRAM_NS = (4, 8, 32)
+# the wide field (orthogonalize_wide's tile path at every n below)
+# spmv_wide: the gather-only build (the same loads, the products XORed:
+# the L2-sector floor), the vector width a thread takes (VW = 4 / 2 / 1:
+# 1 / 2 / 4 threads a row at n = 4), chunk and CTA sizes, no register cap
+# (the default holds 4 CTAs of 256 an SM)
+WIDE_SPMV_VARIANTS = (
+    {"SPMV_WIDE_GATHER_ONLY": 1}, {"SPMV_WIDE_VW": 4}, {"SPMV_WIDE_VW": 1},
+    {"SPMV_WIDE_CHUNK": 2}, {"SPMV_WIDE_CHUNK": 8},
+    {"SPMV_WIDE_THREADS": 128}, {"SPMV_WIDE_MIN_BLOCKS": 1})
+# gram_wide: the shift classes at every n (GW_CLASS_MIN_N = 1)
+# against the folded limbs up to n = 4; the folded layout's warps a CTA;
+# the classes' rows a stage; recombinations every 64 / 128 rows
+WIDE_GRAM_VARIANTS = (
+    {"GW_CLASS_MIN_N": 1},
+    {"GW_FOLDED_WARPS": 4}, {"GW_FOLDED_WARPS": 16}, {"GW_CLASS_ROWS": 64},
+    {"GW_FOLDED_FOLD_ROWS": 64, "GW_CLASS_FOLD_ROWS": 128},
+    {"GW_TIMELINE": 1})
+WIDE_GRAM_NS = (1, 2, 4, 8, 16, 32, 64)
+GW_TIMELINE_NS = (1, 2, 4)
+# csrc/gram_wide.cu's GW_TIMELINE slots
+GW_T = ("first", "last_start", "loop", "flush", "halves", "end",
+        "loop_cycles", "wait_cycles", "chunks")
+# builds that time a part of a kernel and compute something else: their
+# outputs are not held to the default's
+TIMING_ONLY = ("SPMV_WIDE_GATHER_ONLY",)
 WIDE_NS = (1, 2, 4, 8, 16, 32, 64)
 WIDE_ORTHO_VARIANTS = ({"OW_ROW_MAX_N": 0},)
 SIW_TIMELINE_NS = (1, 4, 16, 64)
@@ -654,11 +681,9 @@ def _variants(names) -> list:
     if "orthogonalize_gf2" in names:
         out += [("orthogonalize_gf2", d) for d in OG_VARIANTS]
     if "spmv_wide" in names:
-        out += [("spmv_wide", {"SPMV_WIDE_CHUNK": c, "SPMV_WIDE_THREADS": t})
-                for c, t in WIDE_SPMV_SHAPES]
+        out += [("spmv_wide", d) for d in WIDE_SPMV_VARIANTS]
     if "gram_wide" in names:
-        out += [("gram_wide", {"GW_ROWS_PER_LANE": r})
-                for r in WIDE_GRAM_ROWS]
+        out += [("gram_wide", d) for d in WIDE_GRAM_VARIANTS]
     if "orthogonalize_wide" in names:
         out += [("orthogonalize_wide", d) for d in WIDE_ORTHO_VARIANTS]
     if "semi_inverse_wide" in names:
@@ -672,7 +697,8 @@ def _key(defines) -> str:
 
 def wide_sweeps(names, rng, dev) -> dict:
     """The wide kernels on the bench matrix at 2^61 - 1 (module docstring);
-    every variant's output held equal to the default build's."""
+    every variant's output held equal to the default build's but for the
+    timing-only builds (TIMING_ONLY)."""
     import torch
 
     from block_lanczos_tpu_torch import kernels
@@ -697,16 +723,31 @@ def wide_sweeps(names, rng, dev) -> dict:
 
     def variants(name, fns, kernel):
         """{build: {case: ms}} for the default build and each variant of
-        `name`, fns = {case: (call, want)}."""
+        `name`, fns = {case: (call, want)}, each printed as it is measured.
+        A variant whose output differs is recorded and not timed; the
+        sweep raises once every build has run."""
         out = {"default": {k: device_ms(fn, kernel)
                            for k, (fn, _) in fns.items()}}
+        print(f"  {name} default: " + ", ".join(
+            f"{k} {ms:.4f}" for k, ms in out["default"].items()), flush=True)
         for _, d in (v for v in _variants([name]) if v[0] == name):
             with kernels.variant(name, **d):
-                for k, (fn, want) in fns.items():
-                    _equal(f"{name} {_key(d)} {k}", [fn()], [want])
+                try:
+                    for k, (fn, want) in fns.items():
+                        if not set(d) & set(TIMING_ONLY):
+                            _equal(f"{name} {_key(d)} {k}", [fn()], [want])
+                except AssertionError as e:
+                    failed.append(str(e))
+                    print(f"  {e}", flush=True)
+                    continue
                 out[_key(d)] = {k: device_ms(fn, kernel)
                                 for k, (fn, _) in fns.items()}
+            print(f"  {name} {_key(d)}: " + ", ".join(
+                f"{k} {ms:.4f}" for k, ms in out[_key(d)].items()),
+                flush=True)
         return out
+
+    failed = []
 
     res = {}
     if "spmv_wide" in names:
@@ -715,17 +756,60 @@ def wide_sweeps(names, rng, dev) -> dict:
                 "Mt*v": (s.first_op, s.np_rows, s.mp_rows),
                 "M*tmp": (s.second_op, s.mp_rows, s.np_rows)}.items():
             xv = rand(in_rows, 4)
-            call = (lambda op=op, xv=xv, out_rows=out_rows:
-                    wo.spmv_wide(f, op, xv, out_rows))
-            fns[f"{d} n=4"] = (call, call())
+            # the bench's slab (narrow: its values are below 2^20) and the
+            # u64 slab of the same operator
+            for slab, o in (("narrow", op), ("u64", wo.u64_slab(op))):
+                call = (lambda o=o, xv=xv, out_rows=out_rows:
+                        wo.spmv_wide(f, o, xv, out_rows))
+                fns[f"{d} n=4 {slab}"] = (call, call())
         res["spmv_wide"] = variants("spmv_wide", fns, "spmv_wide_kernel")
+        # spmv_ell on the same entries at the narrow bench prime: the same
+        # sectors of x gathered at n = 4 (16-byte rows), the same row bytes
+        # at n = 8
+        from block_lanczos_tpu_torch.models import lanczos as L
+        from block_lanczos_tpu_torch.ops import spmm
+        Mn = COOMatrix(M.nrows, M.ncols, M.nnz, M.i, M.j,
+                       (M.x % gen.BENCH_PRIME).astype(np.uint32),
+                       gen.BENCH_PRIME)
+        sn = L.BlockLanczos(Mn, n=4, device=dev)
+        ell = {}
+        for d, (op, in_rows, out_rows) in {
+                "Mt*v": (sn.first_op, sn.np_rows, sn.mp_rows),
+                "M*tmp": (sn.second_op, sn.mp_rows, sn.np_rows)}.items():
+            # n = 8: x rows of 32 bytes, as wide n = 4 gathers them
+            for n in (4, 8):
+                xn = (rand(in_rows, n) % gen.BENCH_PRIME).to(torch.int32)
+                ell[f"{d} n={n}"] = device_ms(
+                    lambda op=op, xn=xn, out_rows=out_rows:
+                    spmm.spmv(op, xn, out_rows), "spmv_ell_kernel")
+        res["spmv_wide"]["spmv_ell"] = ell
     if "gram_wide" in names:
         fns = {}
         for n in WIDE_GRAM_NS:
             v, av = rand(s.np_rows, n), rand(s.np_rows, n)
             call = lambda v=v, av=av: wo.gram_wide(v, av, f)  # noqa: E731
             fns[f"n={n}"] = (call, call().clone())
-        res["gram_wide"] = variants("gram_wide", fns, "gram_wide_kernel")
+        # gram_wide_folded_kernel or gram_wide_class_kernel
+        res["gram_wide"] = variants("gram_wide", fns, "gram_wide_")
+        timeline = {}
+        with kernels.variant("gram_wide", GW_TIMELINE=1) as lib:
+            lib.gram_wide_stamps.argtypes = [ctypes.c_void_p]
+            lib.gram_wide_stamps.restype = ctypes.c_int
+            st = (ctypes.c_longlong * len(GW_T))()
+            for n in GW_TIMELINE_NS:
+                fn = fns[f"n={n}"][0]
+                fn()
+                torch.cuda.synchronize()
+                for _ in range(2):   # reset, then the run's stamps
+                    if lib.gram_wide_stamps(ctypes.addressof(st)) != 0:
+                        raise RuntimeError("gram_wide_stamps failed")
+                    if _ == 0:
+                        fn()
+                        torch.cuda.synchronize()
+                timeline[f"n={n}"] = _timeline_gram(list(st))
+        res["gram_wide"]["timeline"] = timeline
+        for k, t in timeline.items():
+            print(f"  gram_wide timeline {k}: {json.dumps(t)}", flush=True)
     if "orthogonalize_wide" in names:
         fns = {}
         for n in WIDE_NS:
@@ -771,7 +855,23 @@ def wide_sweeps(names, rng, dev) -> dict:
                     raise RuntimeError("semi_inverse_wide_stamps failed")
                 timeline[f"n={n}"] = _timeline_wide(list(st), n, p)
         res["semi_inverse_wide"] = {"default": by_n, "timeline": timeline}
+    if failed:
+        raise AssertionError("; ".join(failed))
     return res
+
+
+def _timeline_gram(st) -> dict:
+    """gram_wide's GW_TIMELINE stamps (folded limbs): ns from the first
+    CTA's start to the last CTA's start, to the last warp's end of the row
+    loop, of its flush, to the last CTA's scratch adds and to the end; the
+    loop's cycles a chunk of 32 rows and the share of them spent waiting on
+    the cp.async ring."""
+    t = dict(zip(GW_T, st))
+    marks = ("last_start", "loop", "flush", "halves", "end")
+    out = {f"{k}_ns": t[k] - t["first"] for k in marks}
+    out["cycles_per_chunk"] = t["loop_cycles"] / max(t["chunks"], 1)
+    out["wait_share"] = t["wait_cycles"] / max(t["loop_cycles"], 1)
+    return out
 
 
 def _timeline_wide(st, n, p) -> dict:

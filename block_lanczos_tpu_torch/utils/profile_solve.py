@@ -7,11 +7,13 @@
     python -m block_lanczos_tpu_torch.utils.profile_solve --field gf2 \
         --n 128 256 --matrix 3Mx2M
     python -m block_lanczos_tpu_torch.utils.profile_solve --field wide --n 4
+    python -m block_lanczos_tpu_torch.utils.profile_solve --field wide \
+        --n 32 --iters 100
 
 Builds the matrix, runs the solver's iteration on the card, and reports for
 a window of iterations far from the solve's end (narrow and wide field:
 4096/n, 1024 at n = 4, 128 at n = 32; GF(2): 16384/n, 128 at n = 128, 64
-at n = 256):
+at n = 256; or --iters, e.g. 100 as the depth-cut bench-n32 cells):
   * the wall time per iteration (host clock, synchronised at both ends),
     without and then with torch.profiler, and the host's issue time per
     iteration: the wall of the enqueue loop alone, taken before the sync
@@ -76,17 +78,18 @@ def _matrix(name: str, prime: int):
                      j.astype(np.int32), (x % prime).astype(dtype), prime)
 
 
-def profile_width(M, field: str, n: int, label: str) -> dict:
-    """Profile a window of iterations at block width n on the matrix M (mod
-    2 for GF(2)) in `field` ("narrow", "wide" or "gf2"); prints the
-    breakdown and returns its JSON record."""
+def profile_width(M, field: str, n: int, label: str,
+                  iters: int | None = None) -> dict:
+    """Profile a window of `iters` iterations (default by n, above) at
+    block width n on the matrix M (mod 2 for GF(2)) in `field` ("narrow",
+    "wide" or "gf2"); prints the breakdown and returns its JSON record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from block_lanczos_tpu_torch.ops.semi_inverse import new_state
 
     gf2 = field == "gf2"
-    iters = (16384 if gf2 else 4096) // n
+    iters = iters or (16384 if gf2 else 4096) // n
     t0 = time.perf_counter()
     if field == "wide":
         from block_lanczos_tpu_torch.models import lanczos_wide as L
@@ -198,6 +201,9 @@ def main(argv=None) -> int:
                     help="block widths, profiled one after another on one "
                          "matrix [default 4 narrow, 128 GF(2)]")
     ap.add_argument("--matrix", choices=("bench", "3Mx2M"), default="bench")
+    ap.add_argument("--iters", type=int, default=None,
+                    help="iterations in the window [default 4096/n, GF(2) "
+                         "16384/n]")
     args = ap.parse_args(argv)
     gf2 = args.field == "gf2"
 
@@ -214,7 +220,7 @@ def main(argv=None) -> int:
     print(f"matrix {args.matrix}: {M.nrows} x {M.ncols}, {M.nnz} entries, "
           f"generated in {time.perf_counter() - t0:.1f} s")
     for n in args.n or [128 if gf2 else 4]:
-        profile_width(M, args.field, n, args.matrix)
+        profile_width(M, args.field, n, args.matrix, args.iters)
     return 0
 
 

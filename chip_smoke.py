@@ -9,7 +9,9 @@ failure:
 
   0. print the card's name and power limit; require CUDA;
   1. build the twelve CUDA kernels from block_lanczos_tpu_torch/csrc/ (four
-     narrow-field, four bitsliced GF(2), four wide-field);
+     narrow-field, four bitsliced GF(2), four wide-field), and two builds
+     that phase 2 uses beside them (gram_wide recombining every 64 / 128
+     rows; spmv_wide's gather-only floor);
   2. hold every kernel against its plain PyTorch version on the card, at
      the main path's shapes (the bench matrix, n = 4 and n = 32) and at edge
      shapes (p = 2 and 3, n = 1, an empty spill, one long spill row, N not a
@@ -47,11 +49,18 @@ failure:
      the unpacked bits for gram_gf2 and orthogonalize_gf2); then the wide
      kernels (u64 residues) at 2^30 + 3, 2^61 - 1 and 4611686018427387847,
      every n in {1, 2, 3, 4, 8, 16, 32, 64}: spmv_wide on the bench
-     operators at 2^61 - 1 (timed at n = 4) and on an edge matrix with a
-     long spill row, the lazy sums' worst case (every value and x at p - 1,
-     rows longer than the fold in slab and spill) aligned and not, a zero
-     x, an empty spill; gram_wide at the bench's rows (timed, and all
-     p - 1), N = 0 and 1, zero blocks; semi_inverse_wide on the bench's
+     operators at 2^61 - 1 (timed at n = 4, on the narrow slab of int32
+     signed coefficients and on the u64 slab, beside the gather-only build:
+     the L2-sector floor) and on an edge matrix with a long spill row, with
+     full-range and small signed coefficients, each on its default slab and
+     on the u64 slab, signed coefficients +-1 and +-(2^31 - 1) against
+     x = 0 and p - 1, the lazy sums' worst case (every value and x at
+     p - 1, rows longer than the fold in slab and spill) on both slabs,
+     aligned and not, a zero x, an empty spill; gram_wide at the bench's
+     rows (timed at n = 4 and 32, and all p - 1), 2,500,003 rows of p - 1
+     at n = 4 and 32, both sides of the shift classes' threshold (n = 4 /
+     8), N = 0 and 1, zero blocks, and again with recombinations every 64 /
+     128 rows; semi_inverse_wide on the bench's
      Grams (timed), full-rank, rank-deficient and zero Grams, one whose
      phase-2 pivots differ from phase 1's (d != d1), a failing check, the
      check off, a frozen state; orthogonalize_wide at the bench's rows
@@ -110,16 +119,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
-# Integer multiply-adds run on the CUDA cores; the published table has no
-# integer rate there, so they are counted against its float32 rate.
-CORE_OPS_PER_S = 67e12
+BOOST_HZ = 1.98e9           # the H100 SXM's boost clock
+# Integer multiply-adds run on the CUDA cores: the CUDA C++ Programming
+# Guide's throughput table gives 64 32-bit integer multiply(-add)s per clock
+# per SM for compute capability 9.0, on 132 SMs.  CUDA-core work is counted
+# in such multiply-adds (IMAD, IMAD.WIDE), one operation each.
+INT_MAD_PER_S = 64 * 132 * BOOST_HZ
 # The tensor-core paths (n >= the kernels' threshold) do 16 u8 limb
 # products per residue product, counted against the published int8 rate.
 INT8_TC_OPS_PER_S = 1979e12
 # The GF(2) kernels' bitwise work: 64 32-bit logical operations (LOP3, which
 # does a mask-and-XOR in one) per SM per clock, on 132 SMs at the H100
 # SXM's 1.98 GHz boost clock.
-LOP3_OPS_PER_S = 64 * 132 * 1.98e9
+LOP3_OPS_PER_S = 64 * 132 * BOOST_HZ
 MAIN_NS = (1, 3, 4, 8, 16, 31, 32, 33, 64)
 EDGE_ROWS = 20_011          # a multiple of no tile, CTA or fold size
 FOLD_ROWS = 2_500_003       # > 8192 rows per CTA: crosses the tensor-core fold
@@ -151,6 +163,25 @@ def median_ms(fn, reps=TIMING_REPS) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def per_launch_ms(fn, launches=50, reps=5) -> float:
+    """Median over `reps` of CUDA-event ms around `launches` back-to-back
+    calls, per call: the host's launch cost hidden behind the device's."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(launches):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / launches)
     return statistics.median(times)
 
 
@@ -189,12 +220,12 @@ class KernelRecord:
             row["note"] = self.note
         return row
 
-    def set_bound(self, nbytes, nops, ops_per_s=CORE_OPS_PER_S):
+    def set_bound(self, nbytes, nops, ops_per_s=INT_MAD_PER_S):
         self.bound_ms, self.bound_by = bound(nbytes, nops, ops_per_s)
         return self.bound_ms
 
 
-def bound(nbytes, nops, ops_per_s=CORE_OPS_PER_S):
+def bound(nbytes, nops, ops_per_s=INT_MAD_PER_S):
     """The least time for the work, and what sets it: the larger of its
     bytes over the memory rate and its operations over their peak rate."""
     b_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -240,7 +271,7 @@ def gram_bound(N, n, mma):
     nbytes = 4 * (2 * N * n + 2 * n * n)
     macs = N * 2 * n * n
     return (bound(nbytes, 2 * 16 * macs, INT8_TC_OPS_PER_S) if mma
-            else bound(nbytes, 2 * macs))
+            else bound(nbytes, macs))
 
 
 def ortho_bound(N, n, mma):
@@ -249,7 +280,7 @@ def ortho_bound(N, n, mma):
     nbytes = 4 * (5 * N * n + 3 * n * n + n + 4)
     macs = 3 * N * n * n
     return (bound(nbytes, 2 * 16 * macs, INT8_TC_OPS_PER_S) if mma
-            else bound(nbytes, 2 * macs))
+            else bound(nbytes, macs))
 
 
 def check_gram(rec, rng, p, rows, dev):
@@ -844,9 +875,13 @@ WIDE_PRIMES = (1073741827, (1 << 61) - 1, 4611686018427387847)  # 2^30 + 3,
 # 2^61 - 1 (the bench's) and the largest prime below 2^62
 WIDE_NS = (1, 2, 3, 4, 8, 16, 32, 64)
 # A 64 x 64 -> 128-bit multiply-add on the CUDA cores: a * b (3 IMADs),
-# __umul64hi (4) and the carry add, counted as 8 integer multiply-adds (2
-# operations each) against the float32 rate, as the narrow bounds count one.
-WIDE_MAC_OPS = 2 * 8
+# __umul64hi (4) and the carry add, counted as 8 integer multiply-adds; the
+# narrow slab's product x * c is three IMAD.WIDE (one a 21-bit limb of x).
+WIDE_MAC_OPS = 8
+NARROW_MAC_OPS = 3
+# gram_wide's limb products: 64 u8 products a residue product (8 limbs a
+# residue), two operations each on the int8 tensor cores.
+WIDE_LIMB_PRODUCTS = 64
 # semi_inverse_wide's dependent chain, in cycles: a pivot step at least a
 # warp ballot and a dependent shared-memory read (~80, as for the narrow and
 # GF(2) eliminations), and the Fermat inverse 254 a bit of the exponent p - 2
@@ -855,7 +890,10 @@ WIDE_MAC_OPS = 2 * 8
 # the floor of this design's inverse, which a faster one would lower.
 WIDE_STEP_CYCLES = 80
 WIDE_INV_BIT_CYCLES = 254
-BOOST_HZ = 1.98e9
+# gram_wide built with recombinations every 64 / 128 rows (the defaults are
+# 32,768 and 4,096, which a solve on one card never reaches), so that phase
+# 2 crosses them
+GRAM_WIDE_SMALL_FOLDS = {"GW_FOLDED_FOLD_ROWS": 64, "GW_CLASS_FOLD_ROWS": 128}
 
 
 def rand_wide(rng, rows, n, p, device):
@@ -867,16 +905,21 @@ def rand_wide(rng, rows, n, p, device):
 
 
 def wide_spmv_work(op, n, out_rows):
-    """(bytes, operations): 12 B of slab (int32 column, int64 value) per
-    true nonzero, x read, y written, rowptr; one wide multiply-add per
-    nonzero and column."""
-    return (12 * op.nnz + 8 * op.in_dim * n + 8 * out_rows * n
-            + 4 * (op.out_dim + 1), WIDE_MAC_OPS * op.nnz * n)
+    """(bytes, operations): a slab entry (int32 column, int32 coefficient
+    or int64 residue) per true nonzero, x read, y written, rowptr; one
+    narrow or wide multiply-add per nonzero and column."""
+    import torch
+    narrow = op.vals.dtype == torch.int32
+    return ((8 if narrow else 12) * op.nnz + 8 * op.in_dim * n
+            + 8 * out_rows * n + 4 * (op.out_dim + 1),
+            (NARROW_MAC_OPS if narrow else WIDE_MAC_OPS) * op.nnz * n)
 
 
 def wide_gram_bound(N, n):
-    """v and Av read once, G written; N 2n n wide multiply-adds."""
-    return bound(8 * (2 * N * n + 2 * n * n), WIDE_MAC_OPS * N * 2 * n * n)
+    """v and Av read once, G written; N 2n n residue products of 64 u8
+    limb products each on the int8 tensor cores."""
+    return bound(8 * (2 * N * n + 2 * n * n),
+                 2 * WIDE_LIMB_PRODUCTS * N * 2 * n * n, INT8_TC_OPS_PER_S)
 
 
 def wide_ortho_bound(N, n):
@@ -888,75 +931,132 @@ def wide_ortho_bound(N, n):
 
 def check_spmv_wide(rec, rng, dev, wo, ws):
     """spmv_wide against spmv_wide_plain: the bench operators at 2^61 - 1
-    in both directions at n = 4 (timed); at every prime of WIDE_PRIMES and
-    every n of WIDE_NS an edge matrix with one long spill row in both
-    directions; the lazy sums' worst case (every value and x at p - 1, rows
-    longer than the fold in slab and spill); a zero x; x and y off their
-    16-byte alignment; an empty spill."""
+    in both directions at n = 4 (timed) on their narrow slab (the bench's
+    values are below 2^20) and on the u64 slab, and the gather-only build
+    (the same loads, the products XORed) timed beside them: the L2-sector
+    floor; at every prime of WIDE_PRIMES and every n of WIDE_NS an edge
+    matrix with one long spill row in both directions, with full-range and
+    with small signed coefficients, each on its default slab and on the u64
+    slab; signed coefficients +-1 and +-(2^31 - 1) against x = 0 and p - 1,
+    and a spill row of 3000 of them past the narrow slab's fold; the lazy
+    sums' worst case (every value and x at p - 1, rows longer than the fold
+    in slab and spill) on both slabs, aligned and not; a zero x; an empty
+    spill."""
     import torch
+
+    from block_lanczos_tpu_torch import kernels
     from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
     from block_lanczos_tpu_torch.utils import gen
 
     f = ws.f
     ms, plain, nbytes, nops = [], [], [], []
+    back, u64_ms, floor_ms = [], [], []
     for name, op, in_rows, out_rows in (
             ("Mt*v", ws.first_op, ws.np_rows, ws.mp_rows),
             ("M*tmp", ws.second_op, ws.mp_rows, ws.np_rows)):
+        assert op.vals.dtype == torch.int32, "the bench takes the narrow slab"
+        wide = wo.u64_slab(op)
         x = rand_wide(rng, in_rows, 4, f.p, dev)
+        want = wo.spmv_wide_plain(op, x, out_rows)
         rec.agree(f"bench {name} n=4", wo.spmv_wide(f, op, x, out_rows),
-                  wo.spmv_wide_plain(op, x, out_rows))
+                  want)
+        rec.agree(f"bench {name} n=4 u64 slab",
+                  wo.spmv_wide(f, wide, x, out_rows), want)
         k_ms = median_ms(lambda: wo.spmv_wide(f, op, x, out_rows))
+        # back to back, so that the host's launch cost does not blur them:
+        # this slab, the u64 slab, and the same loads with the products
+        # XORed (the gather-only build: the L2-sector floor)
+        b_ms = per_launch_ms(lambda: wo.spmv_wide(f, op, x, out_rows))
+        w_ms = per_launch_ms(lambda: wo.spmv_wide(f, wide, x, out_rows))
+        with kernels.variant("spmv_wide", SPMV_WIDE_GATHER_ONLY=1):
+            g_ms = per_launch_ms(lambda: wo.spmv_wide(f, op, x, out_rows))
         p_ms = median_ms(lambda: wo.spmv_wide_plain(op, x, out_rows), reps=3)
         nb, no = wide_spmv_work(op, 4, out_rows)
         b = bound(nb, no)
-        ms.append(k_ms)
-        plain.append(p_ms)
-        nbytes.append(nb)
-        nops.append(no)
-        print(f"  spmv_wide {name} n=4: {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-              f"bound {b[0]:.4f} ms ({b[1]}), library_ms: none", flush=True)
+        for lst, val in ((ms, k_ms), (plain, p_ms), (nbytes, nb), (nops, no),
+                         (back, b_ms), (u64_ms, w_ms), (floor_ms, g_ms)):
+            lst.append(val)
+        print(f"  spmv_wide {name} n=4: {k_ms:.4f} ms (back to back "
+              f"{b_ms:.4f}, u64 slab {w_ms:.4f}, gather-only {g_ms:.4f}), "
+              f"plain {p_ms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+              "library_ms: none", flush=True)
     rec.ms, rec.plain_ms = statistics.mean(ms), statistics.mean(plain)
     rec.set_bound(statistics.mean(nbytes), statistics.mean(nops))
+    rec.note = (f"narrow slab; back to back {statistics.mean(back):.4f} ms, "
+                f"the u64 slab {statistics.mean(u64_ms):.4f}, the L2-sector "
+                f"floor (the gather-only build: the same loads, the products "
+                f"XORed) {statistics.mean(floor_ms):.4f} (means of M^T and "
+                f"M)")
     i, j, _ = gen.random_sparse(3001, 1517, 7, seed=17)
     i = np.concatenate([i, np.full(3000, 17), np.arange(40)])
     j = np.concatenate([j, rng.integers(0, 1517, 3000), np.arange(40)])
+    cmax = (1 << 31) - 1
     for p in WIDE_PRIMES:
         fe = GFpWide.make(p)
-        x = rng.integers(0, 1 << 62, i.size, dtype=np.int64) % p
-        for out_dim, in_dim, oi, ii in ((3001, 1517, i, j),
-                                        (1517, 3001, j, i)):
-            op = wo.make_wide_op(fe, oi, ii, x, out_dim, in_dim)
-            if out_dim == 3001:
-                assert op.spill_nnz >= 3000, "long spill row missing"
+        vals = {"full": rng.integers(0, 1 << 62, i.size, dtype=np.int64) % p,
+                "small": rng.integers(-cmax, cmax + 1, i.size) % p}
+        for kind, x in vals.items():
+            for out_dim, in_dim, oi, ii in ((3001, 1517, i, j),
+                                            (1517, 3001, j, i)):
+                chosen = wo.make_wide_op(fe, oi, ii, x, out_dim, in_dim)
+                for op in (chosen, wo.u64_slab(chosen)):
+                    if out_dim == 3001:
+                        assert op.spill_nnz >= 3000, "long spill row missing"
+                    slab = str(op.vals.dtype)
+                    op = op.to(dev)
+                    for n in WIDE_NS:
+                        xb = rand_wide(rng, in_dim + 5, n, p, dev)
+                        rec.agree(f"edge p={p} {kind} {slab} n={n} "
+                                  f"out={out_dim}",
+                                  wo.spmv_wide(fe, op, xb, out_dim + 13),
+                                  wo.spmv_wide_plain(op, xb, out_dim + 13))
+                    xz = torch.zeros((in_dim, 4), dtype=torch.int64,
+                                     device=dev)
+                    rec.agree(f"zero x p={p} {kind} {slab} out={out_dim}",
+                              wo.spmv_wide(fe, op, xz, out_dim),
+                              wo.spmv_wide_plain(op, xz, out_dim))
+        # the narrow slab's edges: c = +-1, +-(2^31 - 1) against x rows 0
+        # and p - 1 (and a random row), and a spill row of 3000 of them
+        cs = np.array([1, -1, cmax, -cmax])
+        si = np.concatenate([np.repeat(np.arange(12), 3),
+                             np.full(3000, 12)])
+        sj = np.concatenate([np.tile(np.arange(3), 12),
+                             np.arange(3000) % 2])
+        sv = np.concatenate([np.repeat(cs, 9), np.tile(cs, 750)]) % p
+        chosen = wo.make_wide_op(fe, si, sj, sv, 13, 3, ell=3)
+        assert chosen.vals.dtype == torch.int32, "+-(2^31 - 1) fit"
+        for op in (chosen, wo.u64_slab(chosen)):
             op = op.to(dev)
-            for n in WIDE_NS:
-                xb = rand_wide(rng, in_dim + 5, n, p, dev)
-                rec.agree(f"edge p={p} n={n} out={out_dim}",
-                          wo.spmv_wide(fe, op, xb, out_dim + 13),
-                          wo.spmv_wide_plain(op, xb, out_dim + 13))
-            xz = torch.zeros((in_dim, 4), dtype=torch.int64, device=dev)
-            rec.agree(f"zero x p={p} out={out_dim}",
-                      wo.spmv_wide(fe, op, xz, out_dim),
-                      wo.spmv_wide_plain(op, xz, out_dim))
+            for n in (1, 2, 4):
+                xs = torch.cat([torch.zeros((1, n), dtype=torch.int64),
+                                torch.full((1, n), p - 1, dtype=torch.int64),
+                                torch.from_numpy(rng.integers(
+                                    0, p, (1, n), dtype=np.int64))]).to(dev)
+                rec.agree(f"signs p={p} {op.vals.dtype} n={n}",
+                          wo.spmv_wide(fe, op, xs, 16),
+                          wo.spmv_wide_plain(op, xs, 16))
         # worst case of the lazy sums, at every vector width and off the
-        # 16-byte alignment
+        # 16-byte alignment, on both slabs
         fold = 8
         wi = np.concatenate([np.repeat(np.arange(300), 2 * fold + 5),
                              np.full(600, 7), np.arange(40) * 3])
         wj = rng.integers(0, 250, wi.size)
-        op = wo.make_wide_op(fe, wi, wj, np.full(wi.size, p - 1), 300, 250,
-                             ell=2 * fold + 3).to(dev)
-        assert op.spill_nnz > 600 + 300
-        for n in WIDE_NS:
-            for skew in (0, 1):
-                xf = torch.full((250 * n + skew,), p - 1, dtype=torch.int64,
-                                device=dev)
-                yf = torch.empty((307 * n + skew,), dtype=torch.int64,
-                                 device=dev)
-                xb, yb = xf[skew:].view(250, n), yf[skew:].view(307, n)
-                rec.agree(f"all p-1 p={p} n={n} misaligned={skew}",
-                          wo.spmv_wide(fe, op, xb, 307, out=yb),
-                          wo.spmv_wide_plain(op, xb, 307))
+        chosen = wo.make_wide_op(fe, wi, wj, np.full(wi.size, p - 1), 300,
+                                 250, ell=2 * fold + 3)
+        for op in (chosen, wo.u64_slab(chosen)):
+            op = op.to(dev)
+            assert op.spill_nnz > 600 + 300
+            for n in WIDE_NS:
+                for skew in (0, 1):
+                    xf = torch.full((250 * n + skew,), p - 1,
+                                    dtype=torch.int64, device=dev)
+                    yf = torch.empty((307 * n + skew,), dtype=torch.int64,
+                                     device=dev)
+                    xb, yb = xf[skew:].view(250, n), yf[skew:].view(307, n)
+                    rec.agree(f"all p-1 p={p} {op.vals.dtype} n={n} "
+                              f"misaligned={skew}",
+                              wo.spmv_wide(fe, op, xb, 307, out=yb),
+                              wo.spmv_wide_plain(op, xb, 307))
         op = wo.make_wide_op(fe, np.arange(999) % 333, np.arange(999) % 71,
                              np.arange(1, 1000), 333, 71).to(dev)
         assert op.spill_nnz == 0
@@ -967,9 +1067,15 @@ def check_spmv_wide(rec, rng, dev, wo, ws):
 
 def check_gram_wide(rec, rng, dev, wo, ws):
     """gram_wide against gram_wide_plain: [v | Av]^T Av at the bench's rows
-    at n = 4 (timed) and all p - 1 there; every prime and n of WIDE_NS at
-    EDGE_ROWS, all p - 1, zero blocks, N = 1 and N = 0."""
+    at n = 4 (timed) and all p - 1 there, at n = 32 (timed); FOLD_ROWS rows
+    (past the tensor-core folds' rows a CTA at n = 32) with all p - 1 at
+    n = 4 and 32; every prime and n of WIDE_NS (both sides of the shift
+    classes' threshold, n = 4 / 8) at EDGE_ROWS, all p - 1, zero blocks,
+    N = 1 and N = 0; and the same with the build that recombines every 64
+    / 128 rows (GRAM_WIDE_SMALL_FOLDS), so that every fold is crossed."""
     import torch
+
+    from block_lanczos_tpu_torch import kernels
     from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 
     f, N = ws.f, ws.np_rows
@@ -982,26 +1088,54 @@ def check_gram_wide(rec, rng, dev, wo, ws):
     full = torch.full((N, 4), f.p - 1, dtype=torch.int64, device=dev)
     rec.agree("bench all p-1 n=4", wo.gram_wide(full, full, f),
               wo.gram_wide_plain(full, full, f.p))
-    for p in WIDE_PRIMES:
-        fe = GFpWide.make(p)
-        for n in WIDE_NS:
-            v = rand_wide(rng, EDGE_ROWS, n, p, dev)
-            av = rand_wide(rng, EDGE_ROWS, n, p, dev)
-            rec.agree(f"p={p} n={n}", wo.gram_wide(v, av, fe),
-                      wo.gram_wide_plain(v, av, p))
-            full = torch.full((EDGE_ROWS, n), p - 1, dtype=torch.int64,
-                              device=dev)
-            rec.agree(f"all p-1 p={p} n={n}", wo.gram_wide(full, full, fe),
-                      wo.gram_wide_plain(full, full, p))
-        for n in (1, 4, 64):
-            for N in (0, 1):
-                v, av = rand_wide(rng, N, n, p, dev), rand_wide(rng, N, n, p,
-                                                                dev)
-                rec.agree(f"N={N} p={p} n={n}", wo.gram_wide(v, av, fe),
+    v32, av32 = (rand_wide(rng, N, 32, f.p, dev) for _ in range(2))
+    rec.agree("bench n=32", wo.gram_wide(v32, av32, f),
+              wo.gram_wide_plain(v32, av32, f.p))
+    ms32 = median_ms(lambda: wo.gram_wide(v32, av32, f))
+    b32 = wide_gram_bound(N, 32)
+    print(f"  gram_wide n=32, p=2^61-1: {ms32:.4f} ms, bound "
+          f"{b32[0]:.6f} ms ({b32[1]})", flush=True)
+    del v32, av32
+    pl = WIDE_PRIMES[-1]
+    fl = GFpWide.make(pl)
+    for n in (4, 32):
+        big = torch.full((FOLD_ROWS, n), pl - 1, dtype=torch.int64,
+                         device=dev)
+        rec.agree(f"all p-1 N={FOLD_ROWS} n={n}", wo.gram_wide(big, big, fl),
+                  wo.gram_wide_plain(big, big, pl))
+        del big
+
+    def cases(tag):
+        for p in WIDE_PRIMES:
+            fe = GFpWide.make(p)
+            for n in WIDE_NS:
+                v = rand_wide(rng, EDGE_ROWS, n, p, dev)
+                av = rand_wide(rng, EDGE_ROWS, n, p, dev)
+                rec.agree(f"{tag}p={p} n={n}", wo.gram_wide(v, av, fe),
                           wo.gram_wide_plain(v, av, p))
-            z = torch.zeros((EDGE_ROWS, n), dtype=torch.int64, device=dev)
-            rec.agree(f"zero p={p} n={n}", wo.gram_wide(z, z, fe),
-                      wo.gram_wide_plain(z, z, p))
+                full = torch.full((EDGE_ROWS, n), p - 1, dtype=torch.int64,
+                                  device=dev)
+                rec.agree(f"{tag}all p-1 p={p} n={n}",
+                          wo.gram_wide(full, full, fe),
+                          wo.gram_wide_plain(full, full, p))
+            for n in (1, 4, 64):
+                for N in (0, 1):
+                    v, av = (rand_wide(rng, N, n, p, dev) for _ in range(2))
+                    rec.agree(f"{tag}N={N} p={p} n={n}",
+                              wo.gram_wide(v, av, fe),
+                              wo.gram_wide_plain(v, av, p))
+                z = torch.zeros((EDGE_ROWS, n), dtype=torch.int64,
+                                device=dev)
+                rec.agree(f"{tag}zero p={p} n={n}", wo.gram_wide(z, z, fe),
+                          wo.gram_wide_plain(z, z, p))
+
+    cases("")
+    with kernels.variant("gram_wide", **GRAM_WIDE_SMALL_FOLDS):
+        cases("small folds ")
+        big = torch.full((FOLD_ROWS, 4), pl - 1, dtype=torch.int64,
+                         device=dev)
+        rec.agree(f"small folds all p-1 N={FOLD_ROWS} n=4",
+                  wo.gram_wide(big, big, fl), wo.gram_wide_plain(big, big, pl))
 
 
 def wide_grams(rng, p, n, kind, device):
@@ -1225,7 +1359,20 @@ def main() -> int:
     prime = gen.BENCH_PRIME
 
     # ---- phase 1: build ---------------------------------------------------
-    print(f"phase 1: kernels built and loaded in {kernels.load_all():.1f} s",
+    # the twelve kernels and, beside them, the two builds phase 2 holds
+    # equal (gram_wide recombining every 64 / 128 rows) or times (the
+    # gather-only spmv_wide): one nvcc a source, all started together
+    from concurrent.futures import ThreadPoolExecutor
+    t0 = time.time()
+    with ThreadPoolExecutor(3) as pool:
+        jobs = [pool.submit(kernels.load_all),
+                pool.submit(kernels.build, ["gram_wide"],
+                            GRAM_WIDE_SMALL_FOLDS),
+                pool.submit(kernels.build, ["spmv_wide"],
+                            {"SPMV_WIDE_GATHER_ONLY": 1})]
+        for job in jobs:
+            job.result()
+    print(f"phase 1: kernels built and loaded in {time.time() - t0:.1f} s",
           flush=True)
 
     recs = {
@@ -1335,7 +1482,7 @@ def main() -> int:
             nb = (8 * op.nnz + 4 * op.in_dim * n + 4 * out_rows * n
                   + 4 * (op.out_dim + 1))
             if n == 32:
-                b32 = bound(nb, 2 * op.nnz * n)
+                b32 = bound(nb, op.nnz * n)
                 print(f"  spmv_ell {name} n=32: "
                       f"{median_ms(lambda: spmm.spmv(op, x, out_rows)):.4f} "
                       f"ms, bound {b32[0]:.6f} ms ({b32[1]})", flush=True)
@@ -1346,10 +1493,10 @@ def main() -> int:
                 ms.append(k_ms)
                 plain.append(p_ms)
                 nbytes.append(nb)
-                nops.append(2 * op.nnz * n)
+                nops.append(op.nnz * n)
                 print(f"  spmv_ell {name} n=4: {k_ms:.4f} ms, plain "
                       f"{p_ms:.4f} ms, bound "
-                      f"{rec.set_bound(nb, 2 * op.nnz * n):.4f} ms "
+                      f"{rec.set_bound(nb, op.nnz * n):.4f} ms "
                       f"({rec.bound_by}), library_ms: none", flush=True)
     # the row is per launch: the mean of the two directions
     rec.ms, rec.plain_ms = statistics.mean(ms), statistics.mean(plain)
@@ -1435,7 +1582,7 @@ def main() -> int:
     # grams read; winv, d, npiv, rhs and the state written; two
     # eliminations of M and W (4 n^3 multiply-adds), the check and the
     # right-hand side (2 n^3)
-    rec.set_bound(4 * (2 * 16 + 16 + 4 + 1 + 4 * 16 + 4), 2 * 6 * 4 ** 3)
+    rec.set_bound(4 * (2 * 16 + 16 + 4 + 1 + 4 * 16 + 4), 6 * 4 ** 3)
     rec.note = ("latency-bound: the 2n pivot steps run one after another in "
                 "one CTA, so neither bytes nor operations bound it; bound_ms "
                 "is their floor all the same (PERF.md gives the chain's)")

@@ -301,8 +301,13 @@ def test_constants_match_the_wide_kernels():
     assert define("semi_inverse_wide.cu", "SIW_MAXN") == wide_ops.MAX_N
     assert define("orthogonalize_wide.cu", "OW_MAX_N") == wide_ops.MAX_N
     src = (kernels.CSRC / "gram_wide.cu").read_text()
-    assert re.search(r"#define GW_SCRATCH \(1 << (\d+)\)", src).group(1) \
-        == "20" and wide_ops._GRAM_SCRATCH == (1 << 20) + 1
+    # the scratch: two 31-bit halves an entry of the largest G, the ticket
+    assert define("gram_wide.cu", "GW_MAX_N") == wide_ops.MAX_N
+    for line in ("#define GW_MAX_OUT (2 * GW_MAX_N * GW_MAX_N)",
+                 "#define GW_HALVES (2 * GW_MAX_OUT)",
+                 "#define GW_SCRATCH (GW_HALVES + 1)"):
+        assert line in src, line
+    assert wide_ops._GRAM_SCRATCH == 2 * 2 * wide_ops.MAX_N ** 2 + 1
     for name in ks.WIDE_KERNELS:
         assert (kernels.CSRC / f"{name}.cu").exists()
         assert kernels.SIGNATURES[name][0] == name

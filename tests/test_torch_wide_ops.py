@@ -76,16 +76,24 @@ def test_spmv_wide_matches_jax(p, n):
     xv[0] = p - 1
     want = unpair(jwo.spmv_wide(jf, jwo.make_wide_hybrid_op(
         jf, i, j, x.astype(object), nrows, ncols), pairs(xv), out_rows=96))
-    op = two.make_wide_op(f, i, j, x, nrows, ncols)
-    assert op.spill_nnz > 0 and op.vals.dtype == torch.int64
-    got = two.spmv_wide(f, op, torch.from_numpy(xv), out_rows=96)
-    assert got.dtype == torch.int64 and got.shape == (96, n)
-    np.testing.assert_array_equal(got.numpy(), want)
-    assert not got[nrows:].any()
-    # the oracle agrees too
     oracle = jwo.spmv_wide_oracle(p, nrows, i, j, x.astype(object),
                                   xv.astype(object))
-    np.testing.assert_array_equal(got.numpy()[:nrows], oracle.astype(np.int64))
+    # full-range values: every signed representative fits 31 bits only
+    # below 2^32, so the default slab is narrow there; the u64 slab always
+    fits = p < 1 << 32
+    assert two.narrow_fits(p, x) == fits
+    chosen = two.make_wide_op(f, i, j, x, nrows, ncols)
+    assert chosen.vals.dtype == (torch.int32 if fits else torch.int64)
+    for op in (chosen, two.u64_slab(chosen)):
+        assert op.spill_nnz > 0
+        assert op.sp_vals.dtype == op.vals.dtype
+        got = two.spmv_wide(f, op, torch.from_numpy(xv), out_rows=96)
+        assert got.dtype == torch.int64 and got.shape == (96, n)
+        np.testing.assert_array_equal(got.numpy(), want)
+        assert not got[nrows:].any()
+        # the oracle agrees too
+        np.testing.assert_array_equal(got.numpy()[:nrows],
+                                      oracle.astype(np.int64))
 
 
 def test_spmv_wide_on_a_layout_from_jax():
