@@ -16,7 +16,7 @@
 //   r2   = 2^128 mod p        R^2, to leave the Montgomery scale.
 // Each step has a NumPy mirror in ops/gfp_wide.py that the CPU tests hold
 // against Python ints (mul128_np, fold_np, redc_np, reduce128_np,
-// lazy_dot_wide, inv_mont_np).
+// lazy_dot_wide, almost_inverse_np, mont_inverse_np).
 #pragma once
 
 #include "modp.cuh"
@@ -106,17 +106,68 @@ __device__ __forceinline__ u64 addmod64(u64 a, u64 b, u64 p) {
   return s >= p ? s - p : s;
 }
 
-// The Montgomery form of a^-1 from that of a (a != 0): a~^(p - 2) by
-// right-to-left square-and-multiply on Montgomery products (a Montgomery
-// product of forms is the form of the product), from one~ = 2^64 mod p.
-// About 62 squarings and as many products for a 62-bit p, two chains side
-// by side.
-__device__ __forceinline__ u64 inv_mont(u64 am, const WideField& f) {
-  u64 r = mont_mul(1, f.r2, f);  // 2^64 mod p
-  u64 base = am;
-  for (u64 e = f.p - 2; e; e >>= 1) {
-    if (e & 1) r = mont_mul(r, base, f);
-    base = mont_mul(base, base, f);
-  }
-  return r;
+// The inverse: Kaliski's almost inverse, a binary extended GCD ("The
+// Montgomery inverse and its applications", IEEE Trans. Computers 44(8),
+// 1995, phase I).  From u = p, v = a (0 < a < p, p odd) and r = 0, s = 1
+// each of its bit steps removes one bit from u or v:
+//   u even:           u = u / 2,        s = 2 s
+//   v even:           v = v / 2,        r = 2 r
+//   both odd, u > v:  u = (u - v) / 2,  r = r + s,  s = 2 s
+//   both odd, u <= v: v = (v - u) / 2,  s = s + r,  r = 2 r
+// keeping p = u s + v r, until v = 0 (then u = gcd = 1); with k bit steps,
+// p - (r mod p) = a^-1 2^k mod p and m <= k <= 2m for m = bitlen(p).
+// Here one step takes a subtraction and every halving after it at once:
+// with u and v odd, d = |u - v| is even, and t = ctz(d) halvings of it
+// (t = 1 for d = 0, the last step) are the t bit steps "both odd", then
+// t - 1 times "u even" (or "v even"): the larger of u, v becomes d / 2^t,
+// r (or s) takes r + s and s (or r) is shifted by t, and k grows by t.  So
+// a step is one dependent subtract, count-trailing-zeros and shift (~44 of
+// them for a 61-bit p: a halving run is 2 bits long on average), where the
+// bit steps take ~88.  Bounds: while v > 0, u s + v r = p with u, v >= 1
+// keeps r, s <= p at every bit step; the last one (u = v = 1) leaves
+// r <= 2p < 2^63, so u64 holds them.  Branch-free but for the loop.
+// ops/gfp_wide.py::almost_inverse_np mirrors it bit step by bit step and
+// counts both.
+__device__ __forceinline__ u64 almost_inverse(u64 a, u64 p, int& k,
+                                              int& steps) {
+  int t = __ffsll(static_cast<long long>(a)) - 1;  // a's halvings: r = 0
+  u64 u = p, v = a >> t, r = 0, s = 1;
+  k = t;
+  steps = 0;
+  do {
+    const bool gt = u > v;
+    const u64 d = gt ? u - v : v - u;
+    t = d ? __ffsll(static_cast<long long>(d)) - 1 : 1;
+    const u64 h = d >> t, rs = r + s;
+    r = gt ? rs : r << t;
+    s = gt ? s << t : rs;
+    u = gt ? h : u;
+    v = gt ? v : h;
+    k += t;
+    ++steps;
+  } while (v != 0);
+  if (r >= p) r -= p;
+  return p - r;
+}
+
+// The Montgomery form of a^-1 from that of a (a != 0): a = REDC(a~), then
+// x = a^-1 2^k (almost_inverse, m <= k <= 2m), then x 2^(64 - k):
+//   * k <= 64: x 2^(64 - k) < 2^m 2^(64 - m) fits a word; one Barrett
+//     reduction;
+//   * k > 64: x 2^-t with t = k - 64 <= 60, a REDC by 2^t: c = x pinv mod
+//     2^t makes x + c p a multiple of 2^t, and (x + c p) / 2^t < p / 2^t +
+//     p < 2p takes one conditional subtract.
+// The dependent chain is the steps (~44 on average for a 61-bit p);
+// `steps` returns their count.  ops/gfp_wide.py::mont_inverse_np mirrors
+// it.
+__device__ __forceinline__ u64 mont_inverse(u64 am, const WideField& f,
+                                            int& steps) {
+  int k;
+  const u64 x = almost_inverse(redc(0, am, f), f.p, k, steps);
+  if (k <= 64) return barrett_reduce(x << (64 - k), f.p, f.mu);
+  const int t = k - 64;
+  U128 T = {x, 0};
+  mac128(T, (x * f.pinv) & ((1ull << t) - 1), f.p);
+  const u64 y = (T.lo >> t) | (T.hi << (64 - t));
+  return y >= f.p ? y - f.p : y;
 }

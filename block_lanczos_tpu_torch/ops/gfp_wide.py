@@ -22,9 +22,12 @@ Three layers:
     them into 31-bit halves;
   * NumPy mirrors of the kernels' reduction steps (the 64 x 64 -> 128-bit
     product, the lazy 128-bit sums and their Barrett fold of the high word,
-    REDC, the exact 128-bit reduction, the Montgomery Fermat inverse), step
-    for step, with the bounds that csrc/modp64.cuh proves asserted, so that
-    the CPU tests hold them against Python ints.
+    REDC, the exact 128-bit reduction, Kaliski's binary inverse), of
+    gram_wide's and orthogonalize_wide's u8-limb tensor-core sums, of
+    orthogonalize_wide's Montgomery row path, of spmv_wide's narrow slab and
+    of semi_inverse_wide's row-scaled elimination, step for step, with the
+    bounds that the CUDA sources prove asserted, so that the CPU tests hold
+    them against Python ints and the JAX package.
 """
 
 from __future__ import annotations
@@ -246,19 +249,116 @@ def to_mont_np(f: GFpWide, a) -> np.ndarray:
     return mont_mul_np(f, a, np.full_like(a, f.r2))
 
 
-def inv_mont_np(f: GFpWide, am) -> np.ndarray:
-    """The Montgomery form of a^-1 from that of a (a != 0), as inv_mont
-    computes it: a~^(p - 2) by right-to-left square-and-multiply on
-    Montgomery products, starting from 2^64 mod p (the form of 1)."""
-    base = np.asarray(am, _U64).copy()
-    r = to_mont_np(f, np.ones_like(base))
-    e = f.p - 2
-    while e:
-        if e & 1:
-            r = mont_mul_np(f, r, base)
-        base = mont_mul_np(f, base, base)
-        e >>= 1
-    return r
+def reduce_mont_np(f: GFpWide, hi, lo) -> np.ndarray:
+    """T 2^-64 mod p for any 128-bit T = hi 2^64 + lo, as reduce_mont
+    computes it: fold the high word below p, then REDC."""
+    return redc_np(f, fold_np(f, hi), lo)
+
+
+def almost_inverse_np(p: int, a: int) -> tuple:
+    """(a^-1 2^k mod p, k, steps) for 0 < a < p, as
+    modp64.cuh::almost_inverse computes it: Kaliski's bit steps from u = p,
+    v = a, r = 0, s = 1 until v = 0, one bit of u or v each (k of them);
+    `steps` counts the kernel's steps, one a subtraction (with the halvings
+    after it).  Asserts u s + v r = p, r and s below 2^63 (at most p while
+    v > 0, 2p after the last bit step) and m <= k <= 2m for m =
+    bitlen(p)."""
+    assert 0 < a < p and p % 2
+    u, v, r, s, k, steps = p, a, 0, 1, 0, 0
+    while v:
+        if u % 2 == 0:
+            u, s = u >> 1, s << 1
+        elif v % 2 == 0:
+            v, r = v >> 1, r << 1
+        elif u > v:
+            u, r, s, steps = (u - v) >> 1, r + s, s << 1, steps + 1
+        else:
+            v, s, r, steps = (v - u) >> 1, s + r, r << 1, steps + 1
+        k += 1
+        assert u * s + v * r == p and max(r, s) <= (2 * p if v == 0 else p)
+    assert u == 1 and r < 1 << 63
+    m = p.bit_length()
+    assert m <= k <= 2 * m
+    return p - (r - p if r >= p else r), k, steps
+
+
+def mont_inverse_np(f: GFpWide, am: int) -> tuple:
+    """(the Montgomery form of a^-1, steps) from that of a != 0, as
+    modp64.cuh::mont_inverse computes it: a = REDC(a~), the almost inverse
+    x = a^-1 2^k, then x 2^(64 - k): one Barrett reduction of x << (64 - k)
+    for k <= 64, else a REDC by 2^(k - 64)."""
+    a = int(redc_np(f, np.uint64(0), np.uint64(am)))
+    x, k, steps = almost_inverse_np(f.p, a)
+    if k <= 64:
+        assert x << (64 - k) < _R
+        return int(barrett_reduce_np(np.uint64(x << (64 - k)), f.p)), steps
+    t = k - 64
+    c = (x * f.pinv) & ((1 << t) - 1)
+    T = x + c * f.p
+    assert T % (1 << t) == 0 and T < 1 << 128
+    y = T >> t
+    assert y < 2 * f.p
+    return (y - f.p if y >= f.p else y), steps
+
+
+def semi_inverse_mont_np(p: int, U) -> tuple:
+    """semi_inverse_wide's elimination with the modp64.cuh mirrors on
+    Python ints: M and W in Montgomery form, logical rows through perm, no
+    row normalised (R_q <- a R_q - M[q, j] R_P as one REDC of a two-product
+    128-bit sum), the pivots' product pref, one mont_inverse, the row scales
+    undone at the end.  Returns (winv, d, npiv, steps): steps is the
+    inverse's count of almost-inverse steps (subtractions), the length of
+    its dependent chain."""
+    f = GFpWide.make(p)
+    n = U.shape[0]
+    mont = lambda x: int(to_mont_np(f, np.uint64(x)))  # noqa: E731
+    mm = lambda a, b: int(mont_mul_np(f, np.uint64(a),  # noqa: E731
+                                      np.uint64(b)))
+
+    def redc2(a, m, nb, mp):
+        t = a * m + nb * mp
+        assert t < p << 64
+        return int(redc_np(f, np.uint64(t >> 64), np.uint64(t & (_R - 1))))
+
+    def eliminate(M, W):
+        perm, d, pref = list(range(n)), [0] * n, [mont(1)]
+        for j in range(n):
+            piv = next((i for i in range(j, n) if M[perm[i]][j]), None)
+            if piv is None:
+                d[j] = 0
+                pref.append(pref[-1])
+                continue
+            d[j] = 1
+            P = perm[piv]
+            a = M[P][j]
+            perm[j], perm[piv] = P, perm[j]
+            for r in range(n):
+                if r == P:
+                    continue
+                nb = p - M[r][j]
+                for c in range(j + 1, n):
+                    M[r][c] = redc2(a, M[r][c], nb, M[P][c])
+                if W is not None:
+                    for c in range(n):
+                        W[r][c] = redc2(a, W[r][c], nb, W[P][c])
+            pref.append(mm(pref[-1], a))
+        return perm, d, pref
+
+    M = [[mont(x) for x in row] for row in U]
+    _, d1, _ = eliminate(M, None)
+    M = [[mont(U[i, c]) if d1[i] and d1[c] else 0 for c in range(n)]
+         for i in range(n)]
+    W = [[mont(1) if i == c and d1[c] else 0 for c in range(n)]
+         for i in range(n)]
+    perm, d, pref = eliminate(M, W)
+    # pref[j] is the product of the pivots before step j (non-pivot steps
+    # repeat it), pref[n] all of them
+    inv_a, steps = mont_inverse_np(f, pref[n])
+    sig = [mm(pref[i], inv_a) if d[i] else inv_a for i in range(n)]
+    winv = np.array([[int(redc_np(f, np.uint64(0), np.uint64(
+        mm(W[perm[i]][c], sig[i])))) for c in range(n)] for i in range(n)],
+        dtype=object)
+    return winv, np.array(d, np.uint32), sum(d), steps
 
 
 # ---------------------------------------------------------------------------
@@ -359,6 +459,105 @@ def gram_wide_tc_np(f: GFpWide, v, av, folded: bool | None = None,
     out = np.vectorize(lambda a: int(reduce128_np(
         f, np.uint64(a >> 64), np.uint64(a & (_R - 1)))))(t)
     return np.asarray(out, np.int64).reshape(2 * n, n)
+
+
+# ---------------------------------------------------------------------------
+# Mirrors of orthogonalize_wide's two paths (csrc/orthogonalize_wide.cu)
+# ---------------------------------------------------------------------------
+
+OW_LIMBS = 8                     # u8 limbs of a residue
+OW_CLASSES = 2 * OW_LIMBS - 1    # shift classes s + t
+OW_ROW_MAX_N = 8                 # n up to which the row path can run
+OW_MMA_MIN_N = 5                 # n from which the tensor cores run
+OW_MAX_N = 64
+
+
+def _ortho_bases(v, pb, av, d) -> np.ndarray:
+    """(N, 2n) bases where(d, Av, v) | where(d, 0, p), Python ints."""
+    dm = np.asarray(d).astype(bool)[None, :]
+    v, pb, av = (np.asarray(a).astype(object) for a in (v, pb, av))
+    return np.concatenate([np.where(dm, av, v), np.where(dm, 0, pb)], 1)
+
+
+def ortho_row_np(f: GFpWide, v, pb, av, rhs, d) -> tuple:
+    """(v', p') as the row path computes them, with Python ints: rhs~ =
+    rhs 2^64 mod p; each output a 128-bit sum that starts at base 2^64 and
+    takes raw products x[k] rhs~[k, c] (the zero block skipped), folded
+    after every WIDE_FOLD of them but the last, then reduce_mont.  Asserts
+    that the sum stays below 2^128."""
+    v, pb, av = (np.asarray(a, _U64) for a in (v, pb, av))
+    N, n = v.shape
+    X = np.concatenate([v, pb], 1).astype(object)
+    R = to_mont_np(f, np.asarray(rhs, _U64)).astype(object)
+    base = _ortho_bases(v, pb, av, d)
+    out = np.zeros((N, 2 * n), object)
+    for r in range(N):
+        for c in range(2 * n):
+            acc = int(base[r, c]) << 64
+            for k in range(2 * n):
+                if c < n or k < n:
+                    acc += int(X[r, k]) * int(R[k, c])
+                assert acc < 1 << 128, "a row-path sum left 128 bits"
+                if k % WIDE_FOLD == WIDE_FOLD - 1 and k + 1 < 2 * n:
+                    acc = (int(fold_np(f, np.uint64(acc >> 64))) << 64) \
+                        | (acc & (_R - 1))
+            out[r, c] = int(reduce_mont_np(f, np.uint64(acc >> 64),
+                                           np.uint64(acc & (_R - 1))))
+    out = out.astype(np.int64)
+    return out[:, :n], out[:, n:]
+
+
+def ortho_class_sums_np(v, pb, rhs) -> np.ndarray:
+    """(15, N, 2n) s32 sums of the tensor-core path: [q, r, c] = sum over k
+    and the limb pairs (s, t) with s + t = q of x_s[r, k] rhs_t[k, c],
+    rhs's zero block (rows and columns >= n) zero.  Asserts the bounds of
+    the kernel's header: each below 2^31, the 15 together below 2^29."""
+    v, pb = np.asarray(v, _U64), np.asarray(pb, _U64)
+    n = v.shape[1]
+    rhs = np.array(rhs, _U64)
+    rhs[n:, n:] = 0
+    X = limbs_np(np.concatenate([v, pb], 1))       # (N, 2n, 8)
+    B = limbs_np(rhs)                              # (2n, 2n, 8)
+    P = np.einsum("rks,kct->strc", X, B)           # (8, 8, N, 2n)
+    S = np.zeros((OW_CLASSES,) + P.shape[2:], np.int64)
+    for s_ in range(OW_LIMBS):
+        for t in range(OW_LIMBS):
+            S[s_ + t] += P[s_, t]
+    assert (S >= 0).all() and (S < _S32).all(), "a class sum overflows s32"
+    assert (S.sum(0) < 1 << 29).all(), "the classes' total past 2^29"
+    return S
+
+
+def ortho_weights_np(f: GFpWide) -> list:
+    """w_q = 2^(8q) 2^64 mod p, as the kernel forms them: reduce128 of
+    2^(8q + 64) for q < 8, times 2^64 once more (a Montgomery product with
+    2^128 mod p) above."""
+    w = []
+    for q in range(OW_CLASSES):
+        s_ = q if q < OW_LIMBS else q - OW_LIMBS
+        x = int(reduce128_np(f, np.uint64(1 << 8 * s_), np.uint64(0)))
+        w.append(x if q < OW_LIMBS else int(mont_mul_np(
+            f, np.uint64(x), np.uint64(f.r2))))
+    return w
+
+
+def ortho_wide_tc_np(f: GFpWide, v, pb, av, rhs, d) -> tuple:
+    """(v', p') as the tensor-core path computes them, with Python ints:
+    the class sums S_q, L = sum S_q lo32(w_q) < 2^61 and H = sum S_q
+    hi32(w_q) < 2^59 (u64 sums), T = base 2^64 + H 2^32 + L < 2^127, one
+    reduce_mont.  Every bound asserted."""
+    n = np.asarray(v).shape[1]
+    S = ortho_class_sums_np(v, pb, rhs).astype(object)
+    w = ortho_weights_np(f)
+    L = sum(S[q] * (w[q] & 0xFFFFFFFF) for q in range(OW_CLASSES))
+    H = sum(S[q] * (w[q] >> 32) for q in range(OW_CLASSES))
+    assert (L < 1 << 61).all() and (H < 1 << 59).all()
+    T = (_ortho_bases(v, pb, av, d) << 64) + (H << 32) + L
+    assert (T < 1 << 127).all()
+    out = np.vectorize(lambda t: int(reduce_mont_np(
+        f, np.uint64(t >> 64), np.uint64(t & (_R - 1)))))(T)
+    out = np.asarray(out, np.int64).reshape(T.shape)
+    return out[:, :n], out[:, n:]
 
 
 # ---------------------------------------------------------------------------

@@ -60,14 +60,19 @@ variant's outputs are first held equal to the default build's:
     folds), and the folded kernel's GW_TIMELINE at n in GW_TIMELINE_NS
     (where its time goes: the start spread, the row loop, the flush, the
     scratch adds, the finish; cycles a chunk, the share waiting);
-    orthogonalize_wide at n in WIDE_NS as built (a thread a row up to
-    OW_ROW_MAX_N = 8) and with the tile path at every n (OW_ROW_MAX_N =
-    0); semi_inverse_wide as built on full-rank Grams at n in WIDE_NS,
-    and its timeline with SIW_TIMELINE at n in SIW_TIMELINE_NS: thread 0's
-    clock64() cycles of each phase, of a pivot step in each phase, and of
-    the Fermat inverse, with its cycles a bit of the exponent p - 2 (a
-    squaring on the dependent chain and, on a set bit, a product beside
-    it).
+    orthogonalize_wide at n in WIDE_NS as built and as the builds of
+    WIDE_ORTHO_VARIANTS: the tensor cores from n = 1 and the row path up
+    to n = 8 (the threshold OW_MMA_MIN_N), the tensor-core CTAs' warps;
+    semi_inverse_wide on full-rank Grams at n in WIDE_NS, as built and as
+    the builds of WIDE_SI_VARIANTS (the shared-memory elimination at
+    n <= 4), the timelines of the default build and of the
+    shared-memory elimination with SIW_TIMELINE at n in SIW_TIMELINE_NS
+    (thread 0's clock64() cycles of each phase, of a pivot step in each
+    phase and of the parts of phase 1's first steps: search, swap, update,
+    barrier; the inverse's cycles and steps), and the inverse's step
+    microbenchmark (SIW_STEP_BENCH: one thread, almost_inverse on
+    STEP_BENCH_RESIDUES random residues, cycles a dependent step; its step
+    count held to the NumPy mirror's).
 Each variant is an nvcc build of its own into build/kernels/ (all started
 together); the solver never runs them.  Needs a CUDA device and nvcc;
 prints one JSON line last.
@@ -107,7 +112,7 @@ KERNELS = ("spmv_ell", "semi_inverse", "gram_mod", "orthogonalize",
            "spmv_wide", "gram_wide", "semi_inverse_wide",
            "orthogonalize_wide")
 WIDE_KERNELS = KERNELS[8:]
-# the wide field (orthogonalize_wide's tile path at every n below)
+# the wide field
 # spmv_wide: the gather-only build (the same loads, the products XORed:
 # the L2-sector floor), the vector width a thread takes (VW = 4 / 2 / 1:
 # 1 / 2 / 4 threads a row at n = 4), chunk and CTA sizes, no register cap
@@ -132,18 +137,32 @@ GW_T = ("first", "last_start", "loop", "flush", "halves", "end",
 # builds that time a part of a kernel and compute something else: their
 # outputs are not held to the default's
 TIMING_ONLY = ("SPMV_WIDE_GATHER_ONLY",)
-WIDE_NS = (1, 2, 4, 8, 16, 32, 64)
-WIDE_ORTHO_VARIANTS = ({"OW_ROW_MAX_N": 0},)
-SIW_TIMELINE_NS = (1, 4, 16, 64)
+WIDE_NS = (1, 2, 3, 4, 8, 16, 32, 64)
+# orthogonalize_wide: the tensor cores at every n (OW_MMA_MIN_N = 1) and
+# the row path up to its largest n (= 9), beside the default threshold;
+# 4-warp CTAs
+WIDE_ORTHO_VARIANTS = (
+    {"OW_MMA_MIN_N": 1}, {"OW_MMA_MIN_N": 9}, {"OW_MMA_WARPS": 4})
+# semi_inverse_wide: the shared-memory elimination at n <= 4
+# (SIW_REG_MAX_N = 0); the timelines of the default and of the
+# shared-memory elimination; the inverse's step microbenchmark on this
+# many residues
+WIDE_SI_VARIANTS = ({"SIW_REG_MAX_N": 0},)
+SIW_TIMELINES = ({"SIW_TIMELINE": 1}, {"SIW_TIMELINE": 1, "SIW_REG_MAX_N": 0})
+SIW_STEP_BENCH = {"SIW_STEP_BENCH": 1}
+STEP_BENCH_RESIDUES = 512
+SIW_TIMELINE_NS = (1, 4, 16, 32, 64)
 # csrc/semi_inverse_wide.cu's SIW_TIMELINE slots
 (TW_START, TW_LOADED, TW_PHASE1, TW_P2INIT, TW_PHASE2, TW_SIG, TW_WINV,
  TW_CHECK, TW_END, TW_NS_START, TW_NS_END, TW_INV_START,
- TW_INV_END) = range(13)
-TW_STEP1, TW_MAXN = 16, 64
+ TW_INV_END, TW_INV_STEPS) = range(14)
+TW_STEP1, TW_MAXN, TW_NSUB = 16, 64, 3
 TW_STEP2 = TW_STEP1 + TW_MAXN
-TW_SLOTS = TW_STEP2 + TW_MAXN
+TW_SUB = TW_STEP2 + TW_MAXN
+TW_SLOTS = TW_SUB + 4 * TW_NSUB
 PHASES_W = ("loaded", "phase1", "p2init", "phase2", "inverse_sig", "winv",
             "check", "rhs_end")
+PARTS_W = ("search", "swap", "update", "barrier")
 # GF(2): spmv_gf2's column bands and (SPMV_GF2_CHUNK, SPMV_GF2_THREADS)
 # shapes; gram_gf2 at every width class and with GG_STAGES beside the
 # default 2
@@ -687,7 +706,8 @@ def _variants(names) -> list:
     if "orthogonalize_wide" in names:
         out += [("orthogonalize_wide", d) for d in WIDE_ORTHO_VARIANTS]
     if "semi_inverse_wide" in names:
-        out += [("semi_inverse_wide", {"SIW_TIMELINE": 1})]
+        out += [("semi_inverse_wide", d) for d in
+                (*WIDE_SI_VARIANTS, *SIW_TIMELINES, SIW_STEP_BENCH)]
     return out
 
 
@@ -721,16 +741,16 @@ def wide_sweeps(names, rng, dev) -> dict:
         return torch.from_numpy(rng.integers(0, 1 << 62, (rows, n),
                                              dtype=np.int64) % p).to(dev)
 
-    def variants(name, fns, kernel):
-        """{build: {case: ms}} for the default build and each variant of
-        `name`, fns = {case: (call, want)}, each printed as it is measured.
-        A variant whose output differs is recorded and not timed; the
-        sweep raises once every build has run."""
+    def variants(name, fns, kernel, builds):
+        """{build: {case: ms}} for the default build and each of `builds`
+        (defines) of `name`, fns = {case: (call, want)}, each printed as it
+        is measured.  A variant whose output differs is recorded and not
+        timed; the sweep raises once every build has run."""
         out = {"default": {k: device_ms(fn, kernel)
                            for k, (fn, _) in fns.items()}}
         print(f"  {name} default: " + ", ".join(
             f"{k} {ms:.4f}" for k, ms in out["default"].items()), flush=True)
-        for _, d in (v for v in _variants([name]) if v[0] == name):
+        for d in builds:
             with kernels.variant(name, **d):
                 try:
                     for k, (fn, want) in fns.items():
@@ -762,7 +782,8 @@ def wide_sweeps(names, rng, dev) -> dict:
                 call = (lambda o=o, xv=xv, out_rows=out_rows:
                         wo.spmv_wide(f, o, xv, out_rows))
                 fns[f"{d} n=4 {slab}"] = (call, call())
-        res["spmv_wide"] = variants("spmv_wide", fns, "spmv_wide_kernel")
+        res["spmv_wide"] = variants("spmv_wide", fns, "spmv_wide_kernel",
+                                    WIDE_SPMV_VARIANTS)
         # spmv_ell on the same entries at the narrow bench prime: the same
         # sectors of x gathered at n = 4 (16-byte rows), the same row bytes
         # at n = 8
@@ -790,7 +811,8 @@ def wide_sweeps(names, rng, dev) -> dict:
             call = lambda v=v, av=av: wo.gram_wide(v, av, f)  # noqa: E731
             fns[f"n={n}"] = (call, call().clone())
         # gram_wide_folded_kernel or gram_wide_class_kernel
-        res["gram_wide"] = variants("gram_wide", fns, "gram_wide_")
+        res["gram_wide"] = variants("gram_wide", fns, "gram_wide_",
+                                    WIDE_GRAM_VARIANTS)
         timeline = {}
         with kernels.variant("gram_wide", GW_TIMELINE=1) as lib:
             lib.gram_wide_stamps.argtypes = [ctypes.c_void_p]
@@ -824,40 +846,74 @@ def wide_sweeps(names, rng, dev) -> dict:
                 LW.orthogonalize_wide(vk, pk, av, rhs, d, f, new_state(dev))
                 return torch.cat([vk, pk], 1)
             fns[f"n={n}"] = (call, call())
-        res["orthogonalize_wide"] = variants("orthogonalize_wide", fns,
-                                             "orthogonalize_wide")
+        # orthogonalize_wide_row_kernel or orthogonalize_wide_mma_kernel
+        res["orthogonalize_wide"] = variants(
+            "orthogonalize_wide", fns, "orthogonalize_wide_",
+            WIDE_ORTHO_VARIANTS)
     if "semi_inverse_wide" in names:
-        by_n, grams, want = {}, {}, {}
-
-        def run(n):
-            st = new_state(dev)
-            return [*(t.clone() for t in
-                      wo.semi_inverse_wide(grams[n], f, st)), st]
-
+        fns, grams = {}, {}
         for n in WIDE_NS:
             B = rng.integers(0, 1 << 62, (n, n + 2)).astype(object) % p
             U = torch.from_numpy(((B @ B.T) % p).astype(np.int64)).to(dev)
-            grams[n] = torch.cat([U, U])
-            want[n] = run(n)
-            st = new_state(dev)
-            by_n[f"n={n}"] = device_ms(
-                lambda: wo.semi_inverse_wide(grams[n], f, st),
-                "semi_inverse_wide_kernel")
-        timeline = {}
-        with kernels.variant("semi_inverse_wide", SIW_TIMELINE=1) as lib:
-            lib.semi_inverse_wide_stamps.argtypes = [ctypes.c_void_p]
-            lib.semi_inverse_wide_stamps.restype = ctypes.c_int
-            for n in SIW_TIMELINE_NS:
-                _equal(f"semi_inverse_wide timeline n={n}", run(n), want[n])
-                torch.cuda.synchronize()
-                st = (ctypes.c_longlong * TW_SLOTS)()
-                if lib.semi_inverse_wide_stamps(ctypes.addressof(st)) != 0:
-                    raise RuntimeError("semi_inverse_wide_stamps failed")
-                timeline[f"n={n}"] = _timeline_wide(list(st), n, p)
-        res["semi_inverse_wide"] = {"default": by_n, "timeline": timeline}
+            grams[n] = g = torch.cat([U, U])
+
+            def call(g=g):
+                st = new_state(dev)
+                out = wo.semi_inverse_wide(g, f, st)
+                return torch.cat([t.flatten().long() for t in (*out, st)])
+            fns[f"n={n}"] = (call, call())
+        res["semi_inverse_wide"] = variants(
+            "semi_inverse_wide", fns, "semi_inverse_wide_kernel",
+            WIDE_SI_VARIANTS)
+        for d in SIW_TIMELINES:
+            timeline = {}
+            with kernels.variant("semi_inverse_wide", **d) as lib:
+                lib.semi_inverse_wide_stamps.argtypes = [ctypes.c_void_p]
+                lib.semi_inverse_wide_stamps.restype = ctypes.c_int
+                for n in SIW_TIMELINE_NS:
+                    call, want = fns[f"n={n}"]
+                    _equal(f"semi_inverse_wide {_key(d)} n={n}", [call()],
+                           [want])
+                    torch.cuda.synchronize()
+                    st = (ctypes.c_longlong * TW_SLOTS)()
+                    if lib.semi_inverse_wide_stamps(ctypes.addressof(st)):
+                        raise RuntimeError("semi_inverse_wide_stamps failed")
+                    timeline[f"n={n}"] = _timeline_wide(list(st), n)
+            res["semi_inverse_wide"][f"timeline {_key(d)}"] = timeline
+        res["semi_inverse_wide"]["step_bench"] = siw_step_bench(
+            kernels, rng, p, dev)
     if failed:
         raise AssertionError("; ".join(failed))
     return res
+
+
+def siw_step_bench(kernels, rng, p, dev) -> dict:
+    """The inverse's dependent step, apart from the kernel: one thread runs
+    almost_inverse on STEP_BENCH_RESIDUES random residues (the
+    SIW_STEP_BENCH build); cycles a step, the steps held to the mirror's."""
+    import torch
+
+    from block_lanczos_tpu_torch.ops.gfp_wide import almost_inverse_np
+    a = rng.integers(1, p, STEP_BENCH_RESIDUES, dtype=np.int64)
+    steps_np = sum(almost_inverse_np(p, int(x))[2] for x in a)
+    at = torch.from_numpy(a).to(dev)
+    out = torch.zeros(3, dtype=torch.int64, device=dev)
+    with kernels.variant("semi_inverse_wide", **SIW_STEP_BENCH) as lib:
+        fn = lib.semi_inverse_wide_step_bench
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong,
+                       ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        fn(at.data_ptr(), len(a), p, out.data_ptr())   # warm-up
+        torch.cuda.synchronize()
+        if fn(at.data_ptr(), len(a), p, out.data_ptr()) != 0:
+            raise RuntimeError("semi_inverse_wide_step_bench failed")
+        torch.cuda.synchronize()
+    cycles, steps, _ = out.tolist()
+    if steps != steps_np:
+        raise AssertionError(f"step bench: {steps} steps on the card, "
+                             f"{steps_np} in the mirror")
+    return {"residues": len(a), "steps": steps, "cycles": cycles,
+            "cycles_per_step": cycles / steps}
 
 
 def _timeline_gram(st) -> dict:
@@ -874,24 +930,27 @@ def _timeline_gram(st) -> dict:
     return out
 
 
-def _timeline_wide(st, n, p) -> dict:
-    """semi_inverse_wide's SIW_TIMELINE stamps: cycles by phase, the mean
-    cycles of a pivot step in each phase, the Fermat inverse's cycles and
-    its cycles a bit of the exponent p - 2 (inv_mont's loop runs once a
-    bit: a squaring, and on a set bit a product beside it)."""
+def _timeline_wide(st, n) -> dict:
+    """semi_inverse_wide's SIW_TIMELINE stamps: cycles by phase (phase 2's
+    span is ~0 where phase 1 found every pivot), the mean cycles of a
+    phase-1 pivot step and the parts of its first steps (search, swap,
+    update, barrier), the inverse's cycles, its steps and its cycles a
+    step."""
     cycles = st[TW_END] - st[TW_START]
     ghz = cycles / max(st[TW_NS_END] - st[TW_NS_START], 1)
     marks = [st[TW_START + 1 + k] for k in range(len(PHASES_W))]
     phases = dict(zip(PHASES_W, np.diff([st[TW_START], *marks]).tolist()))
-    steps = {}
-    for name, first, end in (("phase1", TW_STEP1, TW_PHASE1),
-                             ("phase2", TW_STEP2, TW_PHASE2)):
-        starts = [st[first + j] for j in range(n)] + [st[end]]
-        steps[name] = statistics.mean(np.diff(starts).tolist())
+    starts = [st[TW_STEP1 + j] for j in range(n)] + [st[TW_PHASE1]]
+    parts = []
+    for j in range(min(n, TW_NSUB)):
+        at = [st[TW_STEP1 + j], *(st[TW_SUB + 4 * j + k] for k in range(4))]
+        parts.append(dict(zip(PARTS_W, np.diff(at).tolist())))
     inverse = st[TW_INV_END] - st[TW_INV_START]
     return {"ghz": ghz, "cycles": cycles, "phases": phases,
-            "cycles_per_step": steps, "inverse_cycles": inverse,
-            "cycles_per_bit": inverse / (p - 2).bit_length()}
+            "cycles_per_step": statistics.mean(np.diff(starts).tolist()),
+            "step_parts": parts, "inverse_cycles": inverse,
+            "inverse_steps": st[TW_INV_STEPS],
+            "cycles_per_inverse_step": inverse / max(st[TW_INV_STEPS], 1)}
 
 
 def _print_dense(name, res) -> None:
@@ -970,10 +1029,14 @@ def main(argv=None) -> int:
         res.update(wide)
         for name, builds in wide.items():
             for build, by_case in builds.items():
-                if build == "timeline":
+                if build.startswith("timeline"):
                     for k, t in by_case.items():
-                        print(f"  {name} timeline {k}: {json.dumps(t)}",
+                        print(f"  {name} {build} {k}: {json.dumps(t)}",
                               flush=True)
+                    continue
+                if build == "step_bench":
+                    print(f"  {name} step_bench: {json.dumps(by_case)}",
+                          flush=True)
                     continue
                 print(f"  {name} {build}: " + ", ".join(
                     f"{k} {ms:.4f}" for k, ms in by_case.items()),

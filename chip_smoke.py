@@ -61,11 +61,16 @@ failure:
      at n = 4 and 32, both sides of the shift classes' threshold (n = 4 /
      8), N = 0 and 1, zero blocks, and again with recombinations every 64 /
      128 rows; semi_inverse_wide on the bench's
-     Grams (timed), full-rank, rank-deficient and zero Grams, one whose
-     phase-2 pivots differ from phase 1's (d != d1), a failing check, the
-     check off, a frozen state; orthogonalize_wide at the bench's rows
-     (timed) and with d all 0, all 1 and mixed under running, stopped,
-     failed and frozen states, all p - 1, N = 1, misaligned views;
+     Grams (timed at n = 4 and 32), full-rank, rank-deficient and zero
+     Grams on either side of the one-warp register elimination (n <= 4),
+     one whose phase-2 pivots differ from phase 1's (d != d1), a failing
+     check, the check off, a frozen state, Grams whose pivots' product is
+     1, p - 1 or a power of two (the binary inverse's edges);
+     orthogonalize_wide at the bench's rows (timed at n = 4 and 32) and,
+     on either side of its tensor-core threshold, with d all 0, all 1 and
+     mixed under running, stopped, failed and frozen states, all residues
+     and rhs p - 1 (at n = 64 the s32 worst case of the limb sums), N = 1,
+     15, 16, 17 about the 16-row tile, misaligned views;
   3. solve the 9 goldens on the card (left_p2_n32 through the GF(2)
      solver): every kernel file must be byte-identical to its golden;
   4. the main path at full size: generate the bench matrix (300000 x
@@ -874,6 +879,9 @@ def check_gf2_kernels(recs, rng, dev, sg):
 WIDE_PRIMES = (1073741827, (1 << 61) - 1, 4611686018427387847)  # 2^30 + 3,
 # 2^61 - 1 (the bench's) and the largest prime below 2^62
 WIDE_NS = (1, 2, 3, 4, 8, 16, 32, 64)
+# orthogonalize_wide also at odd n and n = 2 mod 4 on the tensor cores: an
+# 8-column tile across v' and p', 8-byte stores
+ORTHO_NS = WIDE_NS + (5, 6, 17, 34)
 # A 64 x 64 -> 128-bit multiply-add on the CUDA cores: a * b (3 IMADs),
 # __umul64hi (4) and the carry add, counted as 8 integer multiply-adds; the
 # narrow slab's product x * c is three IMAD.WIDE (one a 21-bit limb of x).
@@ -883,13 +891,15 @@ NARROW_MAC_OPS = 3
 # residue), two operations each on the int8 tensor cores.
 WIDE_LIMB_PRODUCTS = 64
 # semi_inverse_wide's dependent chain, in cycles: a pivot step at least a
-# warp ballot and a dependent shared-memory read (~80, as for the narrow and
-# GF(2) eliminations), and the Fermat inverse 254 a bit of the exponent p - 2
-# (a squaring on the chain, a product beside it), as utils/kernel_sweeps.py's
-# SIW_TIMELINE build measured it on an H100 80GB HBM3 at 700 W (PERF.md):
-# the floor of this design's inverse, which a faster one would lower.
+# warp reduction and a dependent read (~80, as for the narrow and GF(2)
+# eliminations), and the inverse's steps (modp64.cuh::almost_inverse, as
+# many as the pivots' product needs: ops/gfp_wide.py::semi_inverse_mont_np
+# counts them) at the latency of one step, which utils/kernel_sweeps.py's
+# microbenchmark (the SIW_STEP_BENCH build: one thread, almost_inverse
+# alone on 512 random residues, clock64) measured on an H100 80GB HBM3 at
+# 700 W (PERF.md), apart from the kernel.
 WIDE_STEP_CYCLES = 80
-WIDE_INV_BIT_CYCLES = 254
+WIDE_INV_STEP_CYCLES = 124.8
 # gram_wide built with recombinations every 64 / 128 rows (the defaults are
 # 32,768 and 4,096, which a solve on one card never reaches), so that phase
 # 2 crosses them
@@ -923,10 +933,32 @@ def wide_gram_bound(N, n):
 
 
 def wide_ortho_bound(N, n):
-    """v, p, Av read, v and p written, rhs and d read; 3 n^2 wide
-    multiply-adds a row."""
-    return bound(8 * (5 * N * n + 4 * n * n) + 4 * (n + 4),
-                 WIDE_MAC_OPS * 3 * N * n * n)
+    """v, p, Av read, v and p written, rhs and d read; 3 n^2 residue
+    products a row: wide multiply-adds on the CUDA cores on the row path,
+    64 u8 limb products each on the int8 tensor cores from the threshold
+    (ops/gfp_wide.py::OW_MMA_MIN_N)."""
+    from block_lanczos_tpu_torch.ops.gfp_wide import OW_MMA_MIN_N
+    nbytes = 8 * (5 * N * n + 4 * n * n) + 4 * (n + 4)
+    if n >= OW_MMA_MIN_N:
+        return bound(nbytes, 2 * WIDE_LIMB_PRODUCTS * 3 * N * n * n,
+                     INT8_TC_OPS_PER_S)
+    return bound(nbytes, WIDE_MAC_OPS * 3 * N * n * n)
+
+
+def wide_si_bound(p, n, U):
+    """(bound_ms, bound_by, chain_ms, inverse steps) of semi_inverse_wide
+    on the Gram U: bytes (grams read; winv, d, npiv, rhs, state written)
+    against operations (two eliminations of M and W, 4 n^3 wide
+    multiply-adds; the check and the right-hand side, 2 n^3); the dependent
+    chain: 2n pivot steps of WIDE_STEP_CYCLES and the inverse's steps for
+    this Gram's pivots' product of WIDE_INV_STEP_CYCLES."""
+    from block_lanczos_tpu_torch.ops.gfp_wide import semi_inverse_mont_np
+    b = bound(8 * (2 * n * n + n * n + 4 * n * n) + 4 * (n + 1 + 4),
+              WIDE_MAC_OPS * 6 * n ** 3)
+    steps = semi_inverse_mont_np(p, U)[3]
+    chain = (2 * n * WIDE_STEP_CYCLES + steps * WIDE_INV_STEP_CYCLES) \
+        / BOOST_HZ * 1e3
+    return (*b, chain, steps)
 
 
 def check_spmv_wide(rec, rng, dev, wo, ws):
@@ -1166,10 +1198,12 @@ def wide_grams(rng, p, n, kind, device):
 
 def check_si_wide(rec, rng, dev, wo, ws, real_grams):
     """semi_inverse_wide against semi_inverse_wide_plain: the bench's real
-    Grams (n = 4, timed); at every prime and n of WIDE_NS full-rank,
+    Grams (n = 4 and 32, timed); at every prime and n of WIDE_NS full-rank,
     rank-deficient and zero Grams, and (n >= 4) one whose phase-2 pivots
     differ from phase 1's (d != d1); a failing check; the check off; a
-    frozen state."""
+    frozen state; diag(1, .., 1, y) at n = 1, 4, 8 and 32, whose pivots'
+    product is y, for y = 1, p - 1, 2^k (the binary inverse's shortest,
+    a long and power-of-two inputs)."""
     import torch
     from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
     from block_lanczos_tpu_torch.ops.semi_inverse import new_state
@@ -1185,27 +1219,26 @@ def check_si_wide(rec, rng, dev, wo, ws, real_grams):
         return got, s_k
 
     f = ws.f
-    case("bench gram n=4", real_grams, f)
-    state = new_state(dev)
-    rec.ms = median_ms(lambda: wo.semi_inverse_wide(real_grams, f, state))
+    timed = {}
+    for n, grams in real_grams.items():
+        case(f"bench gram n={n}", grams, f)
+        state = new_state(dev)
+        timed[n] = (median_ms(lambda: wo.semi_inverse_wide(grams, f, state)),
+                    wide_si_bound(f.p, n, grams[:n].cpu().numpy()))
+    rec.ms, (rec.bound_ms, rec.bound_by, chain_ms, steps) = timed[4]
     rec.plain_ms = median_ms(
-        lambda: wo.semi_inverse_wide_plain(real_grams, f.p, new_state(dev)),
-        reps=3)
-    # grams read; winv, d, npiv, rhs, state written; two eliminations of M
-    # and W (4 n^3 wide multiply-adds), the check and the right-hand side
-    # (2 n^3), the Fermat chain (~2 x 62 Montgomery products)
-    n = 4
-    rec.set_bound(8 * (2 * n * n + n * n + 4 * n * n) + 4 * (n + 1 + 4),
-                  WIDE_MAC_OPS * (6 * n ** 3 + 124))
-    bits = (f.p - 2).bit_length()
-    chain_ms = ((2 * n * WIDE_STEP_CYCLES + bits * WIDE_INV_BIT_CYCLES)
-                / BOOST_HZ * 1e3)
-    rec.note = ("latency-bound: 2n pivot steps and the Fermat inverse's "
-                "chain of squarings run one after another in one CTA, so "
-                "neither bytes nor operations bound it; the chain of 2n >= "
-                f"~{WIDE_STEP_CYCLES}-cycle steps and {bits} "
-                f"{WIDE_INV_BIT_CYCLES}-cycle exponent bits is >= "
+        lambda: wo.semi_inverse_wide_plain(real_grams[4], f.p,
+                                           new_state(dev)), reps=3)
+    rec.note = ("latency-bound: 2n pivot steps and the inverse's steps run "
+                "one after another in one CTA, so neither bytes nor "
+                "operations bound it; the chain of 2n >= "
+                f"~{WIDE_STEP_CYCLES}-cycle steps and this Gram's {steps} "
+                f"inverse steps of {WIDE_INV_STEP_CYCLES} cycles is >= "
                 f"{chain_ms:.4f} ms")
+    ms32, (b32, by32, chain32, steps32) = timed[32]
+    print(f"  semi_inverse_wide n=32, p=2^61-1: {ms32:.4f} ms, bound "
+          f"{b32:.6f} ms ({by32}), chain >= {chain32:.4f} ms ({steps32} "
+          "inverse steps)", flush=True)
     for p in WIDE_PRIMES:
         fe = GFpWide.make(p)
         for n in WIDE_NS:
@@ -1231,13 +1264,24 @@ def check_si_wide(rec, rng, dev, wo, ws, real_grams):
         frozen = torch.tensor([1, 1, 9, 1], dtype=torch.int32, device=dev)
         _, s_k = case(f"p={p} frozen", bad, fe, state=frozen)
         assert s_k.tolist() == [1, 1, 9, 1]
+        for n in (1, 4, 8, 32):
+            for y in (1, p - 1, 1 << 29, 1 << (p.bit_length() - 1)):
+                g = torch.zeros((2 * n, n), dtype=torch.int64)
+                g[:n] = torch.eye(n, dtype=torch.int64)
+                g[n - 1, n - 1] = y
+                g[n:] = g[:n] * 3 % p
+                got, _ = case(f"p={p} n={n} pivots' product {y}", g.to(dev),
+                              fe)
+                assert int(got.npiv[0]) == n
 
 
-def check_ortho_wide(rec, rng, dev, LW, wo, ws, v, av, si):
+def check_ortho_wide(rec, rng, dev, LW, wo, ws, blocks):
     """orthogonalize_wide against orthogonalize_wide_plain: the bench's
-    rows at n = 4 with the real right-hand side (timed), running and
-    halted; at every prime and n of WIDE_NS d all 0, all 1 and mixed under
-    running, stopped, failed-invariant and frozen states; all p - 1; N = 1;
+    rows at n = 4 and 32 with their real right-hand sides (timed), running
+    and halted; at every prime and n of ORTHO_NS (both sides of the
+    tensor-core threshold) d all 0, all 1 and mixed under running,
+    stopped, failed-invariant and frozen states; all residues and rhs
+    p - 1 (at n = 64 the limb sums' s32 worst case); N = 1, 15, 16, 17;
     misaligned views."""
     import torch
     from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
@@ -1258,17 +1302,27 @@ def check_ortho_wide(rec, rng, dev, LW, wo, ws, v, av, si):
             rec.agree(what + " frozen v", vk, v)
 
     f = ws.f
-    pb = rand_wide(rng, v.shape[0], 4, f.p, dev)
-    for state in ([0, 1, 0, 0], [1, 1, 0, 0]):
-        case(f"bench n=4 state={state}", v, pb, av, si.rhs, si.d, f, state)
-    st = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device=dev)
-    vk, pk = v.clone(), pb.clone()
-    rec.ms = median_ms(
-        lambda: LW.orthogonalize_wide(vk, pk, av, si.rhs, si.d, f, st))
-    rec.plain_ms = median_ms(
-        lambda: LW.orthogonalize_wide_plain(vk, pk, av, si.rhs, si.d, f.p,
-                                            st.clone()), reps=3)
-    rec.bound_ms, rec.bound_by = wide_ortho_bound(v.shape[0], 4)
+    timed = {}
+    for n, (v, av, si) in blocks.items():
+        pb = rand_wide(rng, v.shape[0], n, f.p, dev)
+        for state in ([0, 1, 0, 0], [1, 1, 0, 0]):
+            case(f"bench n={n} state={state}", v, pb, av, si.rhs, si.d, f,
+                 state)
+        st = torch.tensor([0, 1, 0, 0], dtype=torch.int32, device=dev)
+        vk, pk = v.clone(), pb.clone()
+        timed[n] = median_ms(
+            lambda: LW.orthogonalize_wide(vk, pk, av, si.rhs, si.d, f, st))
+        if n == 4:
+            rec.plain_ms = median_ms(
+                lambda: LW.orthogonalize_wide_plain(
+                    vk, pk, av, si.rhs, si.d, f.p, st.clone()), reps=3)
+        del vk, pk
+    N = blocks[4][0].shape[0]
+    rec.ms = timed[4]
+    rec.bound_ms, rec.bound_by = wide_ortho_bound(N, 4)
+    b32 = wide_ortho_bound(N, 32)
+    print(f"  orthogonalize_wide n=32, p=2^61-1: {timed[32]:.4f} ms, bound "
+          f"{b32[0]:.6f} ms ({b32[1]})", flush=True)
 
     def rhs_block(n, p, value=None):
         rhs = torch.zeros((2 * n, 2 * n), dtype=torch.int64, device=dev)
@@ -1290,7 +1344,7 @@ def check_ortho_wide(rec, rng, dev, LW, wo, ws, v, av, si):
     states = ([0, 1, 0, 0], [1, 1, 0, 0], [0, 0, 0, 0], [1, 1, 5, 1])
     for p in WIDE_PRIMES:
         fe = GFpWide.make(p)
-        for n in WIDE_NS:
+        for n in ORTHO_NS:
             vv, pp, aa = (rand_wide(rng, EDGE_ROWS, n, p, dev)
                           for _ in range(3))
             rhs = rhs_block(n, p)
@@ -1302,9 +1356,10 @@ def check_ortho_wide(rec, rng, dev, LW, wo, ws, v, av, si):
                               device=dev)
             case(f"all p-1 p={p} n={n}", full, full, full,
                  rhs_block(n, p, p - 1), d_of("mixed", n), fe, states[0])
-            one = [rand_wide(rng, 1, n, p, dev) for _ in range(3)]
-            case(f"N=1 p={p} n={n}", *one, rhs_block(n, p),
-                 d_of("mixed", n), fe, states[0])
+            for N in (1, 15, 16, 17):
+                few = [rand_wide(rng, N, n, p, dev) for _ in range(3)]
+                case(f"N={N} p={p} n={n}", *few, rhs_block(n, p),
+                     d_of("mixed", n), fe, states[0])
             case(f"misaligned p={p} n={n}", vv, pp, aa, rhs,
                  d_of("mixed", n), fe, states[0], skew=1)
 
@@ -1320,15 +1375,20 @@ def check_wide_kernels(recs, rng, dev, ws):
 
     f = ws.f
     check_spmv_wide(recs["spmv_wide"], rng, dev, wo, ws)
-    v = rand_wide(rng, ws.np_rows, 4, f.p, dev)
-    tmp = wo.spmv_wide(f, ws.first_op, v, ws.mp_rows)
-    av = wo.spmv_wide(f, ws.second_op, tmp, ws.np_rows)
-    grams = wo.gram_wide(v, av, f)
+    # the bench's blocks at n = 4 and 32: v, Av = M^T M v, their Grams
+    blocks, grams = {}, {}
+    for n in (4, 32):
+        v = rand_wide(rng, ws.np_rows, n, f.p, dev)
+        tmp = wo.spmv_wide(f, ws.first_op, v, ws.mp_rows)
+        av = wo.spmv_wide(f, ws.second_op, tmp, ws.np_rows)
+        grams[n] = wo.gram_wide(v, av, f)
+        blocks[n] = (v, av)
     check_gram_wide(recs["gram_wide"], rng, dev, wo, ws)
     check_si_wide(recs["semi_inverse_wide"], rng, dev, wo, ws, grams)
-    si = wo.semi_inverse_wide(grams, f, new_state(dev))
-    check_ortho_wide(recs["orthogonalize_wide"], rng, dev, LW, wo, ws, v, av,
-                     si)
+    for n, (v, av) in blocks.items():
+        blocks[n] = (v, av, wo.semi_inverse_wide(grams[n], f, new_state(dev)))
+    check_ortho_wide(recs["orthogonalize_wide"], rng, dev, LW, wo, ws,
+                     blocks)
     for name in ("spmv_wide", "gram_wide", "semi_inverse_wide",
                  "orthogonalize_wide"):
         r = recs[name]

@@ -6,7 +6,7 @@ Python ints and the JAX package, tolerance 0:
     the first wide prime, 2^61 - 1, a 55-bit prime and the largest prime
     below 2^62;
   * the NumPy mirrors of csrc/modp64.cuh (the 128-bit product, REDC, the
-    Barrett fold, reduce128, the lazy-sum budget, the Montgomery Fermat
+    Barrett fold, reduce128, the lazy-sum budget, the binary Montgomery
     inverse) against Python ints, the budget at its worst case;
   * the checker's wide branch against the JAX checker.
 """
@@ -174,11 +174,11 @@ def test_mirrors_of_the_kernel_reductions(p):
     # REDC refuses an input at or above p * 2^64
     with pytest.raises(AssertionError):
         gw.redc_np(f, np.uint64(p), np.uint64(0))
-    # the Montgomery forms and the Fermat inverse
+    # the Montgomery forms and the binary inverse
     nz = np.array([v for v in vals if v], np.uint64)
     am = gw.to_mont_np(f, nz)
     assert am.tolist() == [int(x) * R % p for x in nz]
-    assert gw.inv_mont_np(f, am).tolist() == \
+    assert [gw.mont_inverse_np(f, int(x))[0] for x in am] == \
         [pow(int(x), -1, p) * R % p for x in nz]
 
 
@@ -333,27 +333,40 @@ def test_kernel_sweeps_wide_timeline_slots_match_the_kernel():
              for w in names.split(",") if w.strip()]
     stamped = {"sig": "inverse_sig", "end": "rhs_end"}
     assert [stamped.get(k, k) for k in names] == [
-        "start", *ks.PHASES_W, "ns_start", "ns_end", "inv_start", "inv_end"]
+        "start", *ks.PHASES_W, "ns_start", "ns_end", "inv_start", "inv_end",
+        "inv_steps"]
     assert [ks.TW_START, ks.TW_END, ks.TW_NS_START, ks.TW_NS_END,
-            ks.TW_INV_START, ks.TW_INV_END] == [
+            ks.TW_INV_START, ks.TW_INV_END, ks.TW_INV_STEPS] == [
         names.index(k) for k in ("start", "end", "ns_start", "ns_end",
-                                 "inv_start", "inv_end")]
+                                 "inv_start", "inv_end", "inv_steps")]
     assert int(re.search(r"SIW_T_STEP1 = (\d+)", src).group(1)) \
         == ks.TW_STEP1
+    assert int(re.search(r"SIW_T_NSUB = (\d+)", src).group(1)) \
+        == ks.TW_NSUB
     assert ks.TW_MAXN == wide_ops.MAX_N
     assert "SIW_T_STEP2 = SIW_T_STEP1 + SIW_MAXN" in src
-    assert "SIW_T_SLOTS = SIW_T_STEP2 + SIW_MAXN" in src
-    for k in names[:9] + names[11:]:    # every phase and the inverse
+    assert "SIW_T_SUB = SIW_T_STEP2 + SIW_MAXN" in src
+    assert "SIW_T_SLOTS = SIW_T_SUB + 4 * SIW_T_NSUB" in src
+    for k in names[:9] + names[11:13]:    # every phase and the inverse
         assert f"SIW_STAMP(SIW_T_{k.upper()})" in src, k
-    # the stamps' arithmetic: inv_mont's loop runs once a bit of p - 2
+    assert "siw_stamps[SIW_T_INV_STEPS] = steps" in src
+    # both eliminations stamp the four parts of a step
+    for k in range(4):
+        assert src.count(f"SIW_STAMP_PART(j, {k})") == 2, k
+    # the stamps' arithmetic: 44 steps of the inverse at 50 cycles
     st = [0] * ks.TW_SLOTS
     st[ks.TW_START:ks.TW_END + 1] = [100 * k for k in range(9)]
     st[ks.TW_NS_START], st[ks.TW_NS_END] = 0, 400
-    st[ks.TW_INV_START], st[ks.TW_INV_END] = 1000, 1000 + 61 * 50
+    st[ks.TW_INV_START], st[ks.TW_INV_END] = 1000, 1000 + 44 * 50
+    st[ks.TW_INV_STEPS] = 44
     st[ks.TW_STEP1:ks.TW_STEP1 + 2] = [100, 150]
-    st[ks.TW_STEP2:ks.TW_STEP2 + 2] = [300, 340]
-    t = ks._timeline_wide(st, 2, (1 << 61) - 1)
+    st[ks.TW_SUB:ks.TW_SUB + 8] = [110, 115, 130, 140, 160, 161, 180, 190]
+    t = ks._timeline_wide(st, 2)
     assert t["cycles"] == 800 and t["ghz"] == 2.0
     assert t["phases"] == dict.fromkeys(ks.PHASES_W, 100)
-    assert t["cycles_per_step"] == {"phase1": 50, "phase2": 50}
-    assert t["inverse_cycles"] == 61 * 50 and t["cycles_per_bit"] == 50
+    assert t["cycles_per_step"] == 50
+    assert t["step_parts"] == [
+        {"search": 10, "swap": 5, "update": 15, "barrier": 10},
+        {"search": 10, "swap": 1, "update": 19, "barrier": 10}]
+    assert t["inverse_cycles"] == 44 * 50 and t["inverse_steps"] == 44
+    assert t["cycles_per_inverse_step"] == 50

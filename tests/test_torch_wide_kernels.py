@@ -9,6 +9,14 @@
     sums and their fold (narrow_dot_np) against Python ints, the choice
     of slab by make_wide_op, and both slabs against the JAX package's
     spmv_wide, on the port's layout and on one converted from JAX;
+  * orthogonalize_wide's two paths (csrc/orthogonalize_wide.cu): the
+    tensor cores' u8-limb shift classes, their s32 bounds at p - 1 and
+    n = 64 and the 32-bit-half recombination (ortho_wide_tc_np), and the row
+    path's Montgomery rhs with the base in the high word (ortho_row_np),
+    against Python ints and the JAX package's orthogonalize_device
+    (wide_ops.matmul_mont);
+  * semi_inverse_wide's binary inverse (modp64.cuh::mont_inverse, mirrored
+    by mont_inverse_np) against pow and the JAX package's modinv_device;
   * the CUDA sources' constants against their Python mirrors.
 """
 
@@ -19,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+from block_lanczos_tpu.models import lanczos_wide as jlw
 from block_lanczos_tpu.ops import gfp_wide as jgw
 from block_lanczos_tpu.ops import wide_ops as jwo
 from block_lanczos_tpu_torch import kernels
@@ -293,6 +302,151 @@ def test_narrow_slab_on_a_layout_from_jax(slab):
 
 
 # ---------------------------------------------------------------------------
+# orthogonalize_wide: the shift classes, the row path's Montgomery sums
+# ---------------------------------------------------------------------------
+
+def ortho_ints(p, v, pb, av, rhs, d):
+    """(v', p') of the update with Python ints."""
+    n = v.shape[1]
+    dm = d.astype(bool)[None, :]
+    base = np.concatenate([np.where(dm, av, v), np.where(dm, 0, pb)], 1)
+    out = (base.astype(object) + np.concatenate([v, pb], 1).astype(object)
+           @ rhs.astype(object)) % p
+    out = out.astype(np.int64)
+    return out[:, :n], out[:, n:]
+
+
+def ortho_inputs(rng, p, N, n):
+    v, pb, av = (rand_res(rng, p, (N, n)) for _ in range(3))
+    v[:3], pb[:3], av[:3] = p - 1, p - 1, p - 1
+    rhs = rand_res(rng, p, (2 * n, 2 * n))
+    rhs[n:, n:] = 0
+    rhs[0] = p - 1
+    d = rng.integers(0, 2, n)
+    d[:2] = (0, 1)[:n]
+    return v, pb, av, rhs, d
+
+
+@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("n", [1, 3, 4, 8, 17, 32, 33])
+def test_ortho_mirrors_match_python_ints(p, n):
+    """The shift classes at every n, the row path up to OW_ROW_MAX_N, on
+    random rows, rows and an rhs row of p - 1, mixed d."""
+    rng = np.random.default_rng(p % 89 + n)
+    f = gw.GFpWide.make(p)
+    args = ortho_inputs(rng, p, 9, n)
+    want = ortho_ints(p, *args)
+    for got in [gw.ortho_wide_tc_np(f, *args)] + (
+            [gw.ortho_row_np(f, *args)] if n <= gw.OW_ROW_MAX_N else []):
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("p", PRIMES)
+@pytest.mark.parametrize("n", [4, 32])
+def test_ortho_mirrors_match_jax(p, n):
+    """The rhs the port builds (wide_ops.orthogonalize_rhs) through both
+    mirrors equals the JAX package's orthogonalize_device, whose product
+    is wide_ops.matmul_mont on Montgomery pairs."""
+    rng = np.random.default_rng(p % 61 + n)
+    N = 20
+    v, pb, av = (rand_res(rng, p, (N, n)) for _ in range(3))
+    A, B, C = (rand_res(rng, p, (n, n)) for _ in range(3))
+    U, UA = (A + A.T) % p, (B + B.T) % p
+    d = rng.integers(0, 2, n)
+    jf = jgw.GFpWide.make(p)
+    want_v, want_p = jlw.orthogonalize_device(
+        jf, pairs(v), pairs(av), pairs(pb),
+        jnp.asarray(d.astype(np.uint32)), pairs(U), pairs(UA), pairs(C))
+    rhs = two.orthogonalize_rhs(p, torch.from_numpy(U), torch.from_numpy(UA),
+                                torch.from_numpy(C),
+                                torch.from_numpy(d)).numpy()
+    f = gw.GFpWide.make(p)
+    for mirror in (gw.ortho_wide_tc_np,
+                   gw.ortho_row_np)[:2 if n <= gw.OW_ROW_MAX_N else 1]:
+        got_v, got_p = mirror(f, v, pb, av, rhs, d)
+        np.testing.assert_array_equal(got_v, unpair(want_v))
+        np.testing.assert_array_equal(got_p, unpair(want_p))
+
+
+def test_ortho_limb_sums_fit_s32_at_their_widest_n():
+    """Every residue and rhs entry p - 1 at the largest prime and n = 64:
+    each shift class below 2^31, all 15 below 2^29 (the mirror asserts
+    both), with the margins the kernel's header states; the update equals
+    Python ints."""
+    p, n = P62, gw.OW_MAX_N
+    assert 8 * 2 * n * 255 ** 2 == 66_585_600 < 1 << 31
+    assert 64 * 2 * n * 255 ** 2 < 1 << 29
+    full = np.full((16, n), p - 1, np.int64)
+    rhs = np.full((2 * n, 2 * n), p - 1, np.int64)
+    rhs[n:, n:] = 0
+    S = gw.ortho_class_sums_np(full, full, rhs)
+    # class 7 holds 8 limb pairs; p - 1's top limb is below 2^6
+    assert S.shape == (gw.OW_CLASSES, 16, 2 * n) and S.max() < 1 << 31
+    assert S.sum(0).max() < 1 << 29
+    d = np.array([0, 1] * (n // 2))
+    f = gw.GFpWide.make(p)
+    got = gw.ortho_wide_tc_np(f, full, full, full, rhs, d)
+    want = ortho_ints(p, full, full, full, rhs, d)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("p", PRIMES)
+def test_ortho_row_path_with_the_base_in_the_high_word(p):
+    """The row path's lazy sum from base 2^64 at its worst case (every x,
+    rhs~ and base p - 1, n = OW_ROW_MAX_N: a fold inside the v' columns'
+    16 products) stays below 2^128 (asserted inside), and the budget
+    holds for every p < 2^62; the weights of the tensor-core path are
+    2^(8q) 2^64 mod p."""
+    cap = 1 << 62
+    assert (cap << 64) + gw.WIDE_FOLD * cap ** 2 < 1 << 128
+    n = gw.OW_ROW_MAX_N
+    f = gw.GFpWide.make(p)
+    full = np.full((2, n), p - 1, np.int64)
+    rhs = np.full((2 * n, 2 * n), p - 1, np.int64)
+    d = np.zeros(n, np.int64)
+    got = gw.ortho_row_np(f, full, full, full, rhs, d)
+    rhs[n:, n:] = 0      # the block the kernel never reads
+    want = ortho_ints(p, full, full, full, rhs, d)
+    np.testing.assert_array_equal(got[0], want[0])
+    np.testing.assert_array_equal(got[1], want[1])
+    assert gw.ortho_weights_np(f) == [pow(2, 8 * q + 64, p)
+                                      for q in range(gw.OW_CLASSES)]
+
+
+# ---------------------------------------------------------------------------
+# semi_inverse_wide: the binary inverse
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("p", PRIMES)
+def test_mont_inverse_matches_pow_and_jax(p):
+    """a in {1, 2, p - 1, 2^k, random}: the Montgomery form of a^-1 from
+    that of a equals pow(a, -1, p) 2^64 mod p and the JAX package's
+    modinv_device; the almost inverse takes k in [bitlen(p), 2 bitlen(p)]
+    bit steps, in at most k of the kernel's subtraction steps."""
+    rng = np.random.default_rng(p % 53)
+    m = p.bit_length()
+    vals = [1, 2, p - 1] + [1 << k for k in (3, 29, m - 1)] + \
+        [int(x) for x in rand_res(rng, p, 20) if x]
+    f = gw.GFpWide.make(p)
+    R = 1 << 64
+    got, steps = zip(*(gw.mont_inverse_np(f, a * R % p) for a in vals))
+    assert list(got) == [pow(a, -1, p) * R % p for a in vals]
+    for a, n in zip(vals, steps):
+        x, k, n2 = gw.almost_inverse_np(p, a)
+        assert n == n2 and 1 <= n <= k and m <= k <= 2 * m
+        assert x == pow(a, -1, p) * pow(2, k, p) % p
+    jinv = unpair(jgw.modinv_device(jgw.GFpWide.make(p),
+                                    pairs(np.array(vals, object))))
+    assert [g * pow(R, -1, p) % p for g in got] == jinv.tolist()
+    # a = 1 takes the fewest bit steps, k = m <= 64 (the Barrett end of
+    # the correction); a random residue at 2^61 - 1 or above takes k > 64
+    x, k, n = gw.almost_inverse_np(p, 1)
+    assert k == m and x == pow(2, k, p)
+
+
+# ---------------------------------------------------------------------------
 # The CUDA sources' constants
 # ---------------------------------------------------------------------------
 
@@ -319,6 +473,23 @@ def test_constants_match_the_redesigned_kernels():
     assert define("spmv_wide.cu", "SPMV_WIDE_LIMB_BITS") == \
         gw.NARROW_LIMB_BITS
     assert two.NARROW_COEF_MAX == CMAX
+    # orthogonalize_wide's limbs, classes and paths
+    assert define("orthogonalize_wide.cu", "OW_LIMBS") == gw.OW_LIMBS
+    assert define("orthogonalize_wide.cu", "OW_ROW_MAX_N") == \
+        gw.OW_ROW_MAX_N
+    assert define("orthogonalize_wide.cu", "OW_MAX_N") == gw.OW_MAX_N
+    src = (kernels.CSRC / "orthogonalize_wide.cu").read_text()
+    assert "#define OW_CLASSES (2 * OW_LIMBS - 1)" in src
+    assert gw.OW_CLASSES == 2 * gw.OW_LIMBS - 1
+    assert define("orthogonalize_wide.cu", "OW_MMA_MIN_N") == \
+        gw.OW_MMA_MIN_N
+    assert 1 <= gw.OW_MMA_MIN_N <= gw.OW_ROW_MAX_N + 1
+    # semi_inverse_wide's one-warp elimination holds n^2 <= 32 entries
+    reg = define("semi_inverse_wide.cu", "SIW_REG_MAX_N")
+    assert 0 <= reg and reg ** 2 <= 32
+    assert "mont_inverse(s.pref[n], f, steps)" in \
+        (kernels.CSRC / "semi_inverse_wide.cu").read_text()
+    assert "inv_mont" not in (kernels.CSRC / "modp64.cuh").read_text()
     # the narrow flag rides between sp_vals and x
     args = kernels.SIGNATURES["spmv_wide"][1]
     assert args[7] == kernels._I and args.count(kernels._P) == 8

@@ -10,7 +10,8 @@ made with numpy from a seed:
   * semi_inverse_wide against JAX semi_inverse_device and the host oracle
     semi_inverse_py (full rank, rank-deficient, zero), with the kernel's
     row-scaled Montgomery elimination mirrored in NumPy
-    (semi_inverse_mont_np) and held against the oracle too;
+    (ops/gfp_wide.py::semi_inverse_mont_np) and held against the oracle
+    too;
   * the right-hand side and the checks against check_invariants_device and
     orthogonalize_device's prologue; orthogonalize_wide against
     orthogonalize_device, running and halted.
@@ -182,65 +183,6 @@ def low_rank_sym(rng, p, n, rank):
     return U.astype(np.int64)
 
 
-def semi_inverse_mont_np(p, U):
-    """The semi_inverse_wide kernel's elimination, mirrored with the
-    csrc/modp64.cuh mirrors on Python ints: M and W in Montgomery form,
-    logical rows through perm, no row normalised (R_q <- a R_q - M[q, j]
-    R_P as one REDC of a two-product 128-bit sum), the pivots' product
-    pref, one Fermat inverse, the row scales undone at the end."""
-    f = gw.GFpWide.make(p)
-    n = U.shape[0]
-    mont = lambda x: int(gw.to_mont_np(f, np.uint64(x)))  # noqa: E731
-    mm = lambda a, b: int(gw.mont_mul_np(f, np.uint64(a),  # noqa: E731
-                                         np.uint64(b)))
-
-    def redc2(a, m, nb, mp):
-        t = a * m + nb * mp
-        assert t < p << 64
-        return int(gw.redc_np(f, np.uint64(t >> 64),
-                              np.uint64(t & ((1 << 64) - 1))))
-
-    def eliminate(M, W):
-        perm, d, pref = list(range(n)), [0] * n, [mont(1)]
-        for j in range(n):
-            piv = next((i for i in range(j, n) if M[perm[i]][j]), None)
-            if piv is None:
-                d[j] = 0
-                pref.append(pref[-1])
-                continue
-            d[j] = 1
-            P = perm[piv]
-            a = M[P][j]
-            perm[j], perm[piv] = P, perm[j]
-            for r in range(n):
-                if r == P:
-                    continue
-                nb = p - M[r][j]
-                for c in range(j + 1, n):
-                    M[r][c] = redc2(a, M[r][c], nb, M[P][c])
-                if W is not None:
-                    for c in range(n):
-                        W[r][c] = redc2(a, W[r][c], nb, W[P][c])
-            pref.append(mm(pref[-1], a))
-        return perm, d, pref
-
-    M = [[mont(x) for x in row] for row in U]
-    _, d1, _ = eliminate(M, None)
-    M = [[mont(U[i, c]) if d1[i] and d1[c] else 0 for c in range(n)]
-         for i in range(n)]
-    W = [[mont(1) if i == c and d1[c] else 0 for c in range(n)]
-         for i in range(n)]
-    perm, d, pref = eliminate(M, W)
-    # pref[j] is the product of the pivots before step j (non-pivot steps
-    # repeat it), pref[n] all of them
-    inv_a = int(gw.inv_mont_np(f, np.uint64(pref[n])))
-    sig = [mm(pref[i], inv_a) if d[i] else inv_a for i in range(n)]
-    winv = np.array([[int(gw.redc_np(f, np.uint64(0), np.uint64(
-        mm(W[perm[i]][c], sig[i])))) for c in range(n)] for i in range(n)],
-        dtype=object)
-    return winv, np.array(d, np.uint32), sum(d)
-
-
 SI_CASES = [(P61, 4, 4), (P61, 4, 3), (P62, 5, 2), (P61, 3, 0),
             (P30, 6, 6), (P55, 8, 5), (P62, 1, 1)]
 
@@ -263,10 +205,11 @@ def test_semi_inverse_wide_matches_jax(p, n, rank):
     assert int(si.npiv[0]) == int(jnpiv) == pnpiv
     assert int(jnpiv) == min(rank, n)
     # the kernel's elimination, mirrored
-    mW, md, mnpiv = semi_inverse_mont_np(p, U)
+    mW, md, mnpiv, steps = gw.semi_inverse_mont_np(p, U)
     np.testing.assert_array_equal(mW.astype(np.int64), si.winv.numpy())
     np.testing.assert_array_equal(md, pd)
     assert mnpiv == pnpiv
+    assert 1 <= steps <= 2 * p.bit_length()
     # the checks, the stop flag and the right-hand side
     ok = jlw.check_invariants_device(jf, pairs(U), pairs(UA), jW, jd)
     assert bool(ok) and state.tolist() == [int(pnpiv == 0), 1, 0, 0]
