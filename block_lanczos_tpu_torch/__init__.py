@@ -2,11 +2,12 @@
 
 The PyTorch port of `block_lanczos_tpu`: the same solver, the same residues
 bit for bit, with the per-iteration device work done by hand-written CUDA
-kernels for Hopper (`csrc/`).  It covers, on one device, the narrow field
-(p <= 2^30 - 35, including p = 2 with any n that is not a multiple of 32)
-on four kernels, the bitsliced GF(2) solver (p = 2, n % 32 == 0) on four
-more and the wide field (2^30 - 35 < p < 2^62, native 64-bit residues) on
-four more.
+kernels for Hopper (`csrc/`).  It covers the narrow field (p <= 2^30 - 35,
+including p = 2 with any n that is not a multiple of 32) on four kernels,
+the bitsliced GF(2) solver (p = 2, n % 32 == 0) on four more and the wide
+field (2^30 - 35 < p < 2^62, native 64-bit residues) on four more, each on
+one device or on a mesh of torch.distributed ranks (parallel/), whose exact
+all-reduces are three more kernels.
 
 Entry points run on the CUDA device unless the caller asks for the CPU
 (`device="cpu"`), where every kernel wrapper takes its plain PyTorch
@@ -26,6 +27,9 @@ Layout (each module mirrors its counterpart in the JAX package):
   models/lanczos_gf2.py  the GF(2) layout, SpMV and orthogonalize kernels,
                        BlockLanczosGF2
   models/lanczos_wide.py  the wide orthogonalize kernel, BlockLanczosWide
+  parallel/            the mesh: the grid of ranks, the partition, the
+                       exact collectives, the three sharded solvers, the
+                       launcher of local ranks
   kernels/             nvcc build of csrc/*.cu and the ctypes binding
   convert.py           carrying JAX-package state and layouts across
   utils/               MatrixMarket IO, RNG, generator, checker, salvage,

@@ -1,9 +1,11 @@
 """Build and bind the hand-written CUDA kernels of `csrc/`.
 
 Each `csrc/<name>.cu` (four narrow-field kernels on `modp.cuh`, four
-GF(2) kernels on `gf2.cuh`, four wide-field kernels on `modp64.cuh`) is
-compiled by nvcc, at first use, into its own
-shared library with a plain C interface and loaded with ctypes:
+GF(2) kernels on `gf2.cuh`, four wide-field kernels on `modp64.cuh`, and
+`collectives.cu`: the mesh's exact all-reduces, whose pack and fold halves
+are six entry points of one source) is compiled by nvcc, at first use,
+into its own shared library with a plain C interface and loaded with
+ctypes:
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -o build/kernels/<name>-<hash>.so csrc/<name>.cu
@@ -45,7 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _L, _U = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_ulonglong)
 
-# source stem -> (exported C function, its argtypes); the stream comes last
+# exported C function -> (its name, its argtypes); the stream comes last.
+# Each lives in csrc/<name>.cu unless SOURCES names another source.
 SIGNATURES = {
     # cols, vals, ell, ld, rowptr, sp_cols, sp_vals, x, y,
     # out_dim, out_rows, n, p, mu, stream
@@ -88,7 +91,28 @@ SIGNATURES = {
     "orthogonalize_wide": ("orthogonalize_wide", (_P, _P, _P, _P, _P, _L,
                                                   _I, _U, _U, _U, _U, _P,
                                                   _P)),
+    # the mesh's exact all-reduces (csrc/collectives.cu), each a pack
+    # before the transport's sum and a fold after it
+    # x, payload, count, stream
+    "psum_mod_pack": ("psum_mod_pack", (_P, _P, _L, _P)),
+    # sums, int64 sums?, x, count, p, mu, stream
+    "psum_mod_fold": ("psum_mod_fold", (_P, _I, _P, _L, _U, _U, _P)),
+    # x, payload (two 31-bit halves), count, stream
+    "psum_mod_wide_pack": ("psum_mod_wide_pack", (_P, _P, _L, _P)),
+    # sums, halves?, x, count, p, mu, pinv, r2, stream
+    "psum_mod_wide_fold": ("psum_mod_wide_fold", (_P, _I, _P, _L, _U, _U,
+                                                  _U, _U, _P)),
+    # x, payload, count, lanes, stream
+    "pxor_spread": ("pxor_spread", (_P, _P, _L, _I, _P)),
+    # sums, x, count, lanes, stream
+    "pxor_fold": ("pxor_fold", (_P, _P, _L, _I, _P)),
 }
+# exported C function -> its source stem, where that is not its own name
+SOURCES = {name: "collectives" for name in (
+    "psum_mod_pack", "psum_mod_fold", "psum_mod_wide_pack",
+    "psum_mod_wide_fold", "pxor_spread", "pxor_fold")}
+# the source stems, each one library
+SOURCE_NAMES = tuple(dict.fromkeys(SOURCES.get(n, n) for n in SIGNATURES))
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
@@ -121,10 +145,10 @@ def _library_path(name: str, nvcc: str, defines=None) -> Path:
 
 
 def build(names=None, defines=None) -> dict:
-    """Compile the named kernels (default: all) that are not built yet,
+    """Compile the named sources (default: all) that are not built yet,
     one nvcc process each, in parallel, with `-D<macro>=<value>` for each
     item of `defines` (default none).  Returns {name: library path}."""
-    names = list(SIGNATURES if names is None else names)
+    names = list(SOURCE_NAMES if names is None else names)
     defines = defines or {}
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -152,13 +176,13 @@ def build(names=None, defines=None) -> dict:
 
 
 def ptxas_report(names=None) -> str:
-    """What ptxas says of each named kernel (default: all): registers,
+    """What ptxas says of each named source (default: all): registers,
     shared memory, spills.  Compiles a cubin per source with the build's
     target and -O3 plus `-Xptxas -v`, into BUILD_DIR, and returns the text."""
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = []
-    for name in list(SIGNATURES if names is None else names):
+    for name in list(SOURCE_NAMES if names is None else names):
         # the build's target, -std and -O3, minus -shared / -fPIC
         cmd = [nvcc, *NVCC_FLAGS[:4], "-cubin", "-Xptxas", "-v",
                "-I", str(CSRC), "-o", str(BUILD_DIR / f"{name}.cubin"),
@@ -175,7 +199,7 @@ def load_all() -> float:
     took.  Later `launch` calls then find the libraries loaded."""
     t0 = time.perf_counter()
     with _lock:
-        missing = [n for n in SIGNATURES if n not in _loaded]
+        missing = [n for n in SOURCE_NAMES if n not in _loaded]
         if missing:
             for name, path in build(missing).items():
                 _loaded[name] = _bind(name, path)
@@ -183,11 +207,13 @@ def load_all() -> float:
 
 
 def _bind(name: str, path: Path) -> ctypes.CDLL:
+    """Load source `name`'s library and declare each of its entry points."""
     lib = ctypes.CDLL(str(path))
-    fn_name, argtypes = SIGNATURES[name]
-    fn = getattr(lib, fn_name)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    for fn_name, argtypes in SIGNATURES.values():
+        if SOURCES.get(fn_name, fn_name) == name:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
     lib.bl_error_string.argtypes = [ctypes.c_int]
     lib.bl_error_string.restype = ctypes.c_char_p
     return lib
@@ -195,9 +221,9 @@ def _bind(name: str, path: Path) -> ctypes.CDLL:
 
 @contextlib.contextmanager
 def variant(name: str, **defines):
-    """Within the block, `launch(name, ...)` runs kernel `name` as built
-    with `-D<macro>=<value>` for each keyword; the block gets the library
-    (for entry points of such a build beyond SIGNATURES)."""
+    """Within the block, `launch` runs the entry points of source `name`
+    as built with `-D<macro>=<value>` for each keyword; the block gets the
+    library (for entry points of such a build beyond SIGNATURES)."""
     lib = _bind(name, build([name], defines)[name])
     with _lock:
         saved = _loaded.get(name)
@@ -233,9 +259,9 @@ def check_operands(name: str, *tensors, dtype=torch.int32) -> None:
 
 
 def launch(name: str, *args) -> None:
-    """Call kernel `name`'s C entry point on PyTorch's current stream and
-    raise if the launch was refused."""
-    lib = _library(name)
+    """Call the C entry point `name` on PyTorch's current stream and raise
+    if the launch was refused."""
+    lib = _library(SOURCES.get(name, name))
     stream = torch.cuda.current_stream().cuda_stream
     rc = getattr(lib, SIGNATURES[name][0])(*args, stream)
     if rc != 0:

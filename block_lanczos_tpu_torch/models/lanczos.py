@@ -238,7 +238,7 @@ PAD_MULTIPLE = 8  # vector blocks are zero-padded to a multiple of 8 rows
 
 def blocked_solve_loop(multi_step, start_iter: int, stop_after: int,
                        sync_every: int | None, on_iteration=None,
-                       inv_fail=None):
+                       inv_fail=None, agree=None):
     """The driver loop: blocks of device-side iterations + one host sync.
 
     multi_step(k) runs k iterations without a sync, then syncs once and
@@ -247,8 +247,10 @@ def blocked_solve_loop(multi_step, start_iter: int, stop_after: int,
     `sync_every` iterations run per block (adaptive doubling 1 -> 1024,
     targeting ~0.25 s blocks, when None).  On a failed invariant,
     inv_fail(iteration) is called to raise with context.  on_iteration
-    fires once per block as on_iteration(n_iterations, start).  Returns
-    (n_iterations, stopped_by_limit, start_time).
+    fires once per block as on_iteration(n_iterations, start).  agree
+    (the mesh solvers) maps a block's seconds to the time every rank
+    decides the next block's length by, so that all ranks run blocks of
+    the same length.  Returns (n_iterations, stopped_by_limit, start_time).
     """
     start = time.time()
     n_iterations = start_iter
@@ -271,9 +273,10 @@ def blocked_solve_loop(multi_step, start_iter: int, stop_after: int,
             on_iteration(n_iterations, start)
         if stop:
             break
-        if sync_every is None and block < _ADAPT_CAP \
-                and time.time() - t_blk < _ADAPT_TARGET_S:
-            block *= 2
+        if sync_every is None and block < _ADAPT_CAP:
+            t_blk = time.time() - t_blk
+            if (t_blk if agree is None else agree(t_blk)) < _ADAPT_TARGET_S:
+                block *= 2
     return n_iterations, stopped_by_limit, start
 
 

@@ -1,0 +1,256 @@
+"""The sharded block Lanczos solver on a process grid, narrow field.
+
+The port of the JAX package's parallel/distributed.py (`_local_step`,
+`_local_multi_step`, `ShardedBlockLanczos`; its overlap variant is not
+ported) on torch.distributed.  Each rank of an (R, C) grid
+(parallel/mesh.py) holds its block of the matrix (parallel/sharding.py),
+the rows-band of v, Av and p and the cols-band of tmp; one iteration is
+the single-device iteration (models/lanczos.py::iteration_step) with an
+exact all-reduce after each partial (parallel/collectives.py):
+
+    tmp = Mt_rc v_r        psum_mod over rows  -> tmp_c
+    Av  = M_rc tmp_c       psum_mod over cols  -> Av_r
+    [v | Av]^T Av          psum_mod over rows  -> the Grams, on every rank
+    semi_inverse, orthogonalize: on every rank, from the replicated Grams
+
+so every rank latches the same [stop, inv_ok, k_done, frozen] state, runs
+the same number of iterations and issues the same collectives.  There is
+no root: each rank draws the same xoshiro v0 and keeps its band, and the
+final kernel is gathered through the band maps at the end.  The host loop
+is the single-device one (blocked_solve_loop); the adaptive block length
+is agreed over the grid (the slowest rank's time), so that all ranks
+sync after the same iterations.  Bit-exact for ANY grid: mod-p sums are
+exact and order-independent.
+
+`ShardedBlockLanczosWide` (distributed_wide.py) and
+`ShardedBlockLanczosGF2` (distributed_gf2.py) are this driver with the
+other fields' kernels and collectives.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from block_lanczos_tpu_torch import kernels
+from block_lanczos_tpu_torch.models import lanczos as single
+from block_lanczos_tpu_torch.models.lanczos import (SolveResult,
+                                                    blocked_solve_loop,
+                                                    final_check, fit_rows,
+                                                    state_rows)
+from block_lanczos_tpu_torch.ops import spmm
+from block_lanczos_tpu_torch.ops.dense import gram_mod
+from block_lanczos_tpu_torch.ops.gfp import GFp
+from block_lanczos_tpu_torch.ops.semi_inverse import (MAX_N, empty_outputs,
+                                                      new_state,
+                                                      semi_inverse)
+from block_lanczos_tpu_torch.parallel import collectives
+from block_lanczos_tpu_torch.parallel import sharding as shard_lib
+from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
+from block_lanczos_tpu_torch.parallel.multihost import (fetch_global,
+                                                        put_global)
+from block_lanczos_tpu_torch.utils.mmio import COOMatrix
+from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
+
+
+def agree_max(x: float, grid: Grid) -> float:
+    """The largest x over the grid's ranks (one tiny all_reduce)."""
+    dev = grid.device if dist.get_backend(grid.group) == "nccl" else "cpu"
+    t = torch.tensor([x], dtype=torch.float64, device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=grid.group)
+    return float(t.item())
+
+
+class _ShardedSolver:
+    """The mesh driver shared by the three fields: v0 and resume bands,
+    the blocked host loop, the final gather and check.  A field sets
+    `label` and writes `_v0`, `_state_block`, `_workspace`, `_step`,
+    `_final` and `_invariant_failure`."""
+
+    label = ""
+
+    def _setup(self, grid: Grid, ops: shard_lib.ShardedOps, n: int,
+               check_invariants: bool, sync_every: int | None):
+        self.grid = grid
+        self.device = grid.device
+        self.ops = ops
+        self.n = int(n)
+        self.check_invariants = bool(check_invariants)
+        self.sync_every = sync_every
+        self.n_eff, self.m_eff = ops.n_eff, ops.m_eff
+        self.np_rows, self.mp_rows = ops.np_rows, ops.mp_rows
+        self.row_map, self.col_map = ops.row_map, ops.col_map
+        self.expected_iterations = 1 + self.m_eff // self.n
+
+    # -- blocks in and out ------------------------------------------------
+
+    def _band(self, padded: np.ndarray) -> torch.Tensor:
+        """This rank's rows-band of a (np_rows, width) band-layout block."""
+        return put_global(padded, self.grid.r, self.grid.R, self.device)
+
+    def gather_rows(self, t: torch.Tensor) -> np.ndarray:
+        """A rows-split block (v, p, Av) in true row order, on every rank
+        (collective over the rank's column of the grid)."""
+        return self.row_map.gather(fetch_global(t, self.grid.rows_group))
+
+    def gather_cols(self, t: torch.Tensor) -> np.ndarray:
+        """A cols-split block (tmp) in true order, on every rank."""
+        return self.col_map.gather(fetch_global(t, self.grid.cols_group))
+
+    # -- the loop ---------------------------------------------------------
+
+    def solve(self, stop_after: int = -1, verbose: bool = False,
+              on_iteration: Callable | None = None,
+              resume_state: dict | None = None) -> SolveResult:
+        """Run to convergence (or `stop_after` iterations), on every rank
+        of the grid together.
+
+        `on_iteration(solver, iteration, v, p_blk, start)` fires on every
+        rank once per block of iterations (construct with sync_every=1 for
+        every iteration), with this rank's bands of v and p
+        (`gather_rows` gives them whole; every rank must then call it).
+        `resume_state` is a {v, p, iteration} dict in TRUE row order
+        (optionally with `rowmap`), as the single-device solvers take it.
+        """
+        if resume_state is None:
+            v = self._band(self._v0())
+            p_blk = torch.zeros_like(v)
+            start_iter = 0
+        else:
+            v = self._band(self._state_block(resume_state, "v"))
+            p_blk = self._band(self._state_block(resume_state, "p"))
+            start_iter = int(resume_state["iteration"])
+        if verbose:
+            R, C = self.grid.shape
+            print(f"Block Lanczos [{self.label}sharded {R}x{C}]")
+            print(self.ops.stats.summary())
+            print(f"  - Expecting {self.expected_iterations} iterations")
+            print("  - Main loop")
+        if self.device.type == "cuda":
+            kernels.load_all()
+        state = new_state(self.device)
+        ws = self._workspace()
+        k_seen = [0]
+
+        def multi_step(k: int):
+            for _ in range(k):
+                self._step(v, p_blk, state, ws)
+            stop, inv_ok, k_total, _ = state.tolist()   # the one sync
+            k_done, k_seen[0] = k_total - k_seen[0], k_total
+            return k_done, bool(stop), bool(inv_ok)
+
+        def on_block(iteration, start):
+            on_iteration(self, iteration, v, p_blk, start)
+
+        n_iterations, stopped_by_limit, start = blocked_solve_loop(
+            multi_step, start_iter, stop_after, self.sync_every,
+            on_iteration=None if on_iteration is None else on_block,
+            inv_fail=((lambda it: self._invariant_failure(ws, it))
+                      if self.check_invariants else None),
+            agree=lambda t: agree_max(t, self.grid))
+        elapsed = time.time() - start
+        v_true = self.gather_rows(v)
+        tmp_true = None if stopped_by_limit else self.gather_cols(ws["tmp"])
+        kernel, v_nonzero, product_zero, vtM = self._final(v_true, tmp_true,
+                                                           verbose)
+        if verbose:
+            print(f"  - Terminated in {elapsed:.1f}s after "
+                  f"{n_iterations} iterations")
+        return SolveResult(kernel=kernel, iterations=n_iterations,
+                           v_nonzero=v_nonzero, product_zero=product_zero,
+                           elapsed=elapsed, stopped_by_limit=stopped_by_limit,
+                           vtM=vtM)
+
+
+class ShardedBlockLanczos(_ShardedSolver):
+    """The narrow-field (p <= 2^30 - 35) solver on a process grid; the API
+    mirrors models.lanczos.BlockLanczos.  `grid` defaults to the rows-only
+    grid over the whole world on CUDA (mesh.make_mesh, which raises when
+    there is no CUDA; torch.distributed must be initialized, e.g. by
+    parallel/launch.py); blocks live on grid.device."""
+
+    def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
+                 grid: Grid | None = None, pad_multiple: int = 8,
+                 check_invariants: bool = True,
+                 sync_every: int | None = None):
+        grid = make_mesh() if grid is None else grid
+        if not 1 <= int(n) <= MAX_N:
+            raise ValueError(f"block width n must be in [1, {MAX_N}]")
+        self.f = GFp.make(M.prime)
+        self.right = bool(right)
+        self._rng = Xoshiro256Plus()
+        self._setup(grid, shard_lib.partition_matrix(
+            self.f, M, right, grid, pad_multiple), n, check_invariants,
+            sync_every)
+
+    def _v0(self) -> np.ndarray:
+        """v0 over TRUE kernel rows (the sequential xoshiro block, bit-exact
+        with the reference), scattered to the band layout."""
+        block = self._rng.fill_mod(self.n_eff * self.n, self.f.p)
+        return self.row_map.scatter(
+            block.reshape(self.n_eff, self.n).astype(np.int32))
+
+    def _state_block(self, resume_state: dict, name: str) -> np.ndarray:
+        arr = fit_rows(state_rows(resume_state, name), self.n_eff)
+        return self.row_map.scatter(arr.astype(np.int32))
+
+    def _workspace(self) -> dict:
+        ops, n, dev = self.ops, self.n, self.device
+        ws = {"tmp": torch.zeros((ops.mband, n), dtype=torch.int32,
+                                 device=dev),
+              "av": torch.zeros((ops.band, n), dtype=torch.int32, device=dev),
+              "grams": torch.zeros((2 * n, n), dtype=torch.int32, device=dev)}
+        if dev.type == "cuda":
+            ws["si"] = empty_outputs(n, dev)
+        return ws
+
+    def _step(self, v, p_blk, state, ws) -> None:
+        """One iteration on this rank (the JAX package's _local_step)."""
+        ops, p, g = self.ops, self.f.p, self.grid
+        tmp = spmm.spmv(ops.first, v, out_rows=ops.mband, out=ws["tmp"])
+        collectives.psum_mod(tmp, p, g.rows_group)      # split by cols
+        av = spmm.spmv(ops.second, tmp, out_rows=ops.band, out=ws["av"])
+        collectives.psum_mod(av, p, g.cols_group)       # split by rows
+        grams = gram_mod(v, av, av, p, out=ws["grams"])
+        collectives.psum_mod(grams, p, g.rows_group)    # replicated
+        si = semi_inverse(grams, p, state, self.check_invariants,
+                          out=ws.get("si"))
+        single.orthogonalize(v, p_blk, av, si.rhs, si.d, p, state)
+        ws.update(tmp=tmp, av=av, grams=grams, si=si)
+
+    def _invariant_failure(self, ws, iteration):
+        # reproduce the precise failing assertion on the host
+        n, grams, si = self.n, ws["grams"], ws["si"]
+        single.check_invariants(self.f.p, grams[:n], grams[n:], si.winv,
+                                si.d)
+
+    def _final(self, v_true, tmp_true, verbose):
+        v_nonzero = product_zero = vtM = None
+        if tmp_true is not None:
+            v_nonzero, product_zero = final_check(
+                v_true, tmp_true, self.n_eff, self.m_eff, verbose)
+            if product_zero is False:
+                vtM = tmp_true[:self.m_eff].astype(np.uint32)
+        return (v_true[:self.n_eff].astype(np.uint32), v_nonzero,
+                product_zero, vtM)
+
+
+def launch_counts() -> dict:
+    """{kernel name: launches} of the fifteen kernels a mesh runs: the
+    three fields' four each and the three collectives."""
+    from block_lanczos_tpu_torch.models import lanczos_gf2, lanczos_wide
+    out = single.launch_counts()
+    out.update(lanczos_gf2.launch_counts())
+    out.update(lanczos_wide.launch_counts())
+    out.update(collectives.launch_counts())
+    return out
+
+
+def reset_launch_counts() -> None:
+    from block_lanczos_tpu_torch.models import lanczos_gf2, lanczos_wide
+    for mod in (single, lanczos_gf2, lanczos_wide, collectives):
+        mod.reset_launch_counts()

@@ -1,0 +1,111 @@
+"""The sharded block Lanczos solver for wide primes (2^30 - 35 < p < 2^62).
+
+The port of the JAX package's parallel/distributed_wide.py
+(`partition_matrix_wide`, `_local_step`, `ShardedBlockLanczosWide`; not
+its overlap variant): parallel/distributed.py's driver on int64 residues,
+with the wide kernels (ops/wide_ops.py, models/lanczos_wide.py) and the
+exact wide all-reduce `psum_mod_wide` after each partial.  Each rank's
+block is built by the single-device wide layout builder
+(ops/wide_ops.py::make_wide_op), so the int32 signed-coefficient slab is
+chosen per block.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from block_lanczos_tpu_torch.models import lanczos_wide as lw
+from block_lanczos_tpu_torch.models.lanczos import (final_check, fit_rows,
+                                                    state_rows)
+from block_lanczos_tpu_torch.ops import wide_ops as wo
+from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
+from block_lanczos_tpu_torch.parallel import collectives
+from block_lanczos_tpu_torch.parallel import sharding as shard_lib
+from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
+from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
+from block_lanczos_tpu_torch.utils.mmio import COOMatrix
+from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
+
+
+def partition_matrix_wide(f: GFpWide, M: COOMatrix, right: bool, grid: Grid,
+                          pad_multiple: int = 8) -> shard_lib.ShardedOps:
+    """This rank's block of the wide-field matrix as wide HybridOps."""
+    def build(out_idx, in_idx, vals, out_dim, in_dim):
+        return wo.make_wide_op(f, out_idx, in_idx, vals, out_dim, in_dim)
+    return shard_lib.partition(grid, M.i, M.j, np.asarray(M.x), M.nrows,
+                               M.ncols, right, build, pad_multiple)
+
+
+class ShardedBlockLanczosWide(_ShardedSolver):
+    """The wide-field solver on a process grid; the API mirrors
+    ShardedBlockLanczos.  The result's `kernel` and `vtM` are uint64."""
+
+    label = "wide field, "
+
+    def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
+                 grid: Grid | None = None, pad_multiple: int = 8,
+                 check_invariants: bool = True,
+                 sync_every: int | None = None):
+        grid = make_mesh() if grid is None else grid
+        if not 1 <= int(n) <= lw.MAX_N:
+            raise ValueError(f"block width n must be in [1, {lw.MAX_N}]")
+        self.f = GFpWide.make(M.prime)
+        self.right = bool(right)
+        self._rng = Xoshiro256Plus()
+        self._setup(grid, partition_matrix_wide(self.f, M, right, grid,
+                                                pad_multiple),
+                    n, check_invariants, sync_every)
+
+    def _v0(self) -> np.ndarray:
+        block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
+        return self.row_map.scatter(
+            block.reshape(self.n_eff, self.n).astype(np.int64))
+
+    def _state_block(self, resume_state: dict, name: str) -> np.ndarray:
+        arr = np.asarray(fit_rows(state_rows(resume_state, name),
+                                  self.n_eff))
+        if arr.size and (arr.min() < 0 or int(arr.max()) >= self.f.p):
+            raise ValueError(f"resume block {name!r} holds values outside "
+                             f"[0, p)")
+        return self.row_map.scatter(arr.astype(np.int64))
+
+    def _workspace(self) -> dict:
+        ops, n, dev = self.ops, self.n, self.device
+        ws = {"tmp": torch.zeros((ops.mband, n), dtype=torch.int64,
+                                 device=dev),
+              "av": torch.zeros((ops.band, n), dtype=torch.int64, device=dev),
+              "grams": torch.zeros((2 * n, n), dtype=torch.int64, device=dev)}
+        if dev.type == "cuda":
+            ws["si"] = wo.empty_outputs(n, dev)
+        return ws
+
+    def _step(self, v, p_blk, state, ws) -> None:
+        """One iteration on this rank (the JAX package's _local_step)."""
+        ops, f, g = self.ops, self.f, self.grid
+        tmp = wo.spmv_wide(f, ops.first, v, out_rows=ops.mband,
+                           out=ws["tmp"])
+        collectives.psum_mod_wide(tmp, f, g.rows_group)
+        av = wo.spmv_wide(f, ops.second, tmp, out_rows=ops.band,
+                          out=ws["av"])
+        collectives.psum_mod_wide(av, f, g.cols_group)
+        grams = wo.gram_wide(v, av, f, out=ws["grams"])
+        collectives.psum_mod_wide(grams, f, g.rows_group)
+        si = wo.semi_inverse_wide(grams, f, state, self.check_invariants,
+                                  out=ws.get("si"))
+        lw.orthogonalize_wide(v, p_blk, av, si.rhs, si.d, f, state)
+        ws.update(tmp=tmp, av=av, grams=grams, si=si)
+
+    def _invariant_failure(self, ws, iteration):
+        n, grams, si = self.n, ws["grams"], ws["si"]
+        lw.check_invariants(self.f.p, grams[:n], grams[n:], si.winv, si.d)
+
+    def _final(self, v_true, tmp_true, verbose):
+        v_nonzero = product_zero = vtM = None
+        if tmp_true is not None:
+            v_nonzero, product_zero = final_check(
+                v_true, tmp_true, self.n_eff, self.m_eff, verbose)
+            if product_zero is False:
+                vtM = tmp_true[:self.m_eff].astype(np.uint64)
+        return (v_true[:self.n_eff].astype(np.uint64), v_nonzero,
+                product_zero, vtM)

@@ -1,5 +1,5 @@
-"""Solver command-line interface of the port (the narrow field, the wide
-field and bitsliced GF(2), one device).
+"""Solver command-line interface of the port: the narrow field, the wide
+field and bitsliced GF(2), on one device or on a mesh of ranks.
 
 Flag-compatible with the JAX package's CLI for the part this port covers
 (reference: sequential/lanczos_modp.c:124-194):
@@ -9,21 +9,40 @@ Flag-compatible with the JAX package's CLI for the part this port covers
                        [--stop-after N] [--no-checks] [--sync-every K]
                        [--salvage [--salvage-restarts K]] [--no-dedup]
                        [--device cuda|cpu] [--single]
+                       [--devices K | --grid R C]
+                       [--coordinator HOST:PORT --num-processes P
+                        --process-id I [--local-devices L]]
 
 p = 2 with n % 32 == 0 selects the bitsliced GF(2) solver, 2^30 - 35 < p <
 2^62 the wide field (as in the JAX package's CLI; p >= 2^62 exits 1), every
 other p the narrow field.  Runs on the CUDA device by default and exits
 with an error when there is none; `--device cpu` runs the plain PyTorch
-versions of the kernels.  `--single` is accepted and changes nothing: the
-port always runs on one device.  Exit code 2, before the matrix is loaded,
-for what this port does not cover yet: the mesh, multi-host, overlap and
-checkpoint flags; and block widths above the kernels' caps, n <= 64 in the
-narrow and the wide field and, on CUDA, n <= 512 over GF(2).
+versions of the kernels.
+
+Without `--devices`, `--grid` or `--coordinator` the solve runs on one
+device (`--single` keeps it there).  `--devices K` solves on a (K, 1)
+grid of ranks and `--grid R C` on R x C ranks (parallel/): this process
+spawns them (parallel/launch.py), rank r on cuda:r over NCCL with
+`--device cuda` (K above this host's CUDA device count exits 2 before the
+matrix is loaded: one card a rank), or on the CPU over gloo with
+`--device cpu`.  Several hosts: each runs this command with the same
+`--coordinator HOST:PORT` (or a file:// rendezvous), `--num-processes P`
+and its `--process-id I`, and spawns `--local-devices L` ranks (default
+1), global ranks I*L .. I*L+L-1 of P*L; the grid is `--grid` or `--devices`
+(which must then count P*L ranks) or (P*L, 1).  Rank 0 alone prints and
+writes the kernel file.  `--num-processes 1 --process-id 0` alone is the
+one-device solve.
+
+Exit code 2, before the matrix is loaded, for what this port does not
+cover yet (`--overlap` and the checkpoint flags) and for block widths
+above the kernels' caps, n <= 64 in the narrow and the wide field and, on
+CUDA, n <= 512 over GF(2).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import sys
 
 from block_lanczos_tpu_torch.ops import gf2
@@ -37,14 +56,9 @@ from block_lanczos_tpu_torch.utils.verbosity import VerbosityEngine
 # flags of the JAX package's CLI that select paths this port does not have:
 # dest -> (flag, the value that selects none of them)
 REFUSED_FLAGS = {
-    "devices": ("--devices", None), "grid": ("--grid", None),
     "overlap": ("--overlap", False), "checkpoint": ("--checkpoint", None),
     "load_checkpoint": ("--load-checkpoint", False),
     "checkpoint_dir": ("--checkpoint-dir", None),
-    "coordinator": ("--coordinator", None),
-    "num_processes": ("--num-processes", 1),
-    "process_id": ("--process-id", 0),
-    "local_devices": ("--local-devices", None),
 }
 
 
@@ -52,7 +66,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="lanczos-modp-torch",
         description="block Lanczos kernel vectors of a sparse matrix mod p "
-                    "(PyTorch + CUDA, p < 2^62 and GF(2), one device)")
+                    "(PyTorch + CUDA, p < 2^62 and GF(2), on one device or "
+                    "a mesh of ranks)")
     ap.add_argument("--matrix", required=True,
                     help="MatrixMarket file containing the sparse matrix")
     ap.add_argument("--prime", required=True, type=int,
@@ -94,24 +109,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run on the CUDA device [default] or on the CPU "
                          "(plain PyTorch versions of the kernels)")
     ap.add_argument("--single", action="store_true",
-                    help="solve on a single device (a no-op: this port "
-                         "always runs on one device)")
+                    help="solve on a single device (the default without "
+                         "--devices, --grid or --coordinator)")
+    mesh = ap.add_argument_group(
+        "mesh (ranks spawned by this process, one CUDA device each over "
+        "NCCL, or CPU ranks over gloo with --device cpu)")
+    mesh.add_argument("--devices", type=int, default=None, metavar="K",
+                      help="solve on a (K, 1) grid of K ranks; with "
+                           "--device cuda, K CUDA devices on this host")
+    mesh.add_argument("--grid", type=int, nargs=2, default=None,
+                      metavar=("R", "C"),
+                      help="solve on an R x C grid of ranks")
+    mesh.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                      help="several hosts: the rendezvous (HOST:PORT of "
+                           "global rank 0, or a file:// path all can "
+                           "reach); run one process per host with "
+                           "identical flags")
+    mesh.add_argument("--num-processes", type=int, default=1,
+                      help="number of processes (hosts) [default 1]")
+    mesh.add_argument("--process-id", type=int, default=0,
+                      help="this process's index in [0, num-processes)")
+    mesh.add_argument("--local-devices", type=int, default=None,
+                      metavar="L",
+                      help="ranks this process spawns [default 1]; with "
+                           "--device cuda, L CUDA devices on this host")
     unsupported = ap.add_argument_group(
-        "not supported by this port yet (refused with exit code 2; "
-        "--num-processes 1 and --process-id 0 are accepted)")
-    unsupported.add_argument("--devices", type=int, default=None)
-    unsupported.add_argument("--grid", type=int, nargs=2, default=None,
-                             metavar=("R", "C"))
+        "not supported by this port yet (refused with exit code 2)")
     unsupported.add_argument("--overlap", action="store_true")
     unsupported.add_argument("--checkpoint", nargs="?", const=60.0,
                              type=float, default=None, metavar="SECONDS")
     unsupported.add_argument("--load-checkpoint", action="store_true")
     unsupported.add_argument("--checkpoint-dir", default=None)
-    unsupported.add_argument("--coordinator", default=None,
-                             metavar="HOST:PORT")
-    unsupported.add_argument("--num-processes", type=int, default=1)
-    unsupported.add_argument("--process-id", type=int, default=0)
-    unsupported.add_argument("--local-devices", type=int, default=None)
     return ap
 
 
@@ -133,6 +161,67 @@ def _refusal(args) -> str | None:
     return None
 
 
+@dataclasses.dataclass(frozen=True)
+class MeshPlan:
+    """The ranks this process spawns and the grid they form."""
+    R: int
+    C: int
+    devices: tuple          # one a local rank
+    backend: str
+    init_method: str | None
+    world: int
+    rank_offset: int
+
+
+def _mesh_plan(args):
+    """None for the one-device solve, a MeshPlan, or the reason (str) to
+    exit with code 2."""
+    if args.coordinator is None:
+        if args.single:
+            return None
+        if args.num_processes != 1:
+            return "--num-processes needs --coordinator"
+        if args.process_id != 0:
+            return "--process-id needs --coordinator"
+        if args.local_devices is not None:
+            return "--local-devices needs --coordinator"
+        if args.devices is None and args.grid is None:
+            return None
+        local = world = (args.grid[0] * args.grid[1] if args.grid
+                         else args.devices)
+        init_method, offset = None, 0
+    else:
+        P, local = args.num_processes, args.local_devices or 1
+        if P < 1 or local < 1:
+            return "--num-processes and --local-devices must be >= 1"
+        if not 0 <= args.process_id < P:
+            return (f"--process-id {args.process_id} is not in "
+                    f"[0, {P})")
+        world, offset = P * local, args.process_id * local
+        init_method = (args.coordinator if "://" in args.coordinator
+                       else f"tcp://{args.coordinator}")
+    R, C = (tuple(args.grid) if args.grid
+            else (args.devices, 1) if args.devices else (world, 1))
+    if R < 1 or C < 1:
+        return f"the grid {R} x {C} must have R, C >= 1"
+    if args.devices is not None and args.devices != R * C:
+        return f"--devices {args.devices} does not match the grid {R} x {C}"
+    if R * C != world:
+        return (f"the grid {R} x {C} needs {R * C} ranks; this world has "
+                f"{world} ({args.num_processes} process(es) x {local})")
+    if args.device == "cuda":
+        import torch
+        have = torch.cuda.device_count()
+        if local > have:
+            return (f"{local} ranks on this host need {local} CUDA devices "
+                    f"(one a rank); torch.cuda.device_count() = {have}")
+        devices = tuple(f"cuda:{k}" for k in range(local))
+        backend = "nccl"
+    else:
+        devices, backend = ("cpu",) * local, "gloo"
+    return MeshPlan(R, C, devices, backend, init_method, world, offset)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     if args.prime > WIDE_PRIME_CAP:
@@ -141,6 +230,9 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 1
     reason = _refusal(args)
+    plan = _mesh_plan(args) if reason is None else None
+    if isinstance(plan, str):
+        reason = plan
     if reason is not None:
         print(reason, file=sys.stderr)
         return 2
@@ -148,42 +240,93 @@ def main(argv=None) -> int:
         print("--stop-after and --output-file are mutually exclusive",
               file=sys.stderr)
         return 1
+    if plan is None:
+        return _solve(args)
+    from block_lanczos_tpu_torch.parallel import launch
+    try:
+        rcs = launch.spawn(_mesh_rank, plan.devices, args=(args, plan),
+                           backend=plan.backend,
+                           init_method=plan.init_method,
+                           world_size=plan.world,
+                           rank_offset=plan.rank_offset)
+    except launch.RankFailed as e:
+        print(f"the mesh failed: {e}", file=sys.stderr)
+        return 1
+    return max(rcs)
+
+
+def _mesh_rank(rank, world, device, args, plan: MeshPlan) -> int:
+    """One rank of the mesh: the CLI's solve on the grid.  A rank that
+    fails exits non-zero, and the launcher then stops the others."""
+    from block_lanczos_tpu_torch.parallel.mesh import make_grid
+    rc = _solve(args, make_grid(plan.R, plan.C, device))
+    if rc != 0:
+        raise SystemExit(rc)
+    return rc
+
+
+def _make_solver(args, M, right: bool, grid):
+    checks, sync = not args.no_checks, args.sync_every
+    if args.prime > PRIME_CAP:
+        if grid is None:
+            from block_lanczos_tpu_torch.models.lanczos_wide import \
+                BlockLanczosWide
+            return BlockLanczosWide(M, n=args.n, right=right,
+                                    check_invariants=checks, sync_every=sync,
+                                    device=args.device)
+        from block_lanczos_tpu_torch.parallel.distributed_wide import \
+            ShardedBlockLanczosWide
+        return ShardedBlockLanczosWide(M, n=args.n, right=right, grid=grid,
+                                       check_invariants=checks,
+                                       sync_every=sync)
+    if args.prime == 2 and args.n % 32 == 0:
+        if grid is None:
+            from block_lanczos_tpu_torch.models.lanczos_gf2 import \
+                BlockLanczosGF2
+            return BlockLanczosGF2(M, n=args.n, right=right,
+                                   check_invariants=checks, sync_every=sync,
+                                   dedup=not args.no_dedup,
+                                   device=args.device)
+        from block_lanczos_tpu_torch.parallel.distributed_gf2 import \
+            ShardedBlockLanczosGF2
+        return ShardedBlockLanczosGF2(M, n=args.n, right=right, grid=grid,
+                                      check_invariants=checks,
+                                      sync_every=sync,
+                                      dedup=not args.no_dedup)
+    if grid is None:
+        from block_lanczos_tpu_torch.models.lanczos import BlockLanczos
+        return BlockLanczos(M, n=args.n, right=right,
+                            check_invariants=checks, sync_every=sync,
+                            device=args.device)
+    from block_lanczos_tpu_torch.parallel.distributed import \
+        ShardedBlockLanczos
+    return ShardedBlockLanczos(M, n=args.n, right=right, grid=grid,
+                               check_invariants=checks, sync_every=sync)
+
+
+def _solve(args, grid=None) -> int:
+    """Load, solve, salvage and write, on one device (grid None) or as
+    one rank of a grid; only the root rank prints and writes."""
+    root = grid is None or grid.is_root
     right = args.right and not args.left
 
+    def say(*a, err=False):
+        if root:
+            print(*a, file=sys.stderr if err else sys.stdout)
+
     try:
-        M = mmio.load_mtx(args.matrix, args.prime, verbose=True)
+        M = mmio.load_mtx(args.matrix, args.prime, verbose=root)
     except (OSError, ValueError) as e:
         print(f"cannot load matrix {args.matrix}: {e}", file=sys.stderr)
         return 1
-    print(f"  - {M.nrows} x {M.ncols} with {M.nnz} nz", file=sys.stderr)
-
+    say(f"  - {M.nrows} x {M.ncols} with {M.nnz} nz", err=True)
+    if args.prime > PRIME_CAP:
+        say("  - wide field (p > 2^30): native 64-bit residues", err=True)
+    elif args.prime == 2 and args.n % 32 == 0:
+        # the factorization case: bitsliced GF(2), 32 elements per word
+        say("  - GF(2) bitsliced path (p = 2, n % 32 == 0)", err=True)
     try:
-        if args.prime > PRIME_CAP:
-            print("  - wide field (p > 2^30): native 64-bit residues",
-                  file=sys.stderr)
-            from block_lanczos_tpu_torch.models.lanczos_wide import \
-                BlockLanczosWide
-            solver = BlockLanczosWide(M, n=args.n, right=right,
-                                      check_invariants=not args.no_checks,
-                                      sync_every=args.sync_every,
-                                      device=args.device)
-        elif args.prime == 2 and args.n % 32 == 0:
-            # the factorization case: bitsliced GF(2), 32 elements per word
-            print("  - GF(2) bitsliced path (p = 2, n % 32 == 0)",
-                  file=sys.stderr)
-            from block_lanczos_tpu_torch.models.lanczos_gf2 import \
-                BlockLanczosGF2
-            solver = BlockLanczosGF2(M, n=args.n, right=right,
-                                     check_invariants=not args.no_checks,
-                                     sync_every=args.sync_every,
-                                     dedup=not args.no_dedup,
-                                     device=args.device)
-        else:
-            from block_lanczos_tpu_torch.models.lanczos import BlockLanczos
-            solver = BlockLanczos(M, n=args.n, right=right,
-                                  check_invariants=not args.no_checks,
-                                  sync_every=args.sync_every,
-                                  device=args.device)
+        solver = _make_solver(args, M, right, grid)
     except (RuntimeError, ValueError) as e:
         print(e, file=sys.stderr)
         return 1
@@ -195,33 +338,36 @@ def main(argv=None) -> int:
         if iteration > 0:
             verb.tick(start)
 
-    res = solver.solve(stop_after=args.stop_after, verbose=True,
-                       on_iteration=on_iteration)
-    print()
+    res = solver.solve(stop_after=args.stop_after, verbose=root,
+                       on_iteration=on_iteration if root else None)
+    say()
     kernel, n_cols = res.kernel, args.n
     if args.salvage and res.product_zero is False and res.vtM is not None:
         from block_lanczos_tpu_torch.utils.salvage import (
             salvage_kernel, salvage_with_restarts)
         if args.salvage_restarts > 0:
+            # every rank re-solves: the restarts are collective on a mesh
             salvaged = salvage_with_restarts(
                 lambda: solver.solve(stop_after=args.stop_after,
-                                     verbose=True),
+                                     verbose=root),
                 res, args.prime, args.n, restarts=args.salvage_restarts,
-                verbose=True)
+                verbose=root)
         else:
             salvaged = salvage_kernel(res.kernel, res.vtM, args.prime)
-            print(f"Salvage: recovered {salvaged.shape[1]} / {args.n} "
-                  "verified kernel vectors from the partially-converged "
-                  "block")
+            say(f"Salvage: recovered {salvaged.shape[1]} / {args.n} "
+                "verified kernel vectors from the partially-converged "
+                "block")
         if salvaged.shape[1] == 0:
-            print("Salvage found no kernel vectors", file=sys.stderr)
+            say("Salvage found no kernel vectors", err=True)
             return 1
         kernel, n_cols = salvaged, salvaged.shape[1]
     if args.output_file:
-        print(f"Saving result in {args.output_file}")
-        mmio.write_kernel_mtx(args.output_file, kernel, solver.n_eff, n_cols)
+        say(f"Saving result in {args.output_file}")
+        if root:
+            mmio.write_kernel_mtx(args.output_file, kernel, solver.n_eff,
+                                  n_cols)
     else:
-        print("Not saving result (no --output given)")
+        say("Not saving result (no --output given)")
     return 0
 
 

@@ -9,6 +9,7 @@
     python -m block_lanczos_tpu_torch.utils.profile_solve --field wide --n 4
     python -m block_lanczos_tpu_torch.utils.profile_solve --field wide \
         --n 32 --iters 100
+    python -m block_lanczos_tpu_torch.utils.profile_solve --mesh --n 4
 
 Builds the matrix, runs the solver's iteration on the card, and reports for
 a window of iterations far from the solve's end (narrow and wide field:
@@ -24,6 +25,13 @@ at n = 256; or --iters, e.g. 100 as the depth-cut bench-n32 cells):
     belongs to the wrapper whose name is its longest prefix);
   * the device's busy share of the profiled window (kernel time / wall) and
     hence its idle share, which is the host's launch overhead.
+With --mesh the iteration is the sharded solver's (parallel/) on a 1 x 1
+grid over NCCL in this process: the field's kernels with an exact
+all-reduce (pack, torch.distributed.all_reduce, fold) after each partial;
+NCCL's own kernels count in the busy time, and the host's cost of one
+collective call on tmp, of the all_reduce of its payload and of its pack
+and fold kernels is timed alone (1000 calls each, host clock, one sync at
+the end).
 Matrices: `bench` is utils/gen.py's BENCH_* configuration (the one bench.py
 and chip_smoke.py use), mod BENCH_PRIME for the narrow field, mod
 WIDE_BENCH_PRIME = 2^61 - 1 for the wide field and mod 2 for GF(2); `3Mx2M` is the JAX bench's factorization-scale GF(2) instance
@@ -78,11 +86,50 @@ def _matrix(name: str, prime: int):
                      j.astype(np.int32), (x % prime).astype(dtype), prime)
 
 
+def _mesh_solver(M, field: str, n: int):
+    """The field's sharded solver on a 1 x 1 NCCL grid of this process (the
+    process group made at the first call) and its one-iteration step."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from block_lanczos_tpu_torch.parallel import distributed as D
+    from block_lanczos_tpu_torch.parallel import multihost
+    from block_lanczos_tpu_torch.parallel.distributed_gf2 import \
+        ShardedBlockLanczosGF2
+    from block_lanczos_tpu_torch.parallel.distributed_wide import \
+        ShardedBlockLanczosWide
+    from block_lanczos_tpu_torch.parallel.mesh import make_grid
+    if not dist.is_initialized():
+        rdv = os.path.join(tempfile.mkdtemp(prefix="bl_profile_"), "rdv")
+        multihost.init_distributed("file://" + rdv, 1, 0, "nccl", 300,
+                                   torch.device("cuda", 0))
+    grid = make_grid(1, 1, torch.device("cuda", 0))
+    cls = {"narrow": D.ShardedBlockLanczos, "wide": ShardedBlockLanczosWide,
+           "gf2": ShardedBlockLanczosGF2}[field]
+    return cls(M, n=n, grid=grid), D
+
+
+def _host_us_per_call(fn, calls: int = 1000) -> float:
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / calls * 1e6
+
+
 def profile_width(M, field: str, n: int, label: str,
-                  iters: int | None = None) -> dict:
+                  iters: int | None = None, mesh: bool = False) -> dict:
     """Profile a window of `iters` iterations (default by n, above) at
     block width n on the matrix M (mod 2 for GF(2)) in `field` ("narrow",
-    "wide" or "gf2"); prints the breakdown and returns its JSON record."""
+    "wide" or "gf2"), on one device or (mesh) a 1 x 1 NCCL grid; prints
+    the breakdown and returns its JSON record."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -91,7 +138,30 @@ def profile_width(M, field: str, n: int, label: str,
     gf2 = field == "gf2"
     iters = iters or (16384 if gf2 else 4096) // n
     t0 = time.perf_counter()
-    if field == "wide":
+    host_us = None
+    if mesh:
+        import torch.distributed as dist
+
+        from block_lanczos_tpu_torch.parallel import collectives as C
+        s, L = _mesh_solver(M, field, n)
+        mesh_ws = s._workspace()
+
+        def step(ws):
+            s._step(v, p_blk, state, mesh_ws)
+
+        tmp, group = mesh_ws["tmp"], s.grid.rows_group
+        payload = C.spread_xor(tmp, 1) if gf2 else tmp
+        call = {"narrow": lambda: C.psum_mod(tmp, s.f.p, group),
+                "wide": lambda: C.psum_mod_wide(tmp, s.f, group),
+                "gf2": lambda: C.pxor(tmp, group)}[field]
+        fold = {"narrow": lambda: C.fold_mod(tmp, tmp, s.f.p),
+                "wide": lambda: C.fold_wide(tmp, tmp, s.f),
+                "gf2": lambda: C.fold_xor(C.spread_xor(tmp, 1), tmp)}[field]
+        host_us = {"collective": _host_us_per_call(call),
+                   "all_reduce": _host_us_per_call(
+                       lambda: dist.all_reduce(payload, group=group)),
+                   "pack_and_fold": _host_us_per_call(fold)}
+    elif field == "wide":
         from block_lanczos_tpu_torch.models import lanczos_wide as L
         s = L.BlockLanczosWide(M, n=n)
 
@@ -113,7 +183,7 @@ def profile_width(M, field: str, n: int, label: str,
             L.iteration_step(s.f, s.mp_rows, s.np_rows, True, s.first_op,
                              s.second_op, v, p_blk, state, ws)
     t1 = time.perf_counter()
-    v = s.initial_block()
+    v = s._band(s._v0()) if mesh else s.initial_block()
     setup_s = (t1 - t0, time.perf_counter() - t1)
     p_blk = torch.zeros_like(v)
     state = new_state(v.device)
@@ -147,21 +217,25 @@ def profile_width(M, field: str, n: int, label: str,
         if dev_us is None:
             dev_us = evt.cuda_time_total
         name = kernel_name(evt.key)
-        if dev_us and name.endswith("_kernel"):
+        if dev_us and (name.endswith("_kernel") or name.startswith("nccl")):
             per_kernel[name] = per_kernel.get(name, 0.0) + dev_us / iters / 1e3
     per_launch = {}
     for name, ms in per_kernel.items():
         w = wrapper_of(name, launches)
-        if w is None:   # a PyTorch kernel: in the busy time, no wrapper's
-            continue
+        if w is None or not launches[w]:   # PyTorch's or NCCL's kernel:
+            continue                        # in the busy time, no wrapper's
         per_launch[w] = per_launch.get(w, 0.0) + ms * iters / launches[w]
     busy_ms = sum(per_kernel.values())
     iter_ms = prof_s / iters * 1e3
     card = _card()
-    bands = ([len(op) for op in (s.first_op, s.second_op)]
-             if gf2 else None)
-    print(f"card: {card}; {field} n={n}, matrix {label} ({M.nrows} x "
-          f"{M.ncols}, {M.nnz} entries, {s.nnz if gf2 else M.nnz} in the "
+    ops = (s.ops.first, s.ops.second) if mesh else (s.first_op,
+                                                     s.second_op)
+    bands = [len(op) for op in ops] if gf2 else None
+    nnz = (int(s.ops.stats.shard_nnz.sum()) if mesh
+           else s.nnz if gf2 else M.nnz)
+    where = "a 1 x 1 NCCL mesh" if mesh else "one device"
+    print(f"card: {card}; {field} n={n} on {where}, matrix {label} "
+          f"({M.nrows} x {M.ncols}, {M.nnz} entries, {nnz} in the "
           f"operator{f', column bands {bands}' if gf2 else ''}), {iters} "
           f"iterations; solver setup {setup_s[0]:.1f} s, v0 "
           f"{setup_s[1]:.1f} s")
@@ -171,6 +245,9 @@ def profile_width(M, field: str, n: int, label: str,
           "sync)")
     for name, ms in sorted(per_kernel.items(), key=lambda kv: -kv[1]):
         print(f"  {name}: {ms:.4f} ms/iter device time")
+    if host_us:
+        print("  host us a call, alone: " + ", ".join(
+            f"{k} {v:.1f}" for k, v in host_us.items()))
     for w, ms in sorted(per_launch.items()):
         print(f"  {w}: {ms:.4f} ms/launch device time, "
               f"{launches[w] / iters:g} launches/iter")
@@ -181,7 +258,8 @@ def profile_width(M, field: str, n: int, label: str,
     else:
         print("  the profiler recorded no device time: busy share not "
               "measured")
-    record = {"card": card, "field": field, "n": n,
+    record = {"card": card, "field": field, "n": n, "mesh": mesh,
+              "host_us_per_call": host_us,
               "matrix": label, "iters": iters, "bands": bands,
               "wall_ms_per_iter": plain_s / iters * 1e3,
               "issue_ms_per_iter": issue_s / iters * 1e3,
@@ -204,6 +282,9 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=None,
                     help="iterations in the window [default 4096/n, GF(2) "
                          "16384/n]")
+    ap.add_argument("--mesh", action="store_true",
+                    help="the sharded solver's iteration on a 1 x 1 NCCL "
+                         "grid (its collectives' cost on one card)")
     args = ap.parse_args(argv)
     gf2 = args.field == "gf2"
 
@@ -220,7 +301,7 @@ def main(argv=None) -> int:
     print(f"matrix {args.matrix}: {M.nrows} x {M.ncols}, {M.nnz} entries, "
           f"generated in {time.perf_counter() - t0:.1f} s")
     for n in args.n or [128 if gf2 else 4]:
-        profile_width(M, args.field, n, args.matrix, args.iters)
+        profile_width(M, args.field, n, args.matrix, args.iters, args.mesh)
     return 0
 
 

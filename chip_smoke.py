@@ -8,8 +8,9 @@ CUDA toolkit (nvcc).  Phases, each of which raises (non-zero exit) on
 failure:
 
   0. print the card's name and power limit; require CUDA;
-  1. build the twelve CUDA kernels from block_lanczos_tpu_torch/csrc/ (four
-     narrow-field, four bitsliced GF(2), four wide-field), and two builds
+  1. build the CUDA kernels from block_lanczos_tpu_torch/csrc/ (four
+     narrow-field, four bitsliced GF(2), four wide-field, and the mesh's
+     collectives), and two builds
      that phase 2 uses beside them (gram_wide recombining every 64 / 128
      rows; spmv_wide's gather-only floor);
   2. hold every kernel against its plain PyTorch version on the card, at
@@ -103,8 +104,32 @@ failure:
   10. 50 iterations of BlockLanczosWide and of the narrow BlockLanczos at
      the narrow bench prime, n = 4, each from its own xoshiro v0: v and p
      must be equal;
-  11. print the kernels JSON line (twelve kernels), the card line, and the
-     result line.
+  12. the mesh's three collectives (csrc/collectives.cu: psum_mod,
+     psum_mod_wide, pxor) against their plain versions: the folds fed sums
+     of R = 1, 2, 3, 4, 15, 16 and 255 ranks' partials made on the card
+     (random, every partial p - 1, every word all ones or bit 31 alone), at
+     2, 3, 65537, 2^30 - 35 and the bench prime, and at 2^30 + 3, 2^61 - 1
+     and 4611686018427387847, at the mesh's shapes, an edge shape, empty
+     tensors and misaligned views, also against the exact sums (Python ints
+     for psum_mod_wide, the XOR of the words for pxor); the packs and
+     spreads likewise; each timed at the 1-rank payload (CUDA events,
+     median) with its bound and, for psum_mod and psum_mod_wide,
+     torch.remainder;
+  13. the mesh path at full size on a 1-rank NCCL group: the three sharded
+     solvers (parallel/) on a 1 x 1 grid solve bench-n4, bench-gf2-n128 and
+     bench-wide-p61-n4 whole; each kernel must equal the single-device
+     solve's (phases 4, 6, 9) and pass the checker, the launch counts
+     (reset just before, read just after each solve) must show every
+     kernel of the field and its collective three times an iteration; the
+     transport's 1-rank all_reduce is timed on its own;
+  14. a 2 x 2 and a 4 x 1 grid of 4 ranks over gloo, all on the one card
+     (spawned by parallel/launch.py; the 4 x 1 grid's axis of 4 takes K1's
+     int64 payload, K2's halves and K3's 4-bit lanes): 200 iterations of
+     each field at the bench size on each; v and p must equal the
+     single-device solvers' after 200 iterations (a check of the mesh,
+     not a multi-GPU speed);
+  11. last: print the kernels JSON line (fifteen kernels), the card line,
+     and the result line.
 
 Scratch files go to build/chip_smoke/ in the checkout.  Design
 measurements (the kernels' shapes and layouts) are in
@@ -1398,6 +1423,374 @@ def check_wide_kernels(recs, rng, dev, ws):
               + (f"; {r.note}" if r.note else ""), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The mesh's collectives (csrc/collectives.cu) and the mesh itself
+# ---------------------------------------------------------------------------
+
+# axis sizes whose sums phase 12 feeds to the folds: every payload switch
+# (K1 int32 -> int64, K2 whole -> halves, K3's lane widths 2 / 4 / 8 / 16)
+# on both sides
+COLL_RANKS = (1, 2, 3, 4, 15, 16, 255)
+COLL_NARROW_PRIMES = (2, 3, 65537, 1073741789, (1 << 30) - 35)
+COLL_WIDE_PRIMES = WIDE_PRIMES
+MESH_ITERS = 200           # phase 14's iterations of each field
+# phase 14's grids of 4 ranks: (2, 2) splits both axes; (4, 1) sums over
+# an axis of 4, where K1 sends int64, K2 two 31-bit halves and K3 4-bit lanes
+MESH_GRIDS = ((2, 2), (4, 1))
+MESH_RANKS = 4
+# each field's kernels on the mesh: its SpMV (two an iteration), the
+# three others (one each) and its collective (three)
+MESH_KERNELS = {
+    "narrow": ("spmv_ell", "gram_mod", "semi_inverse", "orthogonalize",
+               "psum_mod"),
+    "gf2": ("spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2",
+            "pxor"),
+    "wide": ("spmv_wide", "gram_wide", "semi_inverse_wide",
+             "orthogonalize_wide", "psum_mod_wide")}
+
+
+def check_collectives(recs, dev, shapes, wshapes, gshapes):
+    """K1-K3 against their plain versions: the folds fed sums of R ranks'
+    partials made here on the card (R in COLL_RANKS), random and at the
+    extremes (every partial p - 1, every word all ones), the packs on
+    partials with p - 1 and bit 31 set, at the mesh's shapes (`shapes`:
+    tmp, Av and the Grams of the 1 x 1 mesh's bench solve; wide and GF(2)
+    likewise), an edge shape, empty tensors and misaligned views; the
+    folds also against the exact sums (Python ints on a sample for K2,
+    the XOR of the ranks' words for K3).  Then each is timed at the 1-rank
+    payload of phase 13 (CUDA events, median), with its bound (bytes at
+    the HBM rate) and, for K1 and K2, torch.remainder as the library
+    yardstick (at the 1-rank payload each fold is x mod p)."""
+    import torch
+    from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
+    from block_lanczos_tpu_torch.parallel import collectives as C
+    tg = torch.Generator(device=dev)
+    tg.manual_seed(12)
+
+    def rint(shape, low, high):          # [low, high], int64
+        return torch.randint(low, high + 1, shape, generator=tg,
+                             device=dev, dtype=torch.int64)
+
+    edge = [(0, 4), (EDGE_ROWS, 3), (1, 1)]
+    # K1: narrow residues
+    rec = recs["psum_mod"]
+    for p in COLL_NARROW_PRIMES:
+        for R in COLL_RANKS:
+            dtype = C.mod_payload_dtype(R, p)
+            for shape in list(shapes) + edge:
+                top = R * (p - 1)
+                S = rint(shape, 0, top)
+                S.view(-1)[:7] = top          # every partial p - 1
+                S.view(-1)[7:9] = 0
+                sums = S.to(dtype)
+                for skew in (0, 1):
+                    pay = skewed(sums) if skew else sums
+                    xk = torch.empty(shape, dtype=torch.int32, device=dev)
+                    if skew:
+                        xk = skewed(xk)
+                    xp = torch.empty(shape, dtype=torch.int32, device=dev)
+                    C.fold_mod(pay, xk, p)
+                    C.fold_mod_plain(pay, xp, p)
+                    what = f"fold p={p} R={R} {shape} misaligned={skew}"
+                    rec.agree(what, xk, xp)
+                    rec.agree(what + " vs S % p", xk, (S % p).to(torch.int32))
+                x = rint(shape, 0, p - 1).to(torch.int32)
+                x.view(-1)[:5] = p - 1
+                rec.agree(f"pack p={p} R={R} {shape}", C.pack_mod(x, R, p),
+                          C.pack_mod_plain(x, R, p))
+    print(f"  psum_mod: {rec.cases} cases equal", flush=True)
+
+    # K2: wide residues
+    rec = recs["psum_mod_wide"]
+    m31 = (1 << 31) - 1
+    for p in COLL_WIDE_PRIMES:
+        f = GFpWide.make(p)
+        for R in COLL_RANKS:
+            for shape in list(wshapes) + edge:
+                if C.wide_halves(R):
+                    lo = rint(shape, 0, R * m31)
+                    hi = rint(shape, 0, R * ((p - 1) >> 31))
+                    lo.view(-1)[:7] = R * ((p - 1) & m31)
+                    hi.view(-1)[:7] = R * ((p - 1) >> 31)
+                    sums = torch.stack([lo, hi])
+                else:
+                    sums = rint(shape, 0, R * (p - 1))
+                    sums.view(-1)[:7] = R * (p - 1)
+                for skew in (0, 1):
+                    pay = skewed(sums) if skew else sums
+                    xk = torch.empty(shape, dtype=torch.int64, device=dev)
+                    if skew:
+                        xk = skewed(xk)
+                    xp = torch.empty(shape, dtype=torch.int64, device=dev)
+                    C.fold_wide(pay, xk, f)
+                    C.fold_wide_plain(pay, xp, p)
+                    rec.agree(f"fold p={p} R={R} {shape} misaligned={skew}",
+                              xk, xp)
+                # the exact sums on a sample, in Python ints
+                k = min(64, xk.numel())
+                if C.wide_halves(R):
+                    lo_h = zip(sums[0].view(-1)[:k].tolist(),
+                               sums[1].view(-1)[:k].tolist())
+                    want = [((h << 31) + lo_) % p for lo_, h in lo_h]
+                else:
+                    want = [s_ % p for s_ in sums.view(-1)[:k].tolist()]
+                if xk.view(-1)[:k].tolist() != want:
+                    raise AssertionError(f"psum_mod_wide fold p={p} R={R} "
+                                         f"{shape}: not the exact sum")
+                x = rint(shape, 0, p - 1)
+                x.view(-1)[:5] = p - 1
+                rec.agree(f"pack p={p} R={R} {shape}", C.pack_wide(x, R),
+                          C.pack_wide_plain(x, R))
+    print(f"  psum_mod_wide: {rec.cases} cases equal", flush=True)
+
+    # K3: XOR of words
+    rec = recs["pxor"]
+    for R in COLL_RANKS:
+        lanes = C.pxor_lanes(R)
+        for shape in list(gshapes) + edge:
+            S = torch.zeros((lanes,) + tuple(shape), dtype=torch.int64,
+                            device=dev)
+            X = torch.zeros(shape, dtype=torch.int32, device=dev)
+            for r in range(R):
+                w = rint(shape, -(1 << 31), (1 << 31) - 1).to(torch.int32)
+                w.view(-1)[:7] = -1                   # every bit set
+                w.view(-1)[7:9] = -(1 << 31)          # bit 31 alone
+                sk = C.spread_xor(skewed(w) if r == 1 else w, R)
+                if r < 2:
+                    rec.agree(f"spread R={R} {shape} rank {r}", sk,
+                              C.spread_xor_plain(w, R))
+                S += sk
+                X ^= w
+            if S.numel() and not (-(1 << 31) <= int(S.min())
+                                  and int(S.max()) < 1 << 31):
+                raise AssertionError(f"pxor lane sums leave int32 at R={R}")
+            sums = S.to(torch.int32)
+            for skew in (0, 1):
+                pay = skewed(sums) if skew else sums
+                xk = torch.empty(shape, dtype=torch.int32, device=dev)
+                if skew:
+                    xk = skewed(xk)
+                xp = torch.empty(shape, dtype=torch.int32, device=dev)
+                C.fold_xor(pay, xk)
+                C.fold_xor_plain(pay, xp)
+                what = f"fold R={R} {shape} misaligned={skew}"
+                rec.agree(what, xk, xp)
+                rec.agree(what + " vs XOR", xk, X)
+    print(f"  pxor: {rec.cases} cases equal", flush=True)
+
+    # times at phase 13's 1-rank payloads, the mean over a call's shapes
+    pb = COLL_NARROW_PRIMES[3]                 # the bench prime
+    fw = GFpWide.make(COLL_WIDE_PRIMES[1])     # 2^61 - 1
+    rows = []
+    for name, shp, dtype, top, nbytes_el in (
+            ("psum_mod", shapes, torch.int32, pb - 1, 8),
+            ("psum_mod_wide", wshapes, torch.int64, fw.p - 1, 16),
+            # 4 B read, 2 planes of 4 B written and read, 4 B written
+            ("pxor", gshapes, torch.int32, None, 24)):
+        ms, plain, lib, nbytes = [], [], [], []
+        for shape in shp:
+            x = (rint(shape, -(1 << 31), (1 << 31) - 1) if top is None
+                 else rint(shape, 0, top)).to(dtype)
+            ms.append(median_ms(lambda: one_rank_call(C, name, x, pb, fw)))
+            plain.append(median_ms(
+                lambda: one_rank_call(C, name, x, pb, fw, plain=True),
+                reps=5))
+            if name != "pxor":
+                pl = pb if name == "psum_mod" else fw.p
+                lib.append(median_ms(lambda: torch.remainder(x, pl, out=x)))
+            nbytes.append(nbytes_el * x.numel())
+        rec = recs[name]
+        rec.ms, rec.plain_ms = statistics.mean(ms), statistics.mean(plain)
+        rec.library_ms = statistics.mean(lib) if lib else None
+        rec.set_bound(statistics.mean(nbytes), 0)
+        rows.append(f"{name} {rec.ms:.4f} ms (plain {rec.plain_ms:.4f}, "
+                    f"bound {rec.bound_ms:.6f} {rec.bound_by}"
+                    + (f", torch.remainder {rec.library_ms:.4f}" if lib
+                       else "") + ")")
+    print("  the 1-rank payloads, a call (mean over its shapes): "
+          + "; ".join(rows), flush=True)
+
+
+def one_rank_call(C, name, x, p, f, plain=False):
+    """What a call of collective `name` runs around the transport on a
+    1-rank group (phase 13's payloads): the fold of x's own sum (the
+    payload is x itself) or, for pxor, the spread and the fold; by the
+    kernels, or by their plain versions."""
+    if name == "pxor":
+        pay = (C.spread_xor_plain if plain else C.spread_xor)(x, 1)
+        (C.fold_xor_plain if plain else C.fold_xor)(pay, x)
+    elif name == "psum_mod":
+        (C.fold_mod_plain if plain else C.fold_mod)(x, x, p)
+    elif plain:
+        C.fold_wide_plain(x, x, f.p)
+    else:
+        C.fold_wide(x, x, f)
+
+
+def _mesh_rank(rank, world, device, coo, primes, n_by_field, iters):
+    """Phase 14's rank: the three fields' sharded solvers on each grid of
+    MESH_GRIDS over gloo, `iters` iterations each; returns (v, p) of each
+    (by (grid, field)) in true row order, the iterations, and the launch
+    counts of this rank."""
+    from block_lanczos_tpu_torch.parallel import distributed as D
+    from block_lanczos_tpu_torch.parallel.distributed_gf2 import \
+        ShardedBlockLanczosGF2
+    from block_lanczos_tpu_torch.parallel.distributed_wide import \
+        ShardedBlockLanczosWide
+    from block_lanczos_tpu_torch.parallel.mesh import make_grid
+    from block_lanczos_tpu_torch.utils import mmio
+    nrows, ncols, i, j, x = coo
+    grids = [make_grid(*g, device) for g in MESH_GRIDS]
+    out = {}
+    D.reset_launch_counts()
+    for g, grid in zip(MESH_GRIDS, grids):
+        for field, cls, dtype in (
+                ("narrow", D.ShardedBlockLanczos, np.uint32),
+                ("gf2", ShardedBlockLanczosGF2, np.uint32),
+                ("wide", ShardedBlockLanczosWide, np.uint64)):
+            M = mmio.COOMatrix(nrows, ncols, len(i), i, j, x.astype(dtype),
+                               primes[field])
+            solver = cls(M, n=n_by_field[field], grid=grid)
+            last = {}
+
+            def grab(slv, iteration, v, p_blk, start):
+                last["vp"] = (slv.gather_rows(v), slv.gather_rows(p_blk),
+                              iteration)
+            t0 = time.time()
+            res = solver.solve(stop_after=iters, on_iteration=grab)
+            out[g, field] = last["vp"] + (res.iterations, time.time() - t0)
+            del solver
+    out["counts"] = D.launch_counts()
+    return out if rank == 0 else None
+
+
+
+def mesh_solves(recs, dev, backend, cases, shapes, mtx, card):
+    """Phase 13: each (field, M, n, one-device result, prime) of `cases`
+    solved whole by the field's sharded solver on a 1 x 1 grid of this
+    process over `backend`; the kernel must equal the one-device solve's
+    and pass the checker (on the file mtx[field]), and the launch counts
+    (reset just before, read just after) show each of the field's kernels
+    and its collective three times an iteration.  The transport's all_reduce of each collective's
+    1-rank payload (`shapes`) is timed on its own.  Returns the
+    collectives' launch counts."""
+    import torch
+    import torch.distributed as tdist
+    from block_lanczos_tpu_torch.parallel import distributed as D
+    from block_lanczos_tpu_torch.parallel import multihost
+    from block_lanczos_tpu_torch.parallel.distributed_gf2 import \
+        ShardedBlockLanczosGF2
+    from block_lanczos_tpu_torch.parallel.distributed_wide import \
+        ShardedBlockLanczosWide
+    from block_lanczos_tpu_torch.parallel.mesh import make_grid
+    from block_lanczos_tpu_torch.utils import checker, mmio, salvage
+    solvers = {"narrow": D.ShardedBlockLanczos,
+               "gf2": ShardedBlockLanczosGF2, "wide": ShardedBlockLanczosWide}
+    rdv = os.path.join(WORK, "mesh_rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    multihost.init_distributed("file://" + rdv, 1, 0, backend, 300, dev)
+    grid = make_grid(1, 1, dev)
+    # the transport alone, for the record (not in the kernels' ms)
+    for name, dtype, planes in (("psum_mod", torch.int32, ()),
+                                ("psum_mod_wide", torch.int64, ()),
+                                ("pxor", torch.int32, (2,))):
+        t_ar = statistics.mean(
+            median_ms(lambda: tdist.all_reduce(t, group=grid.rows_group))
+            for t in (torch.zeros(planes + tuple(sh), dtype=dtype,
+                                  device=dev) for sh in shapes[name]))
+        recs[name].note = (f"1-rank {backend} all_reduce of the payload: "
+                           f"{t_ar:.4f} ms a call (not in ms)")
+        print(f"  {name}: {recs[name].note}", flush=True)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    mesh_counts = {}
+    try:
+        for field, Mx, n, want, fp in cases:
+            t0 = time.time()
+            msolver = solvers[field](Mx, n=n, grid=grid)
+            t1 = time.time()
+            D.reset_launch_counts()
+            sync()
+            mres = msolver.solve(verbose=True)
+            sync()
+            mc = D.launch_counts()
+            it = mres.iterations
+            print(f"  {field}: layout {t1 - t0:.1f} s; {it} iterations, loop "
+                  f"{mres.elapsed:.3f} s, "
+                  f"{mres.elapsed / max(it, 1) * 1e3:.4f} ms/iter against "
+                  "the one-device solve's "
+                  f"{want.elapsed / max(want.iterations, 1) * 1e3:.4f} "
+                  f"[{card}]", flush=True)
+            print(f"  launches during the solve: {mc}", flush=True)
+            if it != want.iterations or not np.array_equal(mres.kernel,
+                                                           want.kernel):
+                raise AssertionError(f"{field}: the 1 x 1 mesh's kernel "
+                                     "differs from the one-device solve's")
+            assert (mres.v_nonzero, mres.product_zero) == \
+                (want.v_nonzero, want.product_zero), field
+            kernel = mres.kernel
+            if not mres.product_zero:
+                kernel = salvage.salvage_kernel(mres.kernel, mres.vtM, fp)
+                assert kernel.shape[1] >= 1, "salvage recovered no vector"
+            kpath = os.path.join(WORK, f"mesh_{field}.kernel.mtx")
+            mmio.write_kernel_mtx(kpath, kernel, msolver.n_eff,
+                                  kernel.shape[1])
+            checker.check_kernel_file(mtx[field], kpath, fp, verbose=True)
+            spmv, *rest, coll = MESH_KERNELS[field]
+            assert mc[spmv] >= 2 * it, mc
+            for name in rest:
+                assert mc[name] >= it, mc
+            assert mc[coll] >= 3 * it, mc
+            mesh_counts[coll] = mc[coll]
+    finally:
+        tdist.destroy_process_group()
+    return mesh_counts
+
+
+def mesh_grid_run(device, M, primes, refs, n_by_field, iters):
+    """Phase 14: the three fields' sharded solvers on each of MESH_GRIDS,
+    over MESH_RANKS ranks spawned over gloo, all on `device`, `iters`
+    iterations each (the matrix M's entries, at each field's prime); each
+    field's v and p must equal those of refs[field]() (a one-device
+    solver) after as many, on every grid."""
+    import torch
+    from block_lanczos_tpu_torch.parallel import launch
+    t0 = time.time()
+    out = launch.spawn(
+        _mesh_rank, [device] * MESH_RANKS,
+        args=((M.nrows, M.ncols, M.i, M.j, M.x), primes, n_by_field, iters),
+        backend="gloo", timeout_s=300, wall_s=900)[0]
+    print(f"  {MESH_RANKS} ranks spawned, built and run in "
+          f"{time.time() - t0:.1f} s; "
+          f"rank 0's launches: {out['counts']}", flush=True)
+    for field, make in refs.items():
+        ref = make()
+        got = {}
+
+        def grab(slv, iteration, v, p_blk, start):
+            got["vp"] = (v.clone(), p_blk.clone(), iteration)
+        ref.solve(stop_after=iters, on_iteration=grab)
+        rv, rp, rit = got["vp"]
+        for g in MESH_GRIDS:
+            mv, mp, mit, mits, msecs = out[g, field]
+            assert rit == mit == mits == iters, (g, field, rit, mit, mits)
+            for name, a, b in (("v", mv, rv), ("p", mp, rp)):
+                if not np.array_equal(a, b[:ref.n_eff].cpu().numpy()):
+                    raise AssertionError(
+                        f"phase 14 {field} on {g[0]} x {g[1]}: the mesh's "
+                        f"{name} differs from the one-device solver's after "
+                        f"{iters} iterations")
+            print(f"  {field} on {g[0]} x {g[1]}: v and p equal after "
+                  f"{iters} iterations; the mesh's loop took {msecs:.1f} s "
+                  f"({MESH_RANKS} ranks sharing one card over gloo: not a "
+                  "multi-GPU speed)", flush=True)
+        del ref
+    for name in ("psum_mod", "psum_mod_wide", "pxor"):
+        assert out["counts"][name] >= 3 * iters * len(MESH_GRIDS), \
+            out["counts"]
+
+
+
 def main() -> int:
     import torch
 
@@ -1419,7 +1812,7 @@ def main() -> int:
     prime = gen.BENCH_PRIME
 
     # ---- phase 1: build ---------------------------------------------------
-    # the twelve kernels and, beside them, the two builds phase 2 holds
+    # every kernel source and, beside them, the two builds phase 2 holds
     # equal (gram_wide recombining every 64 / 128 rows) or times (the
     # gather-only spmv_wide): one nvcc a source, all started together
     from concurrent.futures import ThreadPoolExecutor
@@ -1476,6 +1869,15 @@ def main() -> int:
             "orthogonalize_wide",
             "block_lanczos_tpu_torch/csrc/orthogonalize_wide.cu",
             "block_lanczos_tpu/models/lanczos_wide.py:30"),
+        "psum_mod": KernelRecord(
+            "psum_mod", "block_lanczos_tpu_torch/csrc/collectives.cu",
+            "block_lanczos_tpu/parallel/collectives.py:20"),
+        "psum_mod_wide": KernelRecord(
+            "psum_mod_wide", "block_lanczos_tpu_torch/csrc/collectives.cu",
+            "block_lanczos_tpu/parallel/collectives.py:28"),
+        "pxor": KernelRecord(
+            "pxor", "block_lanczos_tpu_torch/csrc/collectives.cu",
+            "block_lanczos_tpu/parallel/distributed_gf2.py:39"),
     }
     rng = np.random.default_rng(2024)
 
@@ -1728,7 +2130,7 @@ def main() -> int:
     L.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    res = solver4.solve(verbose=True)
+    res = res4 = solver4.solve(verbose=True)
     torch.cuda.synchronize()
     total_s = time.time() - t0
     counts = L.launch_counts()
@@ -1893,9 +2295,44 @@ def main() -> int:
     print(f"  v and p equal after 50 iterations ({w4.np_rows} x 4)",
           flush=True)
 
-    # ---- phase 11: summary ---------------------------------------------------
+    # ---- phase 12: the collectives against their plain versions -----------
+    print("phase 12: psum_mod, psum_mod_wide and pxor against their plain "
+          "versions, on sums of R in " + str(COLL_RANKS) + " ranks' "
+          "partials (tolerance 0)", flush=True)
+    mesh_shapes = ((solver4.mp_rows, 4), (solver4.np_rows, 4), (8, 4))
+    gmesh_shapes = ((gsolver.mp_rows, gsolver.W), (gsolver.np_rows, gsolver.W),
+                    (2 * 128, gsolver.W))
+    check_collectives(recs, dev, mesh_shapes, mesh_shapes, gmesh_shapes)
+    torch.cuda.synchronize()
+
+    # ---- phase 13: the mesh path at full size on a 1-rank NCCL group -------
+    print("phase 13: the three sharded solvers on a 1 x 1 grid over NCCL "
+          "(the mesh path: pack, all_reduce, fold after each partial), each "
+          "solve whole", flush=True)
+    mesh_counts = mesh_solves(
+        recs, torch.device("cuda", torch.cuda.current_device()), "nccl",
+        [("narrow", M, 4, res4, prime), ("gf2", M2, 128, gres, 2),
+         ("wide", Mw, 4, wres, wprime)],
+        {"psum_mod": mesh_shapes, "psum_mod_wide": mesh_shapes,
+         "pxor": gmesh_shapes}, dict.fromkeys(("narrow", "gf2", "wide"), mtx),
+        card)
+
+    # ---- phase 14: the multi-rank mesh on the one card ---------------------
+    grids = " and ".join(f"{r} x {c}" for r, c in MESH_GRIDS)
+    print(f"phase 14: grids {grids} of {MESH_RANKS} ranks over gloo, all on "
+          f"cuda:0, {MESH_ITERS} iterations of each field on each (the "
+          "per-shard kernels at shard shapes, the folds on 2- and 4-rank "
+          "sums; a check of the mesh, NOT a multi-GPU speed)", flush=True)
+    mesh_grid_run(DEVICE, M, {"narrow": prime, "gf2": 2, "wide": wprime},
+                  {"narrow": lambda: L.BlockLanczos(M, n=4, device=dev),
+                   "gf2": lambda: G.BlockLanczosGF2(M2, n=128, device=dev),
+                   "wide": lambda: LW.BlockLanczosWide(Mw, n=4, device=dev)},
+                  {"narrow": 4, "gf2": 128, "wide": 4}, MESH_ITERS)
+
+    # ---- phase 11: summary (last) -------------------------------------------
     counts.update(gcounts)
     counts.update(wcounts)
+    counts.update(mesh_counts)
     print(json.dumps({"kernels": [recs[k].as_json(counts[k]) for k in recs]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

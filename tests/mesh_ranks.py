@@ -1,0 +1,148 @@
+"""Rank functions for the mesh tests (tests/test_torch_mesh_*.py).
+
+parallel/launch.py spawns fresh interpreters, which import these by name:
+they live outside the test files so that a rank imports torch and the port
+only, never JAX.  Each returns its results from rank 0 (None elsewhere).
+"""
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
+from block_lanczos_tpu_torch.parallel import collectives as C
+from block_lanczos_tpu_torch.parallel import distributed as D
+from block_lanczos_tpu_torch.parallel.distributed_gf2 import \
+    ShardedBlockLanczosGF2
+from block_lanczos_tpu_torch.parallel.distributed_wide import \
+    ShardedBlockLanczosWide
+from block_lanczos_tpu_torch.parallel.mesh import make_grid
+from block_lanczos_tpu_torch.utils import mmio
+
+SOLVERS = {"narrow": D.ShardedBlockLanczos, "gf2": ShardedBlockLanczosGF2,
+           "wide": ShardedBlockLanczosWide}
+
+
+def collectives_job(rank, world, device, cases):
+    """cases: (kind, R, p, partials) with partials (R, ...) NumPy; the first
+    R ranks sum their partial by psum_mod / psum_mod_wide / pxor (kind
+    "mod", "wide", "xor") over a group of R ranks.  Returns every case's
+    result as rank 0 holds it, and as rank R - 1 holds it."""
+    sizes = sorted({R for _, R, _, _ in cases})
+    groups = {R: (dist.group.WORLD if R == world
+                  else dist.new_group(list(range(R)))) for R in sizes}
+    out = []
+    for kind, R, p, parts in cases:
+        if rank >= R:
+            out.append(None)
+            continue
+        x = torch.from_numpy(np.ascontiguousarray(parts[rank]))
+        if kind == "mod":
+            C.psum_mod(x, p, groups[R])
+        elif kind == "wide":
+            C.psum_mod_wide(x, GFpWide.make(p), groups[R])
+        else:
+            C.pxor(x, groups[R])
+        out.append(x.numpy())
+    # rank 0 collects the last member's copies, to show every rank agrees
+    gathered = [None] * world
+    dist.all_gather_object(gathered, out)
+    if rank != 0:
+        return None
+    last = [gathered[R - 1][k] for k, (_, R, _, _) in enumerate(cases)]
+    return out, last
+
+
+def _matrix(task):
+    m = task["matrix"]
+    if isinstance(m, str):
+        return mmio.load_mtx(m, task["prime"])
+    nrows, ncols, i, j, x = m
+    return mmio.COOMatrix(nrows, ncols, len(i), i, j, x, task["prime"])
+
+
+def _skew_grams(real):
+    def skewed(V1, V2, W, p, out=None):
+        g = real(V1, V2, W, p, out)
+        g[-1, 0] = (g[-1, 0] + 1) % p      # vtAAv no longer symmetric
+        return g
+    return skewed
+
+
+def _rounds(tasks):
+    """Consecutive tasks on disjoint ranks run side by side: a round."""
+    rounds, used = [], set()
+    for k, task in enumerate(tasks):
+        ranks = set(_ranks(task))
+        if not rounds or used & ranks:
+            rounds.append([])
+            used = set()
+        rounds[-1].append(k)
+        used |= ranks
+    return rounds
+
+
+def _ranks(task):
+    R, C_ = task["grid"]
+    return list(task.get("ranks", range(R * C_)))
+
+
+def _run(task, grid):
+    solver = SOLVERS[task["field"]](
+        _matrix(task), n=task["n"], right=task.get("right", False),
+        grid=grid, check_invariants=task.get("check", True),
+        sync_every=task.get("sync_every"))
+    iterates = []
+
+    def capture(slv, iteration, v, p_blk, start):
+        iterates.append((iteration, slv.gather_rows(v),
+                         slv.gather_rows(p_blk)))
+
+    real = D.gram_mod
+    if task.get("skew_gram"):
+        D.gram_mod = _skew_grams(real)
+    try:
+        res = solver.solve(
+            stop_after=task.get("stop_after", -1),
+            on_iteration=capture if task.get("capture") else None,
+            resume_state=task.get("resume"))
+        out = dict(kernel=res.kernel, iterations=res.iterations,
+                   v_nonzero=res.v_nonzero, product_zero=res.product_zero,
+                   stopped_by_limit=res.stopped_by_limit, iterates=iterates,
+                   row_identity=solver.row_map.identity,
+                   col_identity=solver.col_map.identity)
+    except AssertionError as e:
+        out = dict(error=str(e))
+    finally:
+        D.gram_mod = real
+    if "error" in out:          # every member's message, at the root
+        errors = [None] * grid.size
+        dist.all_gather_object(errors, out["error"], group=grid.group)
+        out["errors"] = errors
+    return out
+
+
+def solve_job(rank, world, device, tasks):
+    """Each task (a dict) on its own grid: grid (R, C) over `ranks`
+    (default the first R * C), field, matrix (a path or (nrows, ncols, i,
+    j, x)), prime, n, and optionally right, stop_after, sync_every,
+    resume, check, capture (the whole (v, p) in true order after every
+    block), skew_gram (a narrow Gram made non-symmetric on every rank: the
+    invariant check must fail on all of them).  Consecutive tasks on
+    disjoint ranks run side by side.  Returns the tasks' result dicts at
+    rank 0; a failed solve's dict holds every member rank's message."""
+    mine = {}
+    for round_ in _rounds(tasks):
+        grids = [make_grid(*tasks[k]["grid"], device, ranks=_ranks(tasks[k]))
+                 for k in round_]
+        for k, grid in zip(round_, grids):
+            if grid is not None:
+                out = _run(tasks[k], grid)
+                if grid.is_root:
+                    mine[k] = out
+    every = [None] * world
+    dist.all_gather_object(every, mine)
+    if rank != 0:
+        return None
+    merged = {k: v for d in every for k, v in d.items()}
+    return [merged[k] for k in range(len(tasks))]

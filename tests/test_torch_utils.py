@@ -168,12 +168,20 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     monkeypatch.setattr(kernels, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels.load_all()
-    assert set(kernels.SIGNATURES) == {
+    fields = {
         "spmv_ell", "gram_mod", "semi_inverse", "orthogonalize",
         "spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2",
         "spmv_wide", "gram_wide", "semi_inverse_wide", "orthogonalize_wide"}
+    # the mesh's collectives: a pack and a fold each, one source
+    mesh = {"psum_mod_pack", "psum_mod_fold", "psum_mod_wide_pack",
+            "psum_mod_wide_fold", "pxor_spread", "pxor_fold"}
+    assert set(kernels.SIGNATURES) == fields | mesh
+    assert set(kernels.SOURCE_NAMES) == fields | {"collectives"}
     for name in kernels.SIGNATURES:
-        assert (kernels.CSRC / f"{name}.cu").exists()
+        src = kernels.SOURCES.get(name, name)
+        assert (kernels.CSRC / f"{src}.cu").exists()
+        assert f'extern "C" int {name}(' in (kernels.CSRC /
+                                             f"{src}.cu").read_text()
 
 
 def test_kernel_variant_builds_are_kept_apart():
