@@ -37,16 +37,37 @@
 //
 // Bound: each is an elementwise pass over the partial and its payload, so
 // bytes at the HBM rate bound it (the transport's time is not the
-// kernel's); a grid-stride loop of 32-bit or 64-bit loads, coalesced, with
-// enough CTAs to fill the card.  Every entry point launches on the given
-// stream, does not synchronise, and returns cudaGetLastError(); a count of
-// 0 launches nothing.  Inputs are canonical residues (K1, K2): the
-// kernels that produce them (spmv, gram) reduce fully.
+// kernel's).  Every entry point launches on the given stream, does not
+// synchronise, and returns cudaGetLastError(); a count of 0 launches
+// nothing.  Inputs are canonical residues (K1, K2): the kernels that
+// produce them (spmv, gram) reduce fully.
+//
+// K1 and K2 (redesigned for Hopper; K3 keeps its first design):
+//   * one wave: the grid is the card's SMs times the CTAs of COLL_THREADS
+//     threads an SM holds of the kernel (read once per device), or fewer
+//     when the work needs fewer, each thread striding over the rest;
+//   * 16-byte accesses: each thread moves whole int4 / longlong2 vectors
+//     (4 int32 or 2 int64 elements a vector; K1's int64 payload two
+//     longlong2 for the int4 of x), with a scalar head that brings every
+//     pointer to a 16-byte boundary and a scalar tail; where no head aligns
+//     them all (views that start off a boundary by different amounts),
+//     the whole pass is scalar;
+//   * K1's int32 sums (below 2^31) fold by the 32-bit Barrett step
+//     (modp.cuh::barrett_reduce32, m = mu >> 32: one __umulhi), its int64
+//     sums by barrett_reduce; K2 keeps barrett_reduce for whole sums and
+//     reduce128 for halves.
+#include <stdint.h>
+
+#include <atomic>
+#include <initializer_list>
+
 #include "modp64.cuh"
 
 #define COLL_THREADS 256
 #define COLL_MAX_CTAS 4096
+#define MAX_DEVICES 64
 
+// K3's grid: a thread an element, at most COLL_MAX_CTAS CTAs.
 static inline unsigned coll_ctas(long long n) {
   const long long c = (n + COLL_THREADS - 1) / COLL_THREADS;
   return static_cast<unsigned>(c < COLL_MAX_CTAS ? c : COLL_MAX_CTAS);
@@ -57,47 +78,170 @@ static inline unsigned coll_ctas(long long n) {
                      threadIdx.x;                                      \
        i < (n); i += static_cast<long long>(gridDim.x) * blockDim.x)
 
+// The vector split of n elements: [0, head) and [head + vec * nvec, n) go
+// element by element, the nvec vectors of `vec` elements between them by
+// 16-byte accesses.
+struct Split {
+  long long head, nvec;
+};
+
+struct Operand {
+  const void* ptr;
+  int size;  // bytes an element
+};
+
+// head brings the first operand to a 16-byte boundary; every other operand
+// must then be on one at element head too (a vector advances each by a
+// multiple of 16 bytes: vec * size), else the pass is all scalar.
+static Split split16(long long n, int vec, std::initializer_list<Operand> ops) {
+  const Split scalar = {n, 0};
+  const uintptr_t a = reinterpret_cast<uintptr_t>(ops.begin()->ptr);
+  const int size = ops.begin()->size;
+  if (a % size) return scalar;
+  const long long head = static_cast<long long>((16 - a % 16) % 16) / size;
+  if (head >= n) return scalar;
+  for (const Operand& op : ops)
+    if ((reinterpret_cast<uintptr_t>(op.ptr) + head * op.size) % 16)
+      return scalar;
+  return {head, (n - head) / vec};
+}
+
+// The thread's share of an elementwise pass: vectors first, then the scalar
+// head and tail.  Op::vector(i) handles elements i .. i + VEC - 1 (16-byte
+// aligned), Op::scalar(i) element i.
+template <int VEC, typename Op>
+__device__ __forceinline__ void elementwise(const Op& op, long long n,
+                                            Split s) {
+  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
+                      threadIdx.x;
+  const long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long v = t; v < s.nvec; v += stride) op.vector(s.head + v * VEC);
+  const long long tail = s.head + s.nvec * VEC;
+  const long long scalars = s.head + (n - tail);
+  for (long long k = t; k < scalars; k += stride)
+    op.scalar(k < s.head ? k : tail + (k - s.head));
+}
+
+// Launch an elementwise kernel over n > 0 elements on the stream: the split
+// from the operands' addresses, one CTA of COLL_THREADS threads for each
+// COLL_THREADS work items (vectors and scalar elements), at most one wave:
+// the current device's SMs times the CTAs of this kernel that one SM holds
+// (the occupancy calculator: its registers and threads), read once per
+// device.  A failed query leaves 0 CTAs, which the launch refuses
+// (cudaGetLastError reports it).
+template <int VEC, typename Op>
+static void launch_pass(void (*kernel)(Op, long long, Split), const Op& op,
+                        long long n, std::initializer_list<Operand> operands,
+                        void* stream) {
+  static std::atomic<int> wave[MAX_DEVICES];  // this kernel's, by device
+  int dev = 0, ctas = 0;
+  cudaGetDevice(&dev);
+  const bool cached = dev >= 0 && dev < MAX_DEVICES;
+  if (cached) ctas = wave[dev].load();
+  if (ctas == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  COLL_THREADS, 0);
+    ctas = sms * per_sm;
+    if (cached) wave[dev].store(ctas);
+  }
+  const Split s = split16(n, VEC, operands);
+  const long long need =
+      (s.nvec + (n - s.nvec * VEC) + COLL_THREADS - 1) / COLL_THREADS;
+  kernel<<<static_cast<unsigned>(need < ctas ? need : ctas), COLL_THREADS, 0,
+           static_cast<cudaStream_t>(stream)>>>(op, n, s);
+}
+
 // ---------------------------------------------------------------------------
 // K1: narrow residues
 // ---------------------------------------------------------------------------
 
-__global__ void psum_mod_pack_kernel(const int* __restrict__ x,
-                                     long long* __restrict__ payload,
-                                     long long n) {
-  GRID_STRIDE(i, n) payload[i] = x[i];
+struct ModPack {  // int32 x -> int64 payload
+  const int* x;
+  long long* payload;
+  __device__ void scalar(long long i) const { payload[i] = x[i]; }
+  __device__ void vector(long long i) const {
+    const int4 v = *reinterpret_cast<const int4*>(x + i);
+    longlong2* out = reinterpret_cast<longlong2*>(payload + i);
+    out[0] = make_longlong2(v.x, v.y);
+    out[1] = make_longlong2(v.z, v.w);
+  }
+};
+
+// int32 sums below 2^31 (R (p - 1) < 2^31); sums may alias x (the int32
+// payload is the partial itself): each element is read before it is written
+// by the same thread
+struct ModFold32 {
+  const int* sums;
+  int* x;
+  u32 p, m;
+  __device__ int reduce(int s) const {
+    return static_cast<int>(barrett_reduce32(static_cast<u32>(s), p, m));
+  }
+  __device__ void scalar(long long i) const { x[i] = reduce(sums[i]); }
+  __device__ void vector(long long i) const {
+    const int4 v = *reinterpret_cast<const int4*>(sums + i);
+    *reinterpret_cast<int4*>(x + i) =
+        make_int4(reduce(v.x), reduce(v.y), reduce(v.z), reduce(v.w));
+  }
+};
+
+// int64 sums below R 2^30
+struct ModFold64 {
+  const long long* sums;
+  int* x;
+  u64 p, mu;
+  __device__ int reduce(long long s) const {
+    return static_cast<int>(barrett_reduce(static_cast<u64>(s), p, mu));
+  }
+  __device__ void scalar(long long i) const { x[i] = reduce(sums[i]); }
+  __device__ void vector(long long i) const {
+    const longlong2* in = reinterpret_cast<const longlong2*>(sums + i);
+    const longlong2 a = in[0], b = in[1];
+    *reinterpret_cast<int4*>(x + i) =
+        make_int4(reduce(a.x), reduce(a.y), reduce(b.x), reduce(b.y));
+  }
+};
+
+__global__ void __launch_bounds__(COLL_THREADS)
+    psum_mod_pack_kernel(ModPack op, long long n, Split s) {
+  elementwise<4>(op, n, s);
 }
 
-// sums may alias x (the int32 payload is the partial itself)
-template <typename T>
-__global__ void psum_mod_fold_kernel(const T* sums, int* x, long long n,
-                                     u64 p, u64 mu) {
-  GRID_STRIDE(i, n) {
-    x[i] = static_cast<int>(barrett_reduce(static_cast<u64>(sums[i]), p,
-                                           mu));
-  }
+__global__ void __launch_bounds__(COLL_THREADS)
+    psum_mod_fold32_kernel(ModFold32 op, long long n, Split s) {
+  elementwise<4>(op, n, s);
+}
+
+__global__ void __launch_bounds__(COLL_THREADS)
+    psum_mod_fold64_kernel(ModFold64 op, long long n, Split s) {
+  elementwise<4>(op, n, s);
 }
 
 extern "C" int psum_mod_pack(const void* x, void* payload, long long n,
                              void* stream) {
   if (n > 0)
-    psum_mod_pack_kernel<<<coll_ctas(n), COLL_THREADS, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int*>(x), static_cast<long long*>(payload), n);
+    launch_pass<4>(psum_mod_pack_kernel,
+                   ModPack{static_cast<const int*>(x),
+                           static_cast<long long*>(payload)},
+                   n, {{x, 4}, {payload, 8}}, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int psum_mod_fold(const void* sums, int sums64, void* x,
                              long long n, u64 p, u64 mu, void* stream) {
-  if (n > 0) {
-    const cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (sums64)
-      psum_mod_fold_kernel<long long><<<coll_ctas(n), COLL_THREADS, 0, s>>>(
-          static_cast<const long long*>(sums), static_cast<int*>(x), n, p,
-          mu);
-    else
-      psum_mod_fold_kernel<int><<<coll_ctas(n), COLL_THREADS, 0, s>>>(
-          static_cast<const int*>(sums), static_cast<int*>(x), n, p, mu);
-  }
+  if (n > 0 && sums64)
+    launch_pass<4>(psum_mod_fold64_kernel,
+                   ModFold64{static_cast<const long long*>(sums),
+                             static_cast<int*>(x), p, mu},
+                   n, {{x, 4}, {sums, 8}}, stream);
+  else if (n > 0)
+    launch_pass<4>(psum_mod_fold32_kernel,
+                   ModFold32{static_cast<const int*>(sums),
+                             static_cast<int*>(x), static_cast<u32>(p),
+                             static_cast<u32>(mu >> 32)},
+                   n, {{x, 4}, {sums, 4}}, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -110,54 +254,105 @@ extern "C" int psum_mod_fold(const void* sums, int sums64, void* x,
 
 // payload (2, n): the low halves, then the high halves (x < 2^62, so
 // x >> 31 < 2^31)
-__global__ void psum_mod_wide_pack_kernel(const long long* __restrict__ x,
-                                      long long* __restrict__ payload,
-                                      long long n) {
-  GRID_STRIDE(i, n) {
-    const u64 v = static_cast<u64>(x[i]);
-    payload[i] = static_cast<long long>(v & HALF_MASK);
-    payload[n + i] = static_cast<long long>(v >> HALF_BITS);
+struct WidePack {
+  const long long* x;
+  long long* lo;
+  long long* hi;  // lo + n
+  __device__ static long long low(long long v) {
+    return static_cast<long long>(static_cast<u64>(v) & HALF_MASK);
   }
+  __device__ static long long high(long long v) {
+    return static_cast<long long>(static_cast<u64>(v) >> HALF_BITS);
+  }
+  __device__ void scalar(long long i) const {
+    lo[i] = low(x[i]);
+    hi[i] = high(x[i]);
+  }
+  __device__ void vector(long long i) const {
+    const longlong2 v = *reinterpret_cast<const longlong2*>(x + i);
+    *reinterpret_cast<longlong2*>(lo + i) = make_longlong2(low(v.x),
+                                                           low(v.y));
+    *reinterpret_cast<longlong2*>(hi + i) = make_longlong2(high(v.x),
+                                                           high(v.y));
+  }
+};
+
+// whole sums below 2^63 (R <= 2), which may alias x
+struct WideFold {
+  const long long* sums;
+  long long* x;
+  u64 p, mu;
+  __device__ long long reduce(long long s) const {
+    return static_cast<long long>(barrett_reduce(static_cast<u64>(s), p,
+                                                 mu));
+  }
+  __device__ void scalar(long long i) const { x[i] = reduce(sums[i]); }
+  __device__ void vector(long long i) const {
+    const longlong2 v = *reinterpret_cast<const longlong2*>(sums + i);
+    *reinterpret_cast<longlong2*>(x + i) = make_longlong2(reduce(v.x),
+                                                          reduce(v.y));
+  }
+};
+
+// sums (2, n) of halves, T = hi 2^31 + lo < 2^94 for R < 2^32
+struct WideFoldHalves {
+  const long long* lo;
+  const long long* hi;  // lo + n
+  long long* x;
+  WideField f;
+  __device__ long long reduce(long long l, long long h) const {
+    const u64 hu = static_cast<u64>(h);
+    U128 t = {hu << HALF_BITS, hu >> (64 - HALF_BITS)};
+    add128(t, static_cast<u64>(l));
+    return static_cast<long long>(reduce128(t, f));
+  }
+  __device__ void scalar(long long i) const { x[i] = reduce(lo[i], hi[i]); }
+  __device__ void vector(long long i) const {
+    const longlong2 l = *reinterpret_cast<const longlong2*>(lo + i);
+    const longlong2 h = *reinterpret_cast<const longlong2*>(hi + i);
+    *reinterpret_cast<longlong2*>(x + i) = make_longlong2(reduce(l.x, h.x),
+                                                          reduce(l.y, h.y));
+  }
+};
+
+__global__ void __launch_bounds__(COLL_THREADS)
+    psum_mod_wide_pack_kernel(WidePack op, long long n, Split s) {
+  elementwise<2>(op, n, s);
 }
 
-// halves: sums (2, n) of halves, T = hi 2^31 + lo < 2^94 for R < 2^32;
-// else sums (n,) of whole residues below 2^63 (R <= 2), which may alias x.
-__global__ void psum_mod_wide_fold_kernel(const long long* sums, int halves,
-                                      long long* x, long long n,
-                                      WideField f) {
-  GRID_STRIDE(i, n) {
-    u64 r;
-    if (halves) {
-      const u64 lo = static_cast<u64>(sums[i]);
-      const u64 hi = static_cast<u64>(sums[n + i]);
-      U128 t = {hi << HALF_BITS, hi >> (64 - HALF_BITS)};
-      add128(t, lo);
-      r = reduce128(t, f);
-    } else {
-      r = barrett_reduce(static_cast<u64>(sums[i]), f.p, f.mu);
-    }
-    x[i] = static_cast<long long>(r);
-  }
+__global__ void __launch_bounds__(COLL_THREADS)
+    psum_mod_wide_fold_kernel(WideFold op, long long n, Split s) {
+  elementwise<2>(op, n, s);
+}
+
+__global__ void __launch_bounds__(COLL_THREADS)
+    psum_mod_wide_fold_halves_kernel(WideFoldHalves op, long long n,
+                                     Split s) {
+  elementwise<2>(op, n, s);
 }
 
 extern "C" int psum_mod_wide_pack(const void* x, void* payload, long long n,
-                              void* stream) {
+                                  void* stream) {
+  long long* lo = static_cast<long long*>(payload);
   if (n > 0)
-    psum_mod_wide_pack_kernel<<<coll_ctas(n), COLL_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(x), static_cast<long long*>(payload),
-        n);
+    launch_pass<2>(psum_mod_wide_pack_kernel,
+                   WidePack{static_cast<const long long*>(x), lo, lo + n}, n,
+                   {{x, 8}, {lo, 8}, {lo + n, 8}}, stream);
   return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int psum_mod_wide_fold(const void* sums, int halves, void* x,
-                              long long n, u64 p, u64 mu, u64 pinv, u64 r2,
-                              void* stream) {
-  if (n > 0)
-    psum_mod_wide_fold_kernel<<<coll_ctas(n), COLL_THREADS, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const long long*>(sums), halves,
-        static_cast<long long*>(x), n, WideField{p, mu, pinv, r2});
+                                  long long n, u64 p, u64 mu, u64 pinv,
+                                  u64 r2, void* stream) {
+  const long long* lo = static_cast<const long long*>(sums);
+  long long* out = static_cast<long long*>(x);
+  if (n > 0 && halves)
+    launch_pass<2>(psum_mod_wide_fold_halves_kernel,
+                   WideFoldHalves{lo, lo + n, out, WideField{p, mu, pinv, r2}},
+                   n, {{x, 8}, {lo, 8}, {lo + n, 8}}, stream);
+  else if (n > 0)
+    launch_pass<2>(psum_mod_wide_fold_kernel, WideFold{lo, out, p, mu}, n,
+                   {{x, 8}, {lo, 8}}, stream);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -6,7 +6,7 @@
 // thread split or block order.
 //
 // No kernel reduces with `%`: a runtime 64-bit `%` is a long software
-// sequence on the GPU (there is no integer divider).  Two reductions, both
+// sequence on the GPU (there is no integer divider).  Three reductions, all
 // driven by the constant mu = floor(2^64 / p) that the host computes once
 // per prime (ops/gfp.py::barrett_mu) and passes with p:
 //   * `barrett_reduce`: one 64x64 high multiply, one multiply, one subtract
@@ -14,6 +14,8 @@
 //     kernel sum raw products lazily and reduce once per LAZY_FOLD of them
 //     (spmv_ell, gram_mod and orthogonalize on the CUDA cores), or reduce a
 //     recombined sum of tensor-core limb products once (mma_u8.cuh);
+//   * `barrett_reduce32`, the same step on u32 inputs with m = mu >> 32
+//     (psum_mod's fold of int32 sums);
 //   * `reduce_short`, for a product of two residues or a sum of two such
 //     products: 32x32-bit multiplies only, constants derived from mu
 //     (semi_inverse's dependent chains).
@@ -43,6 +45,27 @@ typedef unsigned int u32;
 __device__ __forceinline__ u64 barrett_reduce(u64 x, u64 p, u64 mu) {
   const u64 q = __umul64hi(x, mu);
   const u64 r = x - q * p;
+  return r >= p ? r - p : r;
+}
+
+// x mod p for any u32 x, given m = floor(2^32 / p) and 2 <= p < 2^31: the
+// 32-bit Barrett step of psum_mod's fold (collectives.cu), whose int32 sums
+// fit 32 bits.  m = mu >> 32 (floor(floor(2^64 / p) / 2^32) =
+// floor(2^32 / p)), so it comes from the host constant mu too.
+//
+// Proof.  2^32/p - 1 < m <= 2^32/p.  Let q = floor(x * m / 2^32), the high
+// word of the exact 64-bit product (__umulhi).
+//   * q <= x * m / 2^32 <= x / p, so q * p <= x < 2^32 (the u32 product
+//     q * p does not wrap) and r = x - q * p >= 0.
+//   * q > x * m / 2^32 - 1 > x * (2^32/p - 1) / 2^32 - 1
+//       = x / p - x / 2^32 - 1 > x / p - 2    (as x < 2^32),
+//     so r = x - q * p < 2p < 2^32.
+// Hence 0 <= r < 2p and one conditional subtract gives the canonical residue
+// in [0, p).  For p = 2, m = 2^31 exactly and q = x >> 1; for p = 3,
+// m = 0x55555555 and the bound holds as for any p.
+__device__ __forceinline__ u32 barrett_reduce32(u32 x, u32 p, u32 m) {
+  const u32 q = __umulhi(x, m);
+  const u32 r = x - q * p;
   return r >= p ? r - p : r;
 }
 

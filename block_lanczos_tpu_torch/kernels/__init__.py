@@ -19,9 +19,11 @@ with other `-D` macros for a block of code; only the design measurements
 of `utils/kernel_sweeps.py` use it.
 
 Every exported function takes device pointers and the CUDA stream as
-`void*`, launches on that stream (PyTorch's current stream), does not
-synchronise, and returns `cudaGetLastError()`; `launch` raises when that is
-not 0.
+`void*`, launches on that stream (PyTorch's current stream, read by
+`current_stream`), does not synchronise, and returns `cudaGetLastError()`;
+`launch` raises when that is not 0.  `bind` prepares one call of an entry
+point (its ctypes arguments) for a caller that repeats it on the same
+tensors: the mesh's collectives.
 """
 
 from __future__ import annotations
@@ -258,13 +260,39 @@ def check_operands(name: str, *tensors, dtype=torch.int32) -> None:
                              f"one CUDA device (got {t.dtype} on {t.device})")
 
 
+def current_stream() -> int:
+    """The raw handle of PyTorch's current stream on the current device, read
+    without building a torch.cuda.Stream object (the same handle as
+    torch.cuda.current_stream().cuda_stream)."""
+    return torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
+
+
+def _refused(lib, name: str, rc: int):
+    msg = lib.bl_error_string(rc).decode(errors="replace")
+    return RuntimeError(f"CUDA kernel {name} failed to launch: error {rc} "
+                        f"({msg})")
+
+
 def launch(name: str, *args) -> None:
     """Call the C entry point `name` on PyTorch's current stream and raise
     if the launch was refused."""
     lib = _library(SOURCES.get(name, name))
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = getattr(lib, SIGNATURES[name][0])(*args, stream)
+    rc = getattr(lib, SIGNATURES[name][0])(*args, current_stream())
     if rc != 0:
-        msg = lib.bl_error_string(rc).decode(errors="replace")
-        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
-                           f"error {rc} ({msg})")
+        raise _refused(lib, name, rc)
+
+
+def bind(name: str, *args):
+    """`launch(name, *args)` prepared once: the library and entry point
+    looked up and the arguments converted to their ctypes here, so that a
+    call of the returned function only reads the current stream and
+    launches.  The caller keeps the tensors behind the pointers alive."""
+    lib = _library(SOURCES.get(name, name))
+    fn = getattr(lib, SIGNATURES[name][0])
+    cargs = tuple(t(a) for t, a in zip(SIGNATURES[name][1], args))
+
+    def call() -> None:
+        rc = fn(*cargs, current_stream())
+        if rc != 0:
+            raise _refused(lib, name, rc)
+    return call

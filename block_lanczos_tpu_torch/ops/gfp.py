@@ -156,6 +156,19 @@ def barrett_reduce_np(x, p: int) -> np.ndarray:
     return r - P * (r >= P)
 
 
+def barrett_reduce32_np(x, p: int) -> np.ndarray:
+    """x mod p for uint32 x, as csrc/modp.cuh::barrett_reduce32 computes it
+    (psum_mod's fold of int32 sums): m = mu >> 32, q = hi32(x * m),
+    r = x - q * p in [0, 2p), one conditional subtract."""
+    x = np.asarray(x, np.uint64)
+    assert (x < np.uint64(1 << 32)).all(), "x >= 2^32"
+    P = np.uint64(p)
+    q = (x * np.uint64(barrett_mu(p) >> 32)) >> np.uint64(32)
+    r = (x - q * P) & np.uint64(0xFFFFFFFF)     # the u32 arithmetic
+    assert (r < 2 * P).all(), "32-bit Barrett remainder out of [0, 2p)"
+    return (r - P * (r >= P)).astype(np.uint32)
+
+
 def short_barrett(p: int) -> tuple[int, int]:
     """(k, mu_k): the bit length of p and floor(2^(2k) / p), as
     csrc/modp.cuh::short_barrett derives them from mu on the device."""

@@ -24,6 +24,13 @@ where its fold kernel launches); on CPU tensors the `*_plain` versions
 beside them, which the CPU tests hold against the JAX package's
 collectives.  A group of one rank runs the same three steps: nothing is
 skipped.
+
+The sharded solvers call K1 and K2 through `PsumMod` / `PsumModWide`, one
+object per workspace tensor, built once: the group, its size, the payload
+and the kernels' prepared ctypes arguments (`kernels.bind`) are fixed
+there, so that a call is at most a pack launch, `all_reduce` and a fold
+launch, with no validation left to repeat.  The module functions do the
+same work call by call.
 """
 
 from __future__ import annotations
@@ -205,6 +212,118 @@ def psum_mod_wide(x: torch.Tensor, f, group=None) -> torch.Tensor:
     dist.all_reduce(payload, group=group)
     fold_wide(payload, x, f)
     return x
+
+
+# ---------------------------------------------------------------------------
+# K1 and K2 bound to one tensor
+# ---------------------------------------------------------------------------
+
+class _BoundSum:
+    """An exact all-reduce bound to one tensor x (a solver's workspace
+    block): `ranks` (default the group's size) fixes the payload; on CUDA
+    the payload buffer and the pack and fold launches are prepared here
+    (x must then stay the tensor they point to), on the CPU every call runs
+    the plain versions on the tensor it is given.  A call is pack,
+    all_reduce over the group, fold, in place on x."""
+
+    def __init__(self, x: torch.Tensor, group, ranks):
+        self.group = group
+        self.ranks = (dist.get_world_size(group) if ranks is None
+                      else int(ranks))
+        self.x = x
+        self._pack = self._fold = None
+        # the collective's count, kept by its fold (a fold of nothing
+        # launches nothing and counts nothing)
+        self._counter = _WRAPPERS[self.name]
+        self._count = int(x.numel() > 0)
+
+    def _not_bound(self, what: str):
+        return ValueError(f"{self.name}: {what} is not the bound tensor")
+
+    def pack(self, x: torch.Tensor) -> torch.Tensor:
+        """The payload of x to sum over the group."""
+        if self._fold is None:
+            return self._pack_plain(x)
+        if x is not self.x:
+            raise self._not_bound("x")
+        if self._pack is not None:
+            self._pack()
+        return self.payload
+
+    def fold(self, sums: torch.Tensor, x: torch.Tensor) -> None:
+        """x <- the residues of the summed payload."""
+        if self._fold is None:
+            return self._fold_plain(sums, x)
+        if x is not self.x or sums is not self.payload:
+            raise self._not_bound("x or sums")
+        self._fold()
+        self._counter.launches += self._count
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        payload = self.pack(x)
+        dist.all_reduce(payload, group=self.group)
+        self.fold(payload, x)
+        return x
+
+
+class PsumMod(_BoundSum):
+    """`psum_mod` (K1) bound to an int32 tensor x at the prime p."""
+
+    name = "psum_mod"
+
+    def __init__(self, x: torch.Tensor, p: int, group=None, ranks=None):
+        super().__init__(x, group, ranks)
+        self.p = int(p)
+        if x.device.type == "cpu":
+            return
+        _check(x, torch.int32, self.name)
+        int64 = mod_payload_dtype(self.ranks, self.p) == torch.int64
+        self.payload = (torch.empty(x.shape, dtype=torch.int64,
+                                    device=x.device) if int64 else x)
+        n = x.numel()
+        if int64:
+            self._pack = kernels.bind("psum_mod_pack", x.data_ptr(),
+                                      self.payload.data_ptr(), n)
+        self._fold = kernels.bind("psum_mod_fold", self.payload.data_ptr(),
+                                  int(int64), x.data_ptr(), n, self.p,
+                                  barrett_mu(self.p))
+
+    def _pack_plain(self, x):
+        return pack_mod_plain(x, self.ranks, self.p)
+
+    def _fold_plain(self, sums, x):
+        fold_mod_plain(sums, x, self.p)
+
+
+class PsumModWide(_BoundSum):
+    """`psum_mod_wide` (K2) bound to an int64 tensor x of the field f
+    (ops.gfp_wide.GFpWide)."""
+
+    name = "psum_mod_wide"
+
+    def __init__(self, x: torch.Tensor, f, group=None, ranks=None):
+        super().__init__(x, group, ranks)
+        self.p = f.p
+        if x.device.type == "cpu":
+            return
+        _check(x, torch.int64, self.name)
+        halves = wide_halves(self.ranks)
+        self.payload = (torch.empty((2,) + tuple(x.shape), dtype=torch.int64,
+                                    device=x.device) if halves else x)
+        n = x.numel()
+        if halves:
+            self._pack = kernels.bind("psum_mod_wide_pack", x.data_ptr(),
+                                      self.payload.data_ptr(), n)
+        self._fold = kernels.bind("psum_mod_wide_fold",
+                                  self.payload.data_ptr(),
+                                  int(halves and n > 0), x.data_ptr(), n,
+                                  *f.kernel_args)
+
+    def _pack_plain(self, x):
+        return pack_wide_plain(x, self.ranks)
+
+    def _fold_plain(self, sums, x):
+        fold_wide_plain(sums, x, self.p)
 
 
 # ---------------------------------------------------------------------------

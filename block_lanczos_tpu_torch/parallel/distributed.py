@@ -65,6 +65,15 @@ def agree_max(x: float, grid: Grid) -> float:
     return float(t.item())
 
 
+def _bound_sums(ws: dict, grid: Grid, cls, field) -> dict:
+    """The exact sum of each partial of an iteration, bound to its workspace
+    block: tmp over the grid's rows, Av over its columns, the Grams over its
+    rows (collectives.PsumMod or PsumModWide at the field `field`)."""
+    return {"tmp": cls(ws["tmp"], field, grid.rows_group),
+            "av": cls(ws["av"], field, grid.cols_group),
+            "grams": cls(ws["grams"], field, grid.rows_group)}
+
+
 class _ShardedSolver:
     """The mesh driver shared by the three fields: v0 and resume bands,
     the blocked host loop, the final gather and check.  A field sets
@@ -206,17 +215,18 @@ class ShardedBlockLanczos(_ShardedSolver):
               "grams": torch.zeros((2 * n, n), dtype=torch.int32, device=dev)}
         if dev.type == "cuda":
             ws["si"] = empty_outputs(n, dev)
+        ws["sum"] = _bound_sums(ws, self.grid, collectives.PsumMod, self.f.p)
         return ws
 
     def _step(self, v, p_blk, state, ws) -> None:
         """One iteration on this rank (the JAX package's _local_step)."""
-        ops, p, g = self.ops, self.f.p, self.grid
+        ops, p, sums = self.ops, self.f.p, ws["sum"]
         tmp = spmm.spmv(ops.first, v, out_rows=ops.mband, out=ws["tmp"])
-        collectives.psum_mod(tmp, p, g.rows_group)      # split by cols
+        sums["tmp"](tmp)                                # split by cols
         av = spmm.spmv(ops.second, tmp, out_rows=ops.band, out=ws["av"])
-        collectives.psum_mod(av, p, g.cols_group)       # split by rows
+        sums["av"](av)                                  # split by rows
         grams = gram_mod(v, av, av, p, out=ws["grams"])
-        collectives.psum_mod(grams, p, g.rows_group)    # replicated
+        sums["grams"](grams)                            # replicated
         si = semi_inverse(grams, p, state, self.check_invariants,
                           out=ws.get("si"))
         single.orthogonalize(v, p_blk, av, si.rhs, si.d, p, state)

@@ -22,7 +22,8 @@ from block_lanczos_tpu_torch.ops import wide_ops as wo
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.parallel import collectives
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
-from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
+from block_lanczos_tpu_torch.parallel.distributed import (_bound_sums,
+                                                          _ShardedSolver)
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
@@ -78,19 +79,21 @@ class ShardedBlockLanczosWide(_ShardedSolver):
               "grams": torch.zeros((2 * n, n), dtype=torch.int64, device=dev)}
         if dev.type == "cuda":
             ws["si"] = wo.empty_outputs(n, dev)
+        ws["sum"] = _bound_sums(ws, self.grid, collectives.PsumModWide,
+                                self.f)
         return ws
 
     def _step(self, v, p_blk, state, ws) -> None:
         """One iteration on this rank (the JAX package's _local_step)."""
-        ops, f, g = self.ops, self.f, self.grid
+        ops, f, sums = self.ops, self.f, ws["sum"]
         tmp = wo.spmv_wide(f, ops.first, v, out_rows=ops.mband,
                            out=ws["tmp"])
-        collectives.psum_mod_wide(tmp, f, g.rows_group)
+        sums["tmp"](tmp)
         av = wo.spmv_wide(f, ops.second, tmp, out_rows=ops.band,
                           out=ws["av"])
-        collectives.psum_mod_wide(av, f, g.cols_group)
+        sums["av"](av)
         grams = wo.gram_wide(v, av, f, out=ws["grams"])
-        collectives.psum_mod_wide(grams, f, g.rows_group)
+        sums["grams"](grams)
         si = wo.semi_inverse_wide(grams, f, state, self.check_invariants,
                                   out=ws.get("si"))
         lw.orthogonalize_wide(v, p_blk, av, si.rhs, si.d, f, state)

@@ -98,7 +98,7 @@ def spawn(fn, devices, args=(), *, backend: str = "gloo",
                 if deadline is not None and time.monotonic() > deadline:
                     raise RankFailed(f"the mesh outlived its {wall_s} s limit")
             _drain(results, got)
-        except mp.ProcessException as e:
+        except (mp.ProcessRaisedException, mp.ProcessExitedException) as e:
             raise RankFailed(str(e)) from e
         finally:
             for proc in ctx.processes:

@@ -29,9 +29,11 @@ With --mesh the iteration is the sharded solver's (parallel/) on a 1 x 1
 grid over NCCL in this process: the field's kernels with an exact
 all-reduce (pack, torch.distributed.all_reduce, fold) after each partial;
 NCCL's own kernels count in the busy time, and the host's cost of one
-collective call on tmp, of the all_reduce of its payload and of its pack
-and fold kernels is timed alone (1000 calls each, host clock, one sync at
-the end).
+collective call on tmp as the step makes it, of the all_reduce of its
+payload, of its pack and fold kernels, of torch.remainder doing the same
+1-rank fold (narrow and wide) and of reading PyTorch's current stream
+(torch.cuda.current_stream().cuda_stream against kernels.current_stream)
+is timed alone (1000 calls each, host clock, one sync at the end).
 Matrices: `bench` is utils/gen.py's BENCH_* configuration (the one bench.py
 and chip_smoke.py use), mod BENCH_PRIME for the narrow field, mod
 WIDE_BENCH_PRIME = 2^61 - 1 for the wide field and mod 2 for GF(2); `3Mx2M` is the JAX bench's factorization-scale GF(2) instance
@@ -149,18 +151,25 @@ def profile_width(M, field: str, n: int, label: str,
         def step(ws):
             s._step(v, p_blk, state, mesh_ws)
 
+        from block_lanczos_tpu_torch import kernels
         tmp, group = mesh_ws["tmp"], s.grid.rows_group
         payload = C.spread_xor(tmp, 1) if gf2 else tmp
-        call = {"narrow": lambda: C.psum_mod(tmp, s.f.p, group),
-                "wide": lambda: C.psum_mod_wide(tmp, s.f, group),
-                "gf2": lambda: C.pxor(tmp, group)}[field]
-        fold = {"narrow": lambda: C.fold_mod(tmp, tmp, s.f.p),
-                "wide": lambda: C.fold_wide(tmp, tmp, s.f),
-                "gf2": lambda: C.fold_xor(C.spread_xor(tmp, 1), tmp)}[field]
+        # narrow and wide: the step's bound form of the collective on tmp
+        bound = None if gf2 else mesh_ws["sum"]["tmp"]
+        call = (lambda: C.pxor(tmp, group)) if gf2 else (lambda: bound(tmp))
+        fold = ((lambda: C.fold_xor(C.spread_xor(tmp, 1), tmp)) if gf2
+                else (lambda: bound.fold(bound.pack(tmp), tmp)))
         host_us = {"collective": _host_us_per_call(call),
                    "all_reduce": _host_us_per_call(
                        lambda: dist.all_reduce(payload, group=group)),
                    "pack_and_fold": _host_us_per_call(fold)}
+        if not gf2:     # the same fold at one rank by one PyTorch call
+            host_us["torch_remainder"] = _host_us_per_call(
+                lambda: torch.remainder(tmp, s.f.p, out=tmp))
+        # the two ways to read PyTorch's current stream for a launch
+        host_us["stream_object"] = _host_us_per_call(
+            lambda: torch.cuda.current_stream().cuda_stream)
+        host_us["stream_raw"] = _host_us_per_call(kernels.current_stream)
     elif field == "wide":
         from block_lanczos_tpu_torch.models import lanczos_wide as L
         s = L.BlockLanczosWide(M, n=n)

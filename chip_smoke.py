@@ -112,9 +112,14 @@ failure:
      and 4611686018427387847, at the mesh's shapes, an edge shape, empty
      tensors and misaligned views, also against the exact sums (Python ints
      for psum_mod_wide, the XOR of the words for pxor); the packs and
-     spreads likewise; each timed at the 1-rank payload (CUDA events,
-     median) with its bound and, for psum_mod and psum_mod_wide,
-     torch.remainder;
+     spreads likewise, and the sharded solvers' bound forms of psum_mod and
+     psum_mod_wide (PsumMod, PsumModWide: prepared launches) on the same
+     partials and sums; each timed at the 1-rank payload through the path
+     the solvers' step runs (CUDA events: the median of single calls, and
+     back to back, a call) with its bound and, for psum_mod and
+     psum_mod_wide, torch.remainder; psum_mod and psum_mod_wide also at the
+     4-rank payloads (int64; 31-bit halves), pack and fold, with their
+     bounds;
   13. the mesh path at full size on a 1-rank NCCL group: the three sharded
      solvers (parallel/) on a 1 x 1 grid solve bench-n4, bench-gf2-n128 and
      bench-wide-p61-n4 whole; each kernel must equal the single-device
@@ -231,6 +236,7 @@ class KernelRecord:
         self.ms = self.plain_ms = self.bound_ms = self.bound_by = None
         self.library_ms = None
         self.note = None
+        self.extra = {}     # further measured numbers, by key
 
     def agree(self, what, got, want):
         err = max_err(got, want)
@@ -246,6 +252,7 @@ class KernelRecord:
                "max_abs_err": self.max_err, "ms": self.ms,
                "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
                "bound_by": self.bound_by, "library_ms": self.library_ms}
+        row.update(self.extra)
         if self.note:
             row["note"] = self.note
         return row
@@ -1498,6 +1505,15 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
                 x.view(-1)[:5] = p - 1
                 rec.agree(f"pack p={p} R={R} {shape}", C.pack_mod(x, R, p),
                           C.pack_mod_plain(x, R, p))
+                # the solvers' bound form: its pack, then its fold of the
+                # sums S written into its payload
+                b = C.PsumMod(x, p, ranks=R)
+                want = C.pack_mod_plain(x, R, p).clone()
+                rec.agree(f"bound pack p={p} R={R} {shape}", b.pack(x), want)
+                b.payload.copy_(sums)
+                b.fold(b.payload, x)
+                rec.agree(f"bound fold p={p} R={R} {shape}", x,
+                          (S % p).to(torch.int32))
     print(f"  psum_mod: {rec.cases} cases equal", flush=True)
 
     # K2: wide residues
@@ -1541,6 +1557,12 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
                 x.view(-1)[:5] = p - 1
                 rec.agree(f"pack p={p} R={R} {shape}", C.pack_wide(x, R),
                           C.pack_wide_plain(x, R))
+                b = C.PsumModWide(x, f, ranks=R)
+                want = C.pack_wide_plain(x, R).clone()
+                rec.agree(f"bound pack p={p} R={R} {shape}", b.pack(x), want)
+                b.payload.copy_(sums)
+                b.fold(b.payload, x)
+                rec.agree(f"bound fold p={p} R={R} {shape}", x, xp)
     print(f"  psum_mod_wide: {rec.cases} cases equal", flush=True)
 
     # K3: XOR of words
@@ -1578,7 +1600,10 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
                 rec.agree(what + " vs XOR", xk, X)
     print(f"  pxor: {rec.cases} cases equal", flush=True)
 
-    # times at phase 13's 1-rank payloads, the mean over a call's shapes
+    # times at phase 13's 1-rank payloads, the mean over a call's shapes:
+    # for K1 and K2 the exact path a sharded solver's step runs around the
+    # transport (the bound form's pack and fold; at one rank the pack
+    # launches nothing), for K3 its spread and fold
     pb = COLL_NARROW_PRIMES[3]                 # the bench prime
     fw = GFpWide.make(COLL_WIDE_PRIMES[1])     # 2^61 - 1
     rows = []
@@ -1587,14 +1612,15 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
             ("psum_mod_wide", wshapes, torch.int64, fw.p - 1, 16),
             # 4 B read, 2 planes of 4 B written and read, 4 B written
             ("pxor", gshapes, torch.int32, None, 24)):
-        ms, plain, lib, nbytes = [], [], [], []
+        ms, per, plain, lib, nbytes = [], [], [], [], []
         for shape in shp:
             x = (rint(shape, -(1 << 31), (1 << 31) - 1) if top is None
                  else rint(shape, 0, top)).to(dtype)
-            ms.append(median_ms(lambda: one_rank_call(C, name, x, pb, fw)))
+            call = one_rank_call(C, name, x, pb, fw)
+            ms.append(median_ms(call))
+            per.append(per_launch_ms(call))
             plain.append(median_ms(
-                lambda: one_rank_call(C, name, x, pb, fw, plain=True),
-                reps=5))
+                one_rank_call(C, name, x, pb, fw, plain=True), reps=5))
             if name != "pxor":
                 pl = pb if name == "psum_mod" else fw.p
                 lib.append(median_ms(lambda: torch.remainder(x, pl, out=x)))
@@ -1602,29 +1628,64 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
         rec = recs[name]
         rec.ms, rec.plain_ms = statistics.mean(ms), statistics.mean(plain)
         rec.library_ms = statistics.mean(lib) if lib else None
+        rec.extra["per_launch_ms"] = statistics.mean(per)
         rec.set_bound(statistics.mean(nbytes), 0)
-        rows.append(f"{name} {rec.ms:.4f} ms (plain {rec.plain_ms:.4f}, "
-                    f"bound {rec.bound_ms:.6f} {rec.bound_by}"
+        rows.append(f"{name} {rec.ms:.4f} ms, back to back "
+                    f"{rec.extra['per_launch_ms']:.4f} (plain "
+                    f"{rec.plain_ms:.4f}, bound {rec.bound_ms:.6f} "
+                    f"{rec.bound_by}"
                     + (f", torch.remainder {rec.library_ms:.4f}" if lib
                        else "") + ")")
     print("  the 1-rank payloads, a call (mean over its shapes): "
           + "; ".join(rows), flush=True)
+    # the 4-rank payloads (phase 14's axis of 4): K1 widened to int64 (a
+    # pack of 4 B read and 8 B written, a fold of 8 B read and 4 B
+    # written), K2 in 31-bit halves (8 B read and 16 B written, then 16 B
+    # read and 8 B written); pack and fold back to back, no transport
+    rows = []
+    for name, shp, make, top, nbytes_el in (
+            ("psum_mod", shapes, lambda x: C.PsumMod(x, pb, ranks=4),
+             pb - 1, 24),
+            ("psum_mod_wide", wshapes,
+             lambda x: C.PsumModWide(x, fw, ranks=4), fw.p - 1, 48)):
+        ms, per, nbytes = [], [], []
+        for shape in shp:
+            x = rint(shape, 0, top).to(torch.int32 if name == "psum_mod"
+                                       else torch.int64)
+            b = make(x)
+            assert b.payload is not x        # the pack runs
+            ms.append(median_ms(lambda: b.fold(b.pack(x), x)))
+            per.append(per_launch_ms(lambda: b.fold(b.pack(x), x)))
+            nbytes.append(nbytes_el * x.numel())
+        rec = recs[name]
+        bound_ms, bound_by = bound(statistics.mean(nbytes), 0)
+        rec.extra.update(r4_ms=statistics.mean(ms),
+                         r4_per_launch_ms=statistics.mean(per),
+                         r4_bound_ms=bound_ms)
+        rows.append(f"{name} {rec.extra['r4_ms']:.4f} ms, back to back "
+                    f"{rec.extra['r4_per_launch_ms']:.4f} (bound "
+                    f"{bound_ms:.6f} {bound_by})")
+    print("  the 4-rank payloads, pack + fold (mean over its shapes): "
+          + "; ".join(rows), flush=True)
 
 
 def one_rank_call(C, name, x, p, f, plain=False):
-    """What a call of collective `name` runs around the transport on a
-    1-rank group (phase 13's payloads): the fold of x's own sum (the
-    payload is x itself) or, for pxor, the spread and the fold; by the
-    kernels, or by their plain versions."""
+    """A function running what a call of collective `name` runs around the
+    transport on a 1-rank group (phase 13's payloads; the payload is x
+    itself, so its sum too): for psum_mod and psum_mod_wide the bound
+    form's pack and fold, as the sharded solvers' step calls them (or the
+    plain versions of the two), for pxor the spread and the fold."""
     if name == "pxor":
-        pay = (C.spread_xor_plain if plain else C.spread_xor)(x, 1)
-        (C.fold_xor_plain if plain else C.fold_xor)(pay, x)
-    elif name == "psum_mod":
-        (C.fold_mod_plain if plain else C.fold_mod)(x, x, p)
-    elif plain:
-        C.fold_wide_plain(x, x, f.p)
-    else:
-        C.fold_wide(x, x, f)
+        spread, fold = ((C.spread_xor_plain, C.fold_xor_plain) if plain
+                        else (C.spread_xor, C.fold_xor))
+        return lambda: fold(spread(x, 1), x)
+    if plain:
+        return ((lambda: C.fold_mod_plain(C.pack_mod_plain(x, 1, p), x, p))
+                if name == "psum_mod" else
+                (lambda: C.fold_wide_plain(C.pack_wide_plain(x, 1), x, f.p)))
+    b = (C.PsumMod(x, p, ranks=1) if name == "psum_mod"
+         else C.PsumModWide(x, f, ranks=1))
+    return lambda: b.fold(b.pack(x), x)
 
 
 def _mesh_rank(rank, world, device, coo, primes, n_by_field, iters):

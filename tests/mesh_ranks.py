@@ -26,8 +26,11 @@ SOLVERS = {"narrow": D.ShardedBlockLanczos, "gf2": ShardedBlockLanczosGF2,
 def collectives_job(rank, world, device, cases):
     """cases: (kind, R, p, partials) with partials (R, ...) NumPy; the first
     R ranks sum their partial by psum_mod / psum_mod_wide / pxor (kind
-    "mod", "wide", "xor") over a group of R ranks.  Returns every case's
-    result as rank 0 holds it, and as rank R - 1 holds it."""
+    "mod", "wide", "xor") over a group of R ranks, and again ("mod",
+    "wide") by the solvers' bound form (C.PsumMod / C.PsumModWide, called
+    twice on one tensor).  Returns every case's results as rank 0 holds
+    them, and as rank R - 1 holds them: [function's, bound form's or None]
+    a case."""
     sizes = sorted({R for _, R, _, _ in cases})
     groups = {R: (dist.group.WORLD if R == world
                   else dist.new_group(list(range(R)))) for R in sizes}
@@ -36,14 +39,24 @@ def collectives_job(rank, world, device, cases):
         if rank >= R:
             out.append(None)
             continue
-        x = torch.from_numpy(np.ascontiguousarray(parts[rank]))
+        x = torch.from_numpy(parts[rank].copy())
+        bound = None
         if kind == "mod":
             C.psum_mod(x, p, groups[R])
+            bound = C.PsumMod(x, p, groups[R])
         elif kind == "wide":
             C.psum_mod_wide(x, GFpWide.make(p), groups[R])
+            bound = C.PsumModWide(x, GFpWide.make(p), groups[R])
         else:
             C.pxor(x, groups[R])
-        out.append(x.numpy())
+        res = [x.numpy(), None]
+        if bound is not None:
+            y = torch.from_numpy(parts[rank].copy())
+            for _ in range(2):      # the same object, a fresh partial
+                y.copy_(torch.from_numpy(parts[rank]))
+                bound(y)
+            res[1] = y.numpy()
+        out.append(res)
     # rank 0 collects the last member's copies, to show every rank agrees
     gathered = [None] * world
     dist.all_gather_object(gathered, out)
@@ -146,3 +159,35 @@ def solve_job(rank, world, device, tasks):
         return None
     merged = {k: v for d in every for k, v in d.items()}
     return [merged[k] for k in range(len(tasks))]
+
+
+def raising_job(rank, world, device):
+    """Rank 1 raises (fault 6: spawn must raise RankFailed)."""
+    if rank == 1:
+        raise ValueError("rank 1 raised on purpose")
+    return rank
+
+
+def exiting_job(rank, world, device):
+    """Rank 1 exits with code 3, as the CLI's rank does on a failed solve."""
+    if rank == 1:
+        raise SystemExit(3)
+    return rank
+
+
+def sleeping_job(rank, world, device):
+    """Every rank outlives any test's wall limit."""
+    import time
+    time.sleep(600)
+
+
+def cli_job(rank, world, device, cases):
+    """cases: (argv, (R, C)); each runs the CLI's solve as one rank of an
+    R x C grid over the whole world (rank 0 writes the kernel file).
+    Returns every case's exit code at rank 0."""
+    from block_lanczos_tpu_torch.utils import cli
+    rcs = []
+    for argv, (R, C_) in cases:
+        args = cli.build_parser().parse_args(argv)
+        rcs.append(cli._solve(args, make_grid(R, C_, device)))
+    return rcs if rank == 0 else None

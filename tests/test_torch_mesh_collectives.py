@@ -1,11 +1,12 @@
 """The mesh's exact collectives and partition maps against the JAX package.
 
   * psum_mod, psum_mod_wide and pxor (parallel/collectives.py, on CPU
-    tensors their plain versions) on a world of 8 gloo ranks spawned once
-    (parallel/launch.py), over groups of R = 1, 2, 3, 4 and 8 ranks, equal
-    on every member to the JAX package's psum_mod, psum_mod_wide and pxor
-    under jax.shard_map on the same partials (as tests/test_sharded.py
-    runs them);
+    tensors their plain versions), and the sharded solvers' bound forms of
+    the first two (PsumMod, PsumModWide), on a world of 8 gloo ranks
+    spawned once (parallel/launch.py), over groups of R = 1, 2, 3, 4 and 8
+    ranks, equal on every member to the JAX package's psum_mod,
+    psum_mod_wide and pxor under jax.shard_map on the same partials (as
+    tests/test_sharded.py runs them);
   * the payloads' folds fed sums of many ranks' partials made here (up to
     2^20 ranks), against the exact sums: K1 and K2 in Python ints, K3 the
     XOR of the words, with every lane sum inside int32;
@@ -103,14 +104,21 @@ def _jax_sum(kind, R, p, parts):
 @pytest.mark.parametrize("kind", ["mod", "wide", "xor"])
 @pytest.mark.parametrize("R", RANKS)
 def test_collective_matches_jax_on_every_rank(port_results, kind, R):
+    """The module function and, for K1 and K2, the solvers' bound form
+    (collectives.PsumMod / PsumModWide) on rank 0 and on rank R - 1."""
     cases, out, last = port_results
     n = 0
     for k, (kd, r, p, parts) in enumerate(cases):
         if (kd, r) != (kind, R):
             continue
         want = _jax_sum(kd, r, p, parts)
-        np.testing.assert_array_equal(out[k], want, err_msg=f"p={p}")
-        np.testing.assert_array_equal(last[k], want, err_msg=f"p={p}")
+        for got in (out[k], last[k]):
+            np.testing.assert_array_equal(got[0], want, err_msg=f"p={p}")
+            if kind == "xor":
+                assert got[1] is None
+            else:
+                np.testing.assert_array_equal(got[1], want,
+                                              err_msg=f"bound, p={p}")
         n += 1
     assert n == (1 if kind == "xor" else 2)
 

@@ -3,7 +3,7 @@ the port's ops/gfp.py, against Python's `%` and `pow`, and against the JAX
 package's field where it has the same function.
 
 Barrett reduction with the host constant mu = floor(2^64 / p) for any u64,
-the short reduction (32-bit multiplies, constants derived from mu) for
+its 32-bit step (m = mu >> 32) for any u32, the short reduction (32-bit multiplies, constants derived from mu) for
 products and two-term sums, the Fermat inverse on short-Barrett products,
 and the lazy sums (raw products folded once every LAZY_FOLD terms) at their
 worst case: every term (p - 1)^2, at the fold length and past it.
@@ -61,6 +61,23 @@ def test_barrett_reduce_matches_mod(p, kind):
     got = tgfp.barrett_reduce_np(x, p)
     want = np.array([int(v) % p for v in x], np.uint64)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("p", PRIMES + [(1 << 16) + 1])
+def test_barrett_reduce32_matches_mod(p):
+    """psum_mod's 32-bit fold: m = mu >> 32 is floor(2^32 / p), and the
+    step is exact at 0, p - 1, the largest int32 sum of R ranks' residues
+    R (p - 1) <= 2^31 - 1, 2^32 - 1 and across the u32 range."""
+    assert tgfp.barrett_mu(p) >> 32 == (1 << 32) // p
+    R = ((1 << 31) - 1) // (p - 1)
+    edges = [0, 1, p - 1, p, R * (p - 1), (1 << 31) - 1, 1 << 31,
+             (1 << 32) - 1]
+    rng = np.random.default_rng(p % 1009)
+    x = np.concatenate([np.array(edges, np.uint64),
+                        rng.integers(0, 1 << 32, 4000, dtype=np.uint64)])
+    got = tgfp.barrett_reduce32_np(x, p)
+    assert got.dtype == np.uint32
+    assert got.tolist() == [int(v) % p for v in x]
 
 
 @pytest.mark.parametrize("p", PRIMES)
