@@ -33,7 +33,14 @@
 //       2^L, whose low bit is the count's.  L = 2 takes 2 ranks (the TPU's
 //       u32 lanes took 3 by wrapping), 4 up to 8, 8 up to 128, 16 up to
 //       32768, 32 (one bit a plane, no top lane to negate) above.
-//       `pxor_fold` keeps each lane's low bit.
+//       `pxor_fold` keeps each lane's low bit.  The payload is (L, S): plane
+//       k starts S = n rounded up to 4 words after plane k - 1 (of the two
+//       ways to keep every plane on a 16-byte boundary where the payload
+//       starts on one, this padded plane stride rather than a
+//       word-interleaved (n, L) layout: each plane's stores stay
+//       contiguous across a warp).  The S - n padding words of a plane are
+//       neither written by the spread nor read by the fold: the wrappers
+//       allocate the payload zeroed, so the transport sums zeros there.
 //
 // Bound: each is an elementwise pass over the partial and its payload, so
 // bytes at the HBM rate bound it (the transport's time is not the
@@ -42,20 +49,29 @@
 // nothing.  Inputs are canonical residues (K1, K2): the kernels that
 // produce them (spmv, gram) reduce fully.
 //
-// K1 and K2 (redesigned for Hopper; K3 keeps its first design):
+// The three, as designed for Hopper:
 //   * one wave: the grid is the card's SMs times the CTAs of COLL_THREADS
 //     threads an SM holds of the kernel (read once per device), or fewer
 //     when the work needs fewer, each thread striding over the rest;
 //   * 16-byte accesses: each thread moves whole int4 / longlong2 vectors
 //     (4 int32 or 2 int64 elements a vector; K1's int64 payload two
-//     longlong2 for the int4 of x), with a scalar head that brings every
-//     pointer to a 16-byte boundary and a scalar tail; where no head aligns
-//     them all (views that start off a boundary by different amounts),
-//     the whole pass is scalar;
+//     longlong2 for the int4 of x; K3 one uint4 of x and one of each of
+//     its L planes), with a scalar head that brings every pointer to a
+//     16-byte boundary and a scalar tail; where no head aligns them all
+//     (views that start off a boundary by different amounts), the whole
+//     pass is scalar;
 //   * K1's int32 sums (below 2^31) fold by the 32-bit Barrett step
 //     (modp.cuh::barrett_reduce32, m = mu >> 32: one __umulhi), its int64
 //     sums by barrett_reduce; K2 keeps barrett_reduce for whole sums and
-//     reduce128 for halves.
+//     reduce128 for halves;
+//   * K3's lane width is a template parameter (L in 2, 4, 8, 16, 32, one
+//     instantiation each): the lane mask and the top lane are constants
+//     and every loop over the planes unrolls, its plane offsets one add
+//     of S a plane;
+//   * K3's spread writes its planes with streaming stores (st.global.cs,
+//     evict-first): on the H100 plain stores left the spread under half
+//     the rate of streaming ones from L = 8 on (PERF.md).  The fold's loads
+//     and stores stay plain: its output is the next kernel's input.
 #include <stdint.h>
 
 #include <atomic>
@@ -64,19 +80,7 @@
 #include "modp64.cuh"
 
 #define COLL_THREADS 256
-#define COLL_MAX_CTAS 4096
 #define MAX_DEVICES 64
-
-// K3's grid: a thread an element, at most COLL_MAX_CTAS CTAs.
-static inline unsigned coll_ctas(long long n) {
-  const long long c = (n + COLL_THREADS - 1) / COLL_THREADS;
-  return static_cast<unsigned>(c < COLL_MAX_CTAS ? c : COLL_MAX_CTAS);
-}
-
-#define GRID_STRIDE(i, n)                                              \
-  for (long long i = blockIdx.x * static_cast<long long>(blockDim.x) + \
-                     threadIdx.x;                                      \
-       i < (n); i += static_cast<long long>(gridDim.x) * blockDim.x)
 
 // The vector split of n elements: [0, head) and [head + vec * nvec, n) go
 // element by element, the nvec vectors of `vec` elements between them by
@@ -360,55 +364,128 @@ extern "C" int psum_mod_wide_fold(const void* sums, int halves, void* x,
 // K3: XOR of bit words
 // ---------------------------------------------------------------------------
 
-// One bit every `lanes` positions: 0x55555555, 0x11111111, 0x01010101,
-// 0x00010001, 0x00000001.
-__device__ __forceinline__ u32 lane_mask(int lanes) {
-  u32 m = 0;
-  for (int b = 0; b < 32; b += lanes) m |= 1u << b;
-  return m;
-}
+// Words between two planes of the payload: n rounded up to 4.
+static inline long long plane_stride(long long n) { return (n + 3) & ~3ll; }
 
-// payload (lanes, n): plane k = (lower lanes of (x >> k)) - (its top lane),
-// as an int32 two's complement pattern (unsigned arithmetic: no overflow)
-__global__ void pxor_spread_kernel(const u32* __restrict__ x,
-                                   u32* __restrict__ payload, long long n,
-                                   int lanes) {
-  const u32 mask = lane_mask(lanes);
-  const u32 top = lanes < 32 ? 1u << (32 - lanes) : 0u;
-  GRID_STRIDE(i, n) {
-    const u32 w = x[i];
-    for (int k = 0; k < lanes; ++k) {
-      const u32 v = (w >> k) & mask;  // logical shift: u32
-      payload[k * n + i] = (v & ~top) - (v & top);
-    }
+// The lanes of width L: one bit every L positions (0x55555555, 0x11111111,
+// 0x01010101, 0x00010001, 0x00000001) and the top one, which is negated.
+template <int L>
+struct Lanes {
+  static constexpr u32 MASK =
+      static_cast<u32>(0xFFFFFFFFull / ((1ull << L) - 1));
+  static constexpr u32 TOP = L < 32 ? 1u << (32 - L) : 0u;
+  // plane k of the word w: (lower lanes of (w >> k)) - (its top lane), as
+  // an int32 two's complement pattern (unsigned arithmetic: no overflow)
+  __device__ static u32 plane(u32 w, int k) {
+    const u32 v = (w >> k) & MASK;  // logical shift: u32
+    return (v & ~TOP) - (v & TOP);
   }
-}
+  // the lane parities of plane k's sum, back at bits k, k + L, ...
+  __device__ static u32 parity(u32 s, int k) { return (s & MASK) << k; }
+};
 
-__global__ void pxor_fold_kernel(const u32* __restrict__ sums,
-                                 u32* __restrict__ x, long long n,
-                                 int lanes) {
-  const u32 mask = lane_mask(lanes);
-  GRID_STRIDE(i, n) {
+template <int L>
+struct XorSpread {  // x -> payload (L, stride)
+  const u32* x;
+  u32* payload;
+  long long stride;
+  __device__ void scalar(long long i) const {
+    const u32 w = x[i];
+    u32* out = payload + i;
+#pragma unroll
+    for (int k = 0; k < L; ++k, out += stride)
+      __stcs(out, Lanes<L>::plane(w, k));
+  }
+  __device__ void vector(long long i) const {
+    const uint4 w = *reinterpret_cast<const uint4*>(x + i);
+    u32* out = payload + i;
+#pragma unroll
+    for (int k = 0; k < L; ++k, out += stride)
+      __stcs(reinterpret_cast<uint4*>(out),
+             make_uint4(Lanes<L>::plane(w.x, k), Lanes<L>::plane(w.y, k),
+                        Lanes<L>::plane(w.z, k), Lanes<L>::plane(w.w, k)));
+  }
+};
+
+template <int L>
+struct XorFold {  // summed payload (L, stride) -> x
+  const u32* sums;
+  u32* x;
+  long long stride;
+  __device__ void scalar(long long i) const {
+    const u32* in = sums + i;
     u32 w = 0;
-    for (int k = 0; k < lanes; ++k) w |= (sums[k * n + i] & mask) << k;
+#pragma unroll
+    for (int k = 0; k < L; ++k, in += stride) w |= Lanes<L>::parity(*in, k);
     x[i] = w;
   }
+  __device__ void vector(long long i) const {
+    const u32* in = sums + i;
+    uint4 w = make_uint4(0, 0, 0, 0);
+#pragma unroll
+    for (int k = 0; k < L; ++k, in += stride) {
+      const uint4 s = *reinterpret_cast<const uint4*>(in);
+      w.x |= Lanes<L>::parity(s.x, k);
+      w.y |= Lanes<L>::parity(s.y, k);
+      w.z |= Lanes<L>::parity(s.z, k);
+      w.w |= Lanes<L>::parity(s.w, k);
+    }
+    *reinterpret_cast<uint4*>(x + i) = w;
+  }
+};
+
+template <int L>
+__global__ void __launch_bounds__(COLL_THREADS)
+    pxor_spread_kernel(XorSpread<L> op, long long n, Split s) {
+  elementwise<4>(op, n, s);
+}
+
+template <int L>
+__global__ void __launch_bounds__(COLL_THREADS)
+    pxor_fold_kernel(XorFold<L> op, long long n, Split s) {
+  elementwise<4>(op, n, s);
+}
+
+// The spread (in x, out the payload) or the fold (in the summed payload,
+// out x) of n words at lane width L.  Plane k's element i lies k * stride
+// words (a multiple of 16 bytes) past the payload's element i, so the
+// split of x and the payload's first plane holds for every plane.
+template <int L>
+static void xor_pass(bool fold, const void* in, void* out, long long n,
+                     void* stream) {
+  if (n <= 0) return;
+  const u32* src = static_cast<const u32*>(in);
+  u32* dst = static_cast<u32*>(out);
+  if (fold)
+    launch_pass<4>(pxor_fold_kernel<L>, XorFold<L>{src, dst, plane_stride(n)},
+                   n, {{out, 4}, {in, 4}}, stream);
+  else
+    launch_pass<4>(pxor_spread_kernel<L>,
+                   XorSpread<L>{src, dst, plane_stride(n)}, n,
+                   {{in, 4}, {out, 4}}, stream);
+}
+
+// A lane width other than 2, 4, 8, 16 or 32 launches nothing and returns
+// cudaErrorInvalidValue.
+static int pxor_pass(bool fold, const void* in, void* out, long long n,
+                     int lanes, void* stream) {
+  switch (lanes) {
+    case 2: xor_pass<2>(fold, in, out, n, stream); break;
+    case 4: xor_pass<4>(fold, in, out, n, stream); break;
+    case 8: xor_pass<8>(fold, in, out, n, stream); break;
+    case 16: xor_pass<16>(fold, in, out, n, stream); break;
+    case 32: xor_pass<32>(fold, in, out, n, stream); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int pxor_spread(const void* x, void* payload, long long n,
                            int lanes, void* stream) {
-  if (n > 0)
-    pxor_spread_kernel<<<coll_ctas(n), COLL_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const u32*>(x), static_cast<u32*>(payload), n, lanes);
-  return static_cast<int>(cudaGetLastError());
+  return pxor_pass(false, x, payload, n, lanes, stream);
 }
 
 extern "C" int pxor_fold(const void* sums, void* x, long long n, int lanes,
                          void* stream) {
-  if (n > 0)
-    pxor_fold_kernel<<<coll_ctas(n), COLL_THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const u32*>(sums), static_cast<u32*>(x), n, lanes);
-  return static_cast<int>(cudaGetLastError());
+  return pxor_pass(true, sums, x, n, lanes, stream);
 }

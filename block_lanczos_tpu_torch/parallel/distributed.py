@@ -65,13 +65,14 @@ def agree_max(x: float, grid: Grid) -> float:
     return float(t.item())
 
 
-def _bound_sums(ws: dict, grid: Grid, cls, field) -> dict:
-    """The exact sum of each partial of an iteration, bound to its workspace
-    block: tmp over the grid's rows, Av over its columns, the Grams over its
-    rows (collectives.PsumMod or PsumModWide at the field `field`)."""
-    return {"tmp": cls(ws["tmp"], field, grid.rows_group),
-            "av": cls(ws["av"], field, grid.cols_group),
-            "grams": cls(ws["grams"], field, grid.rows_group)}
+def _bound_sums(ws: dict, grid: Grid, cls, *field) -> dict:
+    """The exact all-reduce of each partial of an iteration, bound to its
+    workspace block: tmp over the grid's rows, Av over its columns, the
+    Grams over its rows (collectives.PsumMod or PsumModWide at the field
+    `field`, or Pxor)."""
+    return {"tmp": cls(ws["tmp"], *field, group=grid.rows_group),
+            "av": cls(ws["av"], *field, group=grid.cols_group),
+            "grams": cls(ws["grams"], *field, group=grid.rows_group)}
 
 
 class _ShardedSolver:

@@ -5,7 +5,8 @@ The port of the JAX package's parallel/distributed_gf2.py
 overlap variant nor the `_pxor_planes` yardstick): parallel/distributed.py's
 driver on (rows, n/32) int32 bit words, with the GF(2) kernels
 (ops/gf2.py, models/lanczos_gf2.py) and the exact XOR all-reduce `pxor`
-(parallel/collectives.py, K3) after each partial.  Each rank's block is
+(parallel/collectives.py, K3) after each partial, through its bound form
+`collectives.Pxor`, one built for each workspace block.  Each rank's block is
 built by the single-device GF(2) layout builder, split by column into as
 many bands as its own slice of x needs on this card's L2
 (models/lanczos_gf2.py::choose_bands on the block's in_dim).
@@ -21,7 +22,8 @@ from block_lanczos_tpu_torch.models.lanczos import fit_rows, state_rows
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.parallel import collectives
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
-from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
+from block_lanczos_tpu_torch.parallel.distributed import (_bound_sums,
+                                                          _ShardedSolver)
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
@@ -96,17 +98,18 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
               "grams": torch.zeros((2 * n, W), dtype=torch.int32, device=dev)}
         if dev.type == "cuda":
             ws["si"] = gf2.empty_outputs(n, dev)
+        ws["sum"] = _bound_sums(ws, self.grid, collectives.Pxor)
         return ws
 
     def _step(self, v, p_blk, state, ws) -> None:
         """One iteration on this rank (the JAX package's _local_step)."""
-        ops, g = self.ops, self.grid
+        ops, xors = self.ops, ws["sum"]
         tmp = lg.spmv_gf2(ops.first, v, out_rows=ops.mband, out=ws["tmp"])
-        collectives.pxor(tmp, g.rows_group)
+        xors["tmp"](tmp)                                # split by cols
         av = lg.spmv_gf2(ops.second, tmp, out_rows=ops.band, out=ws["av"])
-        collectives.pxor(av, g.cols_group)
+        xors["av"](av)                                  # split by rows
         grams = gf2.gram_gf2(v, av, out=ws["grams"])
-        collectives.pxor(grams, g.rows_group)
+        xors["grams"](grams)                            # replicated
         si = gf2.semi_inverse_gf2(grams, state, self.check_invariants,
                                   out=ws.get("si"))
         lg.orthogonalize_gf2(v, p_blk, av, si.rhs, si.d, state)

@@ -73,6 +73,12 @@ variant's outputs are first held equal to the default build's:
     microbenchmark (SIW_STEP_BENCH: one thread, almost_inverse on
     STEP_BENCH_RESIDUES random residues, cycles a dependent step; its step
     count held to the NumPy mirror's).
+  * pxor (K3) through its bound form (collectives.Pxor), at the 1 x 1 GF(2)
+    mesh's payloads of bench-gf2-n128 (tmp, Av, the Grams: they and their
+    planes fit the 50 MB L2, so the bytes bound at the HBM rate is no
+    ceiling there) and at PXOR_BIG_WORDS words (past the L2), at every lane
+    width (at PXOR_RANKS ranks): the spread and the fold, each beside its
+    bytes bound (the default build only).
 Each variant is an nvcc build of its own into build/kernels/ (all started
 together); the solver never runs them.  Needs a CUDA device and nvcc;
 prints one JSON line last.
@@ -110,8 +116,13 @@ EXTRA = {"gram_mod": (("GRAM_UNROLL", (2, 8), (4,)),
 KERNELS = ("spmv_ell", "semi_inverse", "gram_mod", "orthogonalize",
            "spmv_gf2", "gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2",
            "spmv_wide", "gram_wide", "semi_inverse_wide",
-           "orthogonalize_wide")
-WIDE_KERNELS = KERNELS[8:]
+           "orthogonalize_wide", "pxor")
+WIDE_KERNELS = KERNELS[8:12]
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peak
+# pxor: group sizes that take each lane width (2, 4, 8, 16, 32), and a
+# payload whose words alone (64 MB) outgrow the L2
+PXOR_RANKS = (1, 3, 9, 129, 32769)
+PXOR_BIG_WORDS = 1 << 24
 # the wide field
 # spmv_wide: the gather-only build (the same loads, the products XORed:
 # the L2-sector floor), the vector width a thread takes (VW = 4 / 2 / 1:
@@ -711,6 +722,65 @@ def _variants(names) -> list:
     return out
 
 
+def events_ms(fn, reps: int = REPS) -> float:
+    """Time per call of fn by CUDA events over `reps` calls back to back
+    (a launch's host cost included where the kernel is shorter)."""
+    import torch
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def pxor_sweeps(shapes, rng, dev) -> dict:
+    """K3's spread and fold, ms per launch each, on random words of each of
+    `shapes` at every lane width: {"L=.. RxW": {"spread": ms, "fold": ms,
+    "bound": ms, "timer": ...}}, the bound the bytes of one pass (4 + 4 L a
+    word, a spread's and a fold's) at the HBM rate.  Device time from
+    torch.profiler; where it records no launch of the kernel, CUDA events
+    over the kernel's launches back to back ("timer": "events").  The
+    words come back from a spread and fold of one rank's payload, which is
+    checked."""
+    import torch
+
+    from block_lanczos_tpu_torch.parallel import collectives as C
+    out = {}
+    for shape in shapes:
+        x0 = torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, size=shape, dtype=np.int64
+        ).astype(np.int32)).to(dev)
+        for ranks in PXOR_RANKS:
+            lanes = C.pxor_lanes(ranks)
+            key = f"L={lanes} {shape[0]}x{shape[1]}"
+            x = x0.clone()
+            b = C.Pxor(x, ranks=ranks)
+
+            def pair():     # one rank's payload: x comes back
+                b.fold(b.pack(x), x)
+            pair()
+            _equal(f"pxor {key}", [x], [x0])
+            row = out[key] = {"timer": "profiler"}
+            try:
+                for k in ("spread", "fold"):
+                    row[k] = device_ms(pair, f"pxor_{k}_kernel")
+            except AssertionError:
+                row.update(timer="events",
+                           spread=events_ms(lambda: b.pack(x)),
+                           fold=events_ms(lambda: b.fold(b.payload, x)))
+            row["bound"] = ((4 + 4 * lanes) * x0.numel()
+                            / HBM_BYTES_PER_S * 1e3)
+            print(f"  pxor {key}: spread {row['spread']:.4f} fold "
+                  f"{row['fold']:.4f} (bound {row['bound']:.4f} each; "
+                  f"{row['timer']})", flush=True)
+            del b, x
+    return out
+
+
 def _key(defines) -> str:
     return ",".join(f"{k}={v}" for k, v in sorted(defines.items()))
 
@@ -1024,6 +1094,15 @@ def main(argv=None) -> int:
               f"auto bands {sg['auto']}), ms per product: " + ", ".join(
                   f"{k} {ms:.4f}" for k, ms in sg.items()
                   if k not in ("l2_bytes", "auto")))
+    if "pxor" in names:
+        from block_lanczos_tpu_torch.models.lanczos_gf2 import BlockLanczosGF2
+        from block_lanczos_tpu_torch.utils.profile_solve import _matrix
+        g = BlockLanczosGF2(_matrix("bench", 2), n=128, device=dev)
+        W = g.W
+        shapes = ((g.mp_rows, W), (g.np_rows, W), (2 * 128, W),
+                  (PXOR_BIG_WORDS // W, W))
+        del g
+        res["pxor"] = pxor_sweeps(shapes, rng, dev)
     if set(names) & set(WIDE_KERNELS):
         wide = wide_sweeps(names, rng, dev)
         res.update(wide)

@@ -10,6 +10,8 @@
     python -m block_lanczos_tpu_torch.utils.profile_solve --field wide \
         --n 32 --iters 100
     python -m block_lanczos_tpu_torch.utils.profile_solve --mesh --n 4
+    python -m block_lanczos_tpu_torch.utils.profile_solve --mesh \
+        --field gf2 --n 128
 
 Builds the matrix, runs the solver's iteration on the card, and reports for
 a window of iterations far from the solve's end (narrow and wide field:
@@ -29,7 +31,8 @@ With --mesh the iteration is the sharded solver's (parallel/) on a 1 x 1
 grid over NCCL in this process: the field's kernels with an exact
 all-reduce (pack, torch.distributed.all_reduce, fold) after each partial;
 NCCL's own kernels count in the busy time, and the host's cost of one
-collective call on tmp as the step makes it, of the all_reduce of its
+collective call on tmp as the step makes it (its workspace's bound form:
+collectives.PsumMod, PsumModWide or Pxor), of the all_reduce of its
 payload, of its pack and fold kernels, of torch.remainder doing the same
 1-rank fold (narrow and wide) and of reading PyTorch's current stream
 (torch.cuda.current_stream().cuda_stream against kernels.current_stream)
@@ -144,7 +147,6 @@ def profile_width(M, field: str, n: int, label: str,
     if mesh:
         import torch.distributed as dist
 
-        from block_lanczos_tpu_torch.parallel import collectives as C
         s, L = _mesh_solver(M, field, n)
         mesh_ws = s._workspace()
 
@@ -153,16 +155,15 @@ def profile_width(M, field: str, n: int, label: str,
 
         from block_lanczos_tpu_torch import kernels
         tmp, group = mesh_ws["tmp"], s.grid.rows_group
-        payload = C.spread_xor(tmp, 1) if gf2 else tmp
-        # narrow and wide: the step's bound form of the collective on tmp
-        bound = None if gf2 else mesh_ws["sum"]["tmp"]
-        call = (lambda: C.pxor(tmp, group)) if gf2 else (lambda: bound(tmp))
-        fold = ((lambda: C.fold_xor(C.spread_xor(tmp, 1), tmp)) if gf2
-                else (lambda: bound.fold(bound.pack(tmp), tmp)))
-        host_us = {"collective": _host_us_per_call(call),
+        # the step's bound form of the collective on tmp (PsumMod,
+        # PsumModWide or Pxor)
+        bound = mesh_ws["sum"]["tmp"]
+        payload = bound.pack(tmp)
+        host_us = {"collective": _host_us_per_call(lambda: bound(tmp)),
                    "all_reduce": _host_us_per_call(
                        lambda: dist.all_reduce(payload, group=group)),
-                   "pack_and_fold": _host_us_per_call(fold)}
+                   "pack_and_fold": _host_us_per_call(
+                       lambda: bound.fold(bound.pack(tmp), tmp))}
         if not gf2:     # the same fold at one rank by one PyTorch call
             host_us["torch_remainder"] = _host_us_per_call(
                 lambda: torch.remainder(tmp, s.f.p, out=tmp))

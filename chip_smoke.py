@@ -105,21 +105,22 @@ failure:
      the narrow bench prime, n = 4, each from its own xoshiro v0: v and p
      must be equal;
   12. the mesh's three collectives (csrc/collectives.cu: psum_mod,
-     psum_mod_wide, pxor) against their plain versions: the folds fed sums
+     psum_mod_wide, pxor), through the sharded solvers' bound forms
+     (PsumMod, PsumModWide, Pxor: prepared launches) on aligned tensors and
+     misaligned views, against their plain versions: the folds fed sums
      of R = 1, 2, 3, 4, 15, 16 and 255 ranks' partials made on the card
      (random, every partial p - 1, every word all ones or bit 31 alone), at
      2, 3, 65537, 2^30 - 35 and the bench prime, and at 2^30 + 3, 2^61 - 1
-     and 4611686018427387847, at the mesh's shapes, an edge shape, empty
-     tensors and misaligned views, also against the exact sums (Python ints
-     for psum_mod_wide, the XOR of the words for pxor); the packs and
-     spreads likewise, and the sharded solvers' bound forms of psum_mod and
-     psum_mod_wide (PsumMod, PsumModWide: prepared launches) on the same
-     partials and sums; each timed at the 1-rank payload through the path
-     the solvers' step runs (CUDA events: the median of single calls, and
-     back to back, a call) with its bound and, for psum_mod and
-     psum_mod_wide, torch.remainder; psum_mod and psum_mod_wide also at the
-     4-rank payloads (int64; 31-bit halves), pack and fold, with their
-     bounds;
+     and 4611686018427387847, at the mesh's shapes, an edge shape (pxor:
+     n % 4 != 0, padded planes whose padding stays zeros) and empty
+     tensors, also against the exact sums (Python ints for psum_mod_wide,
+     the XOR of the words for pxor); the packs and spreads likewise, each
+     bound form refusing any tensor but its own;
+     each timed at the 1-rank payload through the bound form, the path the
+     solvers' step runs (CUDA events: the median of single calls, and back
+     to back, a call) with its bound and, for psum_mod and psum_mod_wide,
+     torch.remainder; each also at the 4-rank payloads (int64; 31-bit
+     halves; 4-bit lanes), pack and fold, with their bounds;
   13. the mesh path at full size on a 1-rank NCCL group: the three sharded
      solvers (parallel/) on a 1 x 1 grid solve bench-n4, bench-gf2-n128 and
      bench-wide-p61-n4 whole; each kernel must equal the single-device
@@ -1457,14 +1458,17 @@ MESH_KERNELS = {
 
 
 def check_collectives(recs, dev, shapes, wshapes, gshapes):
-    """K1-K3 against their plain versions: the folds fed sums of R ranks'
-    partials made here on the card (R in COLL_RANKS), random and at the
-    extremes (every partial p - 1, every word all ones), the packs on
-    partials with p - 1 and bit 31 set, at the mesh's shapes (`shapes`:
-    tmp, Av and the Grams of the 1 x 1 mesh's bench solve; wide and GF(2)
-    likewise), an edge shape, empty tensors and misaligned views; the
-    folds also against the exact sums (Python ints on a sample for K2,
-    the XOR of the ranks' words for K3).  Then each is timed at the 1-rank
+    """K1-K3, through the solvers' bound forms (PsumMod, PsumModWide,
+    Pxor) on aligned tensors and misaligned views, against their plain
+    versions: the folds fed sums of R ranks' partials made here on the card
+    (R in COLL_RANKS), random and at the extremes (every partial p - 1,
+    every word all ones), the packs on partials with p - 1 and bit 31 set,
+    at the mesh's shapes (`shapes`: tmp, Av and the Grams of the 1 x 1
+    mesh's bench solve; wide and GF(2) likewise), an edge shape and empty
+    tensors; the folds also against the exact sums (Python ints on a
+    sample for K2, the XOR of the ranks' words for K3, whose planes'
+    padding must stay zeros); each bound form refuses a tensor other than
+    its own.  Then each is timed at the 1-rank
     payload of phase 13 (CUDA events, median), with its bound (bytes at
     the HBM rate) and, for K1 and K2, torch.remainder as the library
     yardstick (at the 1-rank payload each fold is x mod p)."""
@@ -1479,6 +1483,12 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
                              device=dev, dtype=torch.int64)
 
     edge = [(0, 4), (EDGE_ROWS, 3), (1, 1)]
+
+    def bound_on(make, x, skew):
+        """x (a misaligned copy when skew) and the bound form on it."""
+        x = skewed(x) if skew else x
+        return x, make(x)
+
     # K1: narrow residues
     rec = recs["psum_mod"]
     for p in COLL_NARROW_PRIMES:
@@ -1490,30 +1500,24 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
                 S.view(-1)[:7] = top          # every partial p - 1
                 S.view(-1)[7:9] = 0
                 sums = S.to(dtype)
+                xp = torch.empty(shape, dtype=torch.int32, device=dev)
+                C.fold_mod_plain(sums, xp, p)
                 for skew in (0, 1):
-                    pay = skewed(sums) if skew else sums
-                    xk = torch.empty(shape, dtype=torch.int32, device=dev)
-                    if skew:
-                        xk = skewed(xk)
-                    xp = torch.empty(shape, dtype=torch.int32, device=dev)
-                    C.fold_mod(pay, xk, p)
-                    C.fold_mod_plain(pay, xp, p)
-                    what = f"fold p={p} R={R} {shape} misaligned={skew}"
-                    rec.agree(what, xk, xp)
-                    rec.agree(what + " vs S % p", xk, (S % p).to(torch.int32))
-                x = rint(shape, 0, p - 1).to(torch.int32)
-                x.view(-1)[:5] = p - 1
-                rec.agree(f"pack p={p} R={R} {shape}", C.pack_mod(x, R, p),
-                          C.pack_mod_plain(x, R, p))
-                # the solvers' bound form: its pack, then its fold of the
-                # sums S written into its payload
-                b = C.PsumMod(x, p, ranks=R)
-                want = C.pack_mod_plain(x, R, p).clone()
-                rec.agree(f"bound pack p={p} R={R} {shape}", b.pack(x), want)
-                b.payload.copy_(sums)
-                b.fold(b.payload, x)
-                rec.agree(f"bound fold p={p} R={R} {shape}", x,
-                          (S % p).to(torch.int32))
+                    # the solvers' bound form: its pack of x, then its
+                    # fold of the sums S written into its payload
+                    x = rint(shape, 0, p - 1).to(torch.int32)
+                    x.view(-1)[:5] = p - 1
+                    x, b = bound_on(lambda t: C.PsumMod(t, p, ranks=R), x,
+                                    skew)
+                    what = f"p={p} R={R} {shape} misaligned={skew}"
+                    rec.agree("pack " + what, b.pack(x),
+                              C.pack_mod_plain(x, R, p))
+                    b.payload.copy_(sums)
+                    b.fold(b.payload, x)
+                    rec.agree("fold " + what, x, xp)
+                    rec.agree("fold " + what + " vs S % p", x,
+                              (S % p).to(torch.int32))
+                    refuses_others(b, x)
     print(f"  psum_mod: {rec.cases} cases equal", flush=True)
 
     # K2: wide residues
@@ -1532,78 +1536,85 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
                 else:
                     sums = rint(shape, 0, R * (p - 1))
                     sums.view(-1)[:7] = R * (p - 1)
-                for skew in (0, 1):
-                    pay = skewed(sums) if skew else sums
-                    xk = torch.empty(shape, dtype=torch.int64, device=dev)
-                    if skew:
-                        xk = skewed(xk)
-                    xp = torch.empty(shape, dtype=torch.int64, device=dev)
-                    C.fold_wide(pay, xk, f)
-                    C.fold_wide_plain(pay, xp, p)
-                    rec.agree(f"fold p={p} R={R} {shape} misaligned={skew}",
-                              xk, xp)
+                xp = torch.empty(shape, dtype=torch.int64, device=dev)
+                C.fold_wide_plain(sums, xp, p)
                 # the exact sums on a sample, in Python ints
-                k = min(64, xk.numel())
+                k = min(64, xp.numel())
                 if C.wide_halves(R):
                     lo_h = zip(sums[0].view(-1)[:k].tolist(),
                                sums[1].view(-1)[:k].tolist())
                     want = [((h << 31) + lo_) % p for lo_, h in lo_h]
                 else:
                     want = [s_ % p for s_ in sums.view(-1)[:k].tolist()]
-                if xk.view(-1)[:k].tolist() != want:
-                    raise AssertionError(f"psum_mod_wide fold p={p} R={R} "
-                                         f"{shape}: not the exact sum")
-                x = rint(shape, 0, p - 1)
-                x.view(-1)[:5] = p - 1
-                rec.agree(f"pack p={p} R={R} {shape}", C.pack_wide(x, R),
-                          C.pack_wide_plain(x, R))
-                b = C.PsumModWide(x, f, ranks=R)
-                want = C.pack_wide_plain(x, R).clone()
-                rec.agree(f"bound pack p={p} R={R} {shape}", b.pack(x), want)
-                b.payload.copy_(sums)
-                b.fold(b.payload, x)
-                rec.agree(f"bound fold p={p} R={R} {shape}", x, xp)
+                for skew in (0, 1):
+                    x = rint(shape, 0, p - 1)
+                    x.view(-1)[:5] = p - 1
+                    x, b = bound_on(lambda t: C.PsumModWide(t, f, ranks=R),
+                                    x, skew)
+                    what = f"p={p} R={R} {shape} misaligned={skew}"
+                    rec.agree("pack " + what, b.pack(x),
+                              C.pack_wide_plain(x, R))
+                    b.payload.copy_(sums)
+                    b.fold(b.payload, x)
+                    rec.agree("fold " + what, x, xp)
+                    if x.view(-1)[:k].tolist() != want:
+                        raise AssertionError(f"psum_mod_wide fold {what}: "
+                                             "not the exact sum")
+                    refuses_others(b, x)
     print(f"  psum_mod_wide: {rec.cases} cases equal", flush=True)
 
-    # K3: XOR of words
+    # K3: XOR of words, its (L, plane_stride(n)) planes summed here (the
+    # edge shapes' n % 4 != 0: padded planes, a scalar tail), each rank's
+    # spread by a bound form (rank 1's on a misaligned view)
     rec = recs["pxor"]
     for R in COLL_RANKS:
         lanes = C.pxor_lanes(R)
         for shape in list(gshapes) + edge:
-            S = torch.zeros((lanes,) + tuple(shape), dtype=torch.int64,
+            n = shape[0] * shape[1]
+            S = torch.zeros((lanes, C.plane_stride(n)), dtype=torch.int64,
                             device=dev)
             X = torch.zeros(shape, dtype=torch.int32, device=dev)
+            spreads = [bound_on(lambda t: C.Pxor(t, ranks=R),
+                                torch.empty(shape, dtype=torch.int32,
+                                            device=dev), skew)
+                       for skew in (0, 1)]
             for r in range(R):
                 w = rint(shape, -(1 << 31), (1 << 31) - 1).to(torch.int32)
                 w.view(-1)[:7] = -1                   # every bit set
                 w.view(-1)[7:9] = -(1 << 31)          # bit 31 alone
-                sk = C.spread_xor(skewed(w) if r == 1 else w, R)
+                x, b = spreads[r == 1]
+                x.copy_(w)
+                sk = b.pack(x)
                 if r < 2:
-                    rec.agree(f"spread R={R} {shape} rank {r}", sk,
-                              C.spread_xor_plain(w, R))
+                    rec.agree(f"spread R={R} {shape} rank {r} "
+                              f"misaligned={r}", sk, C.spread_xor_plain(w, R))
                 S += sk
                 X ^= w
+            if S[:, n:].any():
+                raise AssertionError(f"pxor wrote a plane's padding at "
+                                     f"R={R} {shape}")
             if S.numel() and not (-(1 << 31) <= int(S.min())
                                   and int(S.max()) < 1 << 31):
                 raise AssertionError(f"pxor lane sums leave int32 at R={R}")
             sums = S.to(torch.int32)
+            xp = torch.empty(shape, dtype=torch.int32, device=dev)
+            C.fold_xor_plain(sums, xp)
             for skew in (0, 1):
-                pay = skewed(sums) if skew else sums
-                xk = torch.empty(shape, dtype=torch.int32, device=dev)
-                if skew:
-                    xk = skewed(xk)
-                xp = torch.empty(shape, dtype=torch.int32, device=dev)
-                C.fold_xor(pay, xk)
-                C.fold_xor_plain(pay, xp)
+                x, b = bound_on(lambda t: C.Pxor(t, ranks=R),
+                                torch.empty(shape, dtype=torch.int32,
+                                            device=dev), skew)
+                b.payload.copy_(sums)
+                b.fold(b.payload, x)
                 what = f"fold R={R} {shape} misaligned={skew}"
-                rec.agree(what, xk, xp)
-                rec.agree(what + " vs XOR", xk, X)
+                rec.agree(what, x, xp)
+                rec.agree(what + " vs XOR", x, X)
+                refuses_others(b, x)
     print(f"  pxor: {rec.cases} cases equal", flush=True)
 
     # times at phase 13's 1-rank payloads, the mean over a call's shapes:
-    # for K1 and K2 the exact path a sharded solver's step runs around the
-    # transport (the bound form's pack and fold; at one rank the pack
-    # launches nothing), for K3 its spread and fold
+    # the exact path a sharded solver's step runs around the transport (the
+    # bound form's pack and fold; at one rank K1's and K2's packs launch
+    # nothing, K3's spread writes L = 2 planes)
     pb = COLL_NARROW_PRIMES[3]                 # the bench prime
     fw = GFpWide.make(COLL_WIDE_PRIMES[1])     # 2^61 - 1
     rows = []
@@ -1641,17 +1652,21 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
     # the 4-rank payloads (phase 14's axis of 4): K1 widened to int64 (a
     # pack of 4 B read and 8 B written, a fold of 8 B read and 4 B
     # written), K2 in 31-bit halves (8 B read and 16 B written, then 16 B
-    # read and 8 B written); pack and fold back to back, no transport
+    # read and 8 B written), K3 in 4 planes of 4-bit lanes (4 B read and 16
+    # B written, then 16 B read and 4 B written); pack and fold back to
+    # back, no transport
     rows = []
     for name, shp, make, top, nbytes_el in (
             ("psum_mod", shapes, lambda x: C.PsumMod(x, pb, ranks=4),
              pb - 1, 24),
             ("psum_mod_wide", wshapes,
-             lambda x: C.PsumModWide(x, fw, ranks=4), fw.p - 1, 48)):
+             lambda x: C.PsumModWide(x, fw, ranks=4), fw.p - 1, 48),
+            ("pxor", gshapes, lambda x: C.Pxor(x, ranks=4), None, 40)):
         ms, per, nbytes = [], [], []
         for shape in shp:
-            x = rint(shape, 0, top).to(torch.int32 if name == "psum_mod"
-                                       else torch.int64)
+            x = (rint(shape, -(1 << 31), (1 << 31) - 1) if top is None
+                 else rint(shape, 0, top)).to(
+                     torch.int64 if name == "psum_mod_wide" else torch.int32)
             b = make(x)
             assert b.payload is not x        # the pack runs
             ms.append(median_ms(lambda: b.fold(b.pack(x), x)))
@@ -1671,21 +1686,36 @@ def check_collectives(recs, dev, shapes, wshapes, gshapes):
 
 def one_rank_call(C, name, x, p, f, plain=False):
     """A function running what a call of collective `name` runs around the
-    transport on a 1-rank group (phase 13's payloads; the payload is x
-    itself, so its sum too): for psum_mod and psum_mod_wide the bound
-    form's pack and fold, as the sharded solvers' step calls them (or the
-    plain versions of the two), for pxor the spread and the fold."""
-    if name == "pxor":
-        spread, fold = ((C.spread_xor_plain, C.fold_xor_plain) if plain
-                        else (C.spread_xor, C.fold_xor))
-        return lambda: fold(spread(x, 1), x)
+    transport on a 1-rank group (phase 13's payloads; the sum of a 1-rank
+    payload is the payload): the bound form's pack and fold (PsumMod,
+    PsumModWide, Pxor), as the sharded solvers' step calls them, or the
+    plain versions of the two."""
     if plain:
-        return ((lambda: C.fold_mod_plain(C.pack_mod_plain(x, 1, p), x, p))
-                if name == "psum_mod" else
-                (lambda: C.fold_wide_plain(C.pack_wide_plain(x, 1), x, f.p)))
-    b = (C.PsumMod(x, p, ranks=1) if name == "psum_mod"
-         else C.PsumModWide(x, f, ranks=1))
+        return {"psum_mod": lambda: C.fold_mod_plain(
+                    C.pack_mod_plain(x, 1, p), x, p),
+                "psum_mod_wide": lambda: C.fold_wide_plain(
+                    C.pack_wide_plain(x, 1), x, f.p),
+                "pxor": lambda: C.fold_xor_plain(
+                    C.spread_xor_plain(x, 1), x)}[name]
+    b = {"psum_mod": lambda: C.PsumMod(x, p, ranks=1),
+         "psum_mod_wide": lambda: C.PsumModWide(x, f, ranks=1),
+         "pxor": lambda: C.Pxor(x, ranks=1)}[name]()
     return lambda: b.fold(b.pack(x), x)
+
+
+def refuses_others(b, x):
+    """A bound form on the card (its launches prepared for x and its
+    payload) raises on any other tensor, launching nothing."""
+    other = x.clone()
+    for what, call in (("x", lambda: b.pack(other)),
+                       ("x", lambda: b.fold(b.payload, other)),
+                       ("sums", lambda: b.fold(b.payload.clone(), x))):
+        try:
+            call()
+        except ValueError:
+            continue
+        raise AssertionError(f"{b.name}'s bound form took another {what} "
+                             "than its own")
 
 
 def _mesh_rank(rank, world, device, coo, primes, n_by_field, iters):

@@ -5,6 +5,8 @@ they live outside the test files so that a rank imports torch and the port
 only, never JAX.  Each returns its results from rank 0 (None elsewhere).
 """
 
+import contextlib
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -25,12 +27,12 @@ SOLVERS = {"narrow": D.ShardedBlockLanczos, "gf2": ShardedBlockLanczosGF2,
 
 def collectives_job(rank, world, device, cases):
     """cases: (kind, R, p, partials) with partials (R, ...) NumPy; the first
-    R ranks sum their partial by psum_mod / psum_mod_wide / pxor (kind
-    "mod", "wide", "xor") over a group of R ranks, and again ("mod",
-    "wide") by the solvers' bound form (C.PsumMod / C.PsumModWide, called
-    twice on one tensor).  Returns every case's results as rank 0 holds
-    them, and as rank R - 1 holds them: [function's, bound form's or None]
-    a case."""
+    R ranks sum their partial over a group of R ranks by the solvers' bound
+    form of psum_mod / psum_mod_wide / pxor (kind "mod", "wide", "xor":
+    C.PsumMod / C.PsumModWide / C.Pxor), once by a fresh object and again
+    by one object called twice on one tensor.  Returns every case's results
+    as rank 0 holds them, and as rank R - 1 holds them: [the first call's,
+    the second object's] a case."""
     sizes = sorted({R for _, R, _, _ in cases})
     groups = {R: (dist.group.WORLD if R == world
                   else dist.new_group(list(range(R)))) for R in sizes}
@@ -39,24 +41,23 @@ def collectives_job(rank, world, device, cases):
         if rank >= R:
             out.append(None)
             continue
-        x = torch.from_numpy(parts[rank].copy())
-        bound = None
         if kind == "mod":
-            C.psum_mod(x, p, groups[R])
-            bound = C.PsumMod(x, p, groups[R])
+            def make(t):
+                return C.PsumMod(t, p, groups[R])
         elif kind == "wide":
-            C.psum_mod_wide(x, GFpWide.make(p), groups[R])
-            bound = C.PsumModWide(x, GFpWide.make(p), groups[R])
+            def make(t):
+                return C.PsumModWide(t, GFpWide.make(p), groups[R])
         else:
-            C.pxor(x, groups[R])
-        res = [x.numpy(), None]
-        if bound is not None:
-            y = torch.from_numpy(parts[rank].copy())
-            for _ in range(2):      # the same object, a fresh partial
-                y.copy_(torch.from_numpy(parts[rank]))
-                bound(y)
-            res[1] = y.numpy()
-        out.append(res)
+            def make(t):
+                return C.Pxor(t, groups[R])
+        x = torch.from_numpy(parts[rank].copy())
+        make(x)(x)
+        y = torch.from_numpy(parts[rank].copy())
+        bound = make(y)
+        for _ in range(2):          # the same object, a fresh partial
+            y.copy_(torch.from_numpy(parts[rank]))
+            bound(y)
+        out.append([x.numpy(), y.numpy()])
     # rank 0 collects the last member's copies, to show every rank agrees
     gathered = [None] * world
     dist.all_gather_object(gathered, out)
@@ -80,6 +81,36 @@ def _skew_grams(real):
         g[-1, 0] = (g[-1, 0] + 1) % p      # vtAAv no longer symmetric
         return g
     return skewed
+
+
+@contextlib.contextmanager
+def _bound_forms_only(calls):
+    """Within the block each call of a bound form (C.PsumMod, PsumModWide,
+    Pxor) adds one to calls[its class name], and a summing
+    torch.distributed.all_reduce raises unless a bound form made it (the
+    loop's agreement on its clock, a MAX, passes)."""
+    real_call, real_all_reduce = C._BoundSum.__call__, dist.all_reduce
+    inside = []
+
+    def counted(self, x):
+        calls[type(self).__name__] = calls.get(type(self).__name__, 0) + 1
+        inside.append(self)
+        try:
+            return real_call(self, x)
+        finally:
+            inside.pop()
+
+    def all_reduce(tensor, op=dist.ReduceOp.SUM, **kwargs):
+        if op == dist.ReduceOp.SUM and not inside:
+            raise RuntimeError("the step summed outside a bound form")
+        return real_all_reduce(tensor, op=op, **kwargs)
+    C._BoundSum.__call__ = counted
+    dist.all_reduce = all_reduce
+    try:
+        yield
+    finally:
+        C._BoundSum.__call__ = real_call
+        dist.all_reduce = real_all_reduce
 
 
 def _rounds(tasks):
@@ -114,12 +145,16 @@ def _run(task, grid):
     real = D.gram_mod
     if task.get("skew_gram"):
         D.gram_mod = _skew_grams(real)
+    calls = {}
     try:
-        res = solver.solve(
-            stop_after=task.get("stop_after", -1),
-            on_iteration=capture if task.get("capture") else None,
-            resume_state=task.get("resume"))
+        with (_bound_forms_only(calls) if task.get("count_bound")
+              else contextlib.nullcontext()):
+            res = solver.solve(
+                stop_after=task.get("stop_after", -1),
+                on_iteration=capture if task.get("capture") else None,
+                resume_state=task.get("resume"))
         out = dict(kernel=res.kernel, iterations=res.iterations,
+                   bound_calls=calls,
                    v_nonzero=res.v_nonzero, product_zero=res.product_zero,
                    stopped_by_limit=res.stopped_by_limit, iterates=iterates,
                    row_identity=solver.row_map.identity,
@@ -141,7 +176,9 @@ def solve_job(rank, world, device, tasks):
     j, x)), prime, n, and optionally right, stop_after, sync_every,
     resume, check, capture (the whole (v, p) in true order after every
     block), skew_gram (a narrow Gram made non-symmetric on every rank: the
-    invariant check must fail on all of them).  Consecutive tasks on
+    invariant check must fail on all of them), count_bound (the module
+    collectives refused during the solve, the bound forms' calls counted
+    in the result's bound_calls).  Consecutive tasks on
     disjoint ranks run side by side.  Returns the tasks' result dicts at
     rank 0; a failed solve's dict holds every member rank's message."""
     mine = {}

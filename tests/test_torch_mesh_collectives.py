@@ -1,15 +1,17 @@
 """The mesh's exact collectives and partition maps against the JAX package.
 
-  * psum_mod, psum_mod_wide and pxor (parallel/collectives.py, on CPU
-    tensors their plain versions), and the sharded solvers' bound forms of
-    the first two (PsumMod, PsumModWide), on a world of 8 gloo ranks
-    spawned once (parallel/launch.py), over groups of R = 1, 2, 3, 4 and 8
-    ranks, equal on every member to the JAX package's psum_mod,
-    psum_mod_wide and pxor under jax.shard_map on the same partials (as
-    tests/test_sharded.py runs them);
-  * the payloads' folds fed sums of many ranks' partials made here (up to
-    2^20 ranks), against the exact sums: K1 and K2 in Python ints, K3 the
-    XOR of the words, with every lane sum inside int32;
+  * the sharded solvers' bound forms of psum_mod, psum_mod_wide and pxor
+    (parallel/collectives.py: PsumMod, PsumModWide, Pxor; on CPU tensors
+    their plain versions), on a world of 8 gloo ranks spawned once
+    (parallel/launch.py), over groups of R = 1, 2, 3, 4 and 8 ranks, equal
+    on every member to the JAX package's psum_mod, psum_mod_wide and pxor
+    under jax.shard_map on the same partials (as tests/test_sharded.py runs
+    them);
+  * the bound forms' packs and folds on sums of many ranks' partials made
+    here (up to 2^20 ranks), against the exact sums: K1 and K2 in Python
+    ints, K3 the XOR of the words, with every lane sum inside int32, K3's
+    planes plane_stride(n) words apart with zero padding, and Pxor's pack
+    and fold equal to the plain spread and fold;
   * BandMap, balanced_band_map (both LPT deals), _grid_maps and each
     rank's block equal to the JAX package's on skewed counts;
   * a sharded solver given no grid runs on CUDA or raises: with no CUDA it
@@ -104,8 +106,9 @@ def _jax_sum(kind, R, p, parts):
 @pytest.mark.parametrize("kind", ["mod", "wide", "xor"])
 @pytest.mark.parametrize("R", RANKS)
 def test_collective_matches_jax_on_every_rank(port_results, kind, R):
-    """The module function and, for K1 and K2, the solvers' bound form
-    (collectives.PsumMod / PsumModWide) on rank 0 and on rank R - 1."""
+    """The solvers' bound form (collectives.PsumMod / PsumModWide / Pxor),
+    a fresh object's call and one object's second call, on rank 0 and on
+    rank R - 1, bit for bit."""
     cases, out, last = port_results
     n = 0
     for k, (kd, r, p, parts) in enumerate(cases):
@@ -114,11 +117,8 @@ def test_collective_matches_jax_on_every_rank(port_results, kind, R):
         want = _jax_sum(kd, r, p, parts)
         for got in (out[k], last[k]):
             np.testing.assert_array_equal(got[0], want, err_msg=f"p={p}")
-            if kind == "xor":
-                assert got[1] is None
-            else:
-                np.testing.assert_array_equal(got[1], want,
-                                              err_msg=f"bound, p={p}")
+            np.testing.assert_array_equal(got[1], want,
+                                          err_msg=f"bound, p={p}")
         n += 1
     assert n == (1 if kind == "xor" else 2)
 
@@ -140,44 +140,95 @@ def test_payload_choices():
 SYNTH_RANKS = (1, 2, 3, 8, 9, 127, 128, 129, 255, 256, 32768, 32769)
 
 
-@pytest.mark.parametrize("R", SYNTH_RANKS)
-def test_pxor_folds_sums_of_many_ranks(R):
-    """K3 on R ranks' words summed here: every lane sum stays in int32
-    (the top lane negated) and the fold gives the XOR."""
+def _synth_words(R):
+    """R ranks' (3, 2) words: random, all bits set, bit 31 alone."""
     rng = np.random.default_rng(R)
     w = rng.integers(-(1 << 31), 1 << 31, (R, 3, 2), dtype=np.int64)
     w[:, 0] = -1
     w[:, 1, 1] = -(1 << 31)
-    words = torch.from_numpy(w.astype(np.int32))
-    planes = C.spread_xor(words, R).to(torch.int64).sum(1)    # (L, 3, 2)
-    assert planes.shape[0] == C.pxor_lanes(R)
+    return w.astype(np.int32)
+
+
+def _rank_planes(spread, w, R):
+    """Each rank's (L, 8) planes of its 6 words, by `spread` (a bound
+    form's pack) on all R ranks' words as one tensor: a tensor's plane k
+    holds its words in order, so rank r's are its words 6 r .. 6 r + 5,
+    padded here as a 6-word tensor's plane is."""
+    lanes = C.pxor_lanes(R)
+    planes = spread(torch.from_numpy(w))
+    assert planes.shape == (lanes, C.plane_stride(6 * R))
+    assert not planes[:, 6 * R:].any()              # the padding: zeros
+    own = planes[:, :6 * R].reshape(lanes, R, 6).transpose(0, 1)
+    return torch.nn.functional.pad(own, (0, C.plane_stride(6) - 6))
+
+
+@pytest.mark.parametrize("R", SYNTH_RANKS)
+def test_pxor_folds_sums_of_many_ranks(R):
+    """K3 on R ranks' words summed here: each rank's planes lie
+    plane_stride(6) = 8 words apart, every lane sum stays in int32 (the
+    top lane negated) and the fold gives the XOR."""
+    w = _synth_words(R)
+    x = torch.from_numpy(w[0].copy())
+    bound = C.Pxor(x, ranks=R)
+    per_rank = _rank_planes(bound.pack, w, R)
+    first = bound.pack(x)
+    assert first.shape == (C.pxor_lanes(R), 8) and not first[:, 6:].any()
+    np.testing.assert_array_equal(per_rank[0].numpy(), first.numpy())
+    planes = per_rank.to(torch.int64).sum(0)                 # (L, 8)
     assert int(planes.min()) >= -(1 << 31) and int(planes.max()) < 1 << 31
-    x = torch.empty((3, 2), dtype=torch.int32)
-    C.fold_xor(planes.to(torch.int32), x)
-    want = np.bitwise_xor.reduce(w.astype(np.int32), axis=0)
-    np.testing.assert_array_equal(x.numpy(), want)
+    bound.fold(planes.to(torch.int32), x)
+    np.testing.assert_array_equal(x.numpy(),
+                                  np.bitwise_xor.reduce(w, axis=0))
+
+
+@pytest.mark.parametrize("R", (1, 2, 3, 8, 9, 129, 32769))
+def test_bound_pxor_on_the_cpu_equals_pxor(R):
+    """collectives.Pxor on CPU tensors (its ranks given, so no process
+    group) launches nothing: its pack equals spread_xor_plain and its fold
+    of R ranks' summed planes equals fold_xor_plain's, the XOR of the
+    words.  (Its refusal of a tensor other than the bound one runs on CUDA
+    only, where its launches are prepared: chip_smoke.py phase 12 holds
+    it.)"""
+    w = _synth_words(R)
+    x = torch.from_numpy(w[0].copy())
+    bound = C.Pxor(x, ranks=R)
+    launched = C.launch_counts()["pxor"]
+    np.testing.assert_array_equal(bound.pack(x).numpy(),
+                                  C.spread_xor_plain(x, R).numpy())
+    planes = _rank_planes(bound.pack, w, R).to(torch.int64).sum(0)
+    sums = planes.to(torch.int32)
+    got, want = torch.empty_like(x), torch.empty_like(x)
+    bound.fold(sums, got)
+    C.fold_xor_plain(sums, want)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.bitwise_xor.reduce(w, axis=0))
+    assert C.launch_counts()["pxor"] == launched    # no kernel on the CPU
 
 
 @pytest.mark.parametrize("R", (1, 2, 3, 255, 1 << 20))
 def test_mod_folds_sums_of_many_ranks(R):
-    """K1 and K2's payloads for R ranks of p - 1 and of random residues,
-    summed here, fold to the exact sums mod p (Python ints)."""
+    """K1 and K2's bound forms (PsumMod, PsumModWide): their payloads for
+    R ranks of p - 1 and of random residues, summed here, fold to the
+    exact sums mod p (Python ints)."""
     rng = np.random.default_rng(R)
     for p in NARROW_PRIMES:
         x = torch.tensor([[p - 1, 0, 1, p // 2]], dtype=torch.int32)
         per_rank = [int(v) for v in x.view(-1)]
-        sums = C.pack_mod(x, R, p) * R          # R ranks holding x each
+        bound = C.PsumMod(x, p, ranks=R)
+        sums = bound.pack(x) * R                # R ranks holding x each
         assert int(sums.max()) <= (1 << 31) - 1 or sums.dtype == torch.int64
         out = torch.empty_like(x)
-        C.fold_mod(sums, out, p)
+        bound.fold(sums, out)
         assert out.view(-1).tolist() == [v * R % p for v in per_rank]
     for p in WIDE_PRIMES:
         f = GFpWide.make(p)
         vals = [p - 1, 0, 1, int(rng.integers(0, p))]
         x = torch.tensor([vals], dtype=torch.int64)
-        sums = C.pack_wide(x, R) * R            # whole or as halves
+        bound = C.PsumModWide(x, f, ranks=R)
+        sums = bound.pack(x) * R                # whole or as halves
         out = torch.empty_like(x)
-        C.fold_wide(sums, out, f)
+        bound.fold(sums, out)
         assert out.view(-1).tolist() == [v * R % p for v in vals]
 
 

@@ -3,10 +3,13 @@ bit for bit, and the CLI's mesh forms, on CPU ranks over gloo.
 
   * GF(2) (left_p2_n32) and the wide field (a 2^61 - 1 instance built as
     tests/test_torch_wide_solver.py builds it) on a 2 x 2 grid of 4 ranks,
-    spawned once for the module: the kernel and (v, p) after every
-    iteration equal to the JAX package's ShardedBlockLanczosGF2 /
-    ShardedBlockLanczosWide on a 2 x 2 mesh, which run in this process
-    meanwhile; GF(2)'s kernel equal to the golden;
+    and GF(2) again on a 4 x 1 grid (an axis of 4: 4-bit lanes), spawned
+    once for the module: the kernel and (v, p) after every iteration equal
+    to the JAX package's ShardedBlockLanczosGF2 / ShardedBlockLanczosWide
+    on a mesh of the same shape, which run in this process meanwhile;
+    GF(2)'s kernel equal to the golden; the GF(2) step's all-reduces are
+    its workspace's bound forms (collectives.Pxor) alone, three an
+    iteration;
   * the CLI (twins of tests/test_multihost.py's two-process runs):
     `--device cpu --grid 2 2` and two processes of `--local-devices 2`
     meeting at a file rendezvous write the goldens byte for byte;
@@ -68,10 +71,11 @@ def _golden_bytes(name):
         return fh.read()
 
 
-def _jax_solve(cls, M, n, as_port):
-    """JAX's sharded solve on a 2 x 2 mesh, with (v, p) in true row order
-    after every iteration, in the port's representation (as_port)."""
-    js = cls(M, n=n, mesh=make_mesh_grid(2, 2), sync_every=1)
+def _jax_solve(cls, M, n, as_port, grid=(2, 2)):
+    """JAX's sharded solve on an R x C mesh (`grid`), with (v, p) in true
+    row order after every iteration, in the port's representation
+    (as_port)."""
+    js = cls(M, n=n, mesh=make_mesh_grid(*grid), sync_every=1)
     iterates = []
 
     def grab(solver, iteration, v, p_blk, start):
@@ -87,22 +91,29 @@ def runs(tmp_path_factory):
     wide_mtx = write_matrix(str(tmp_path_factory.mktemp("mesh_wide") /
                                 "m.mtx"), P61, 96, 64, 5, seed=7)
     tasks = [dict(field="gf2", matrix=GF2, prime=2, n=32, grid=(2, 2),
-                  sync_every=1, capture=True),
+                  sync_every=1, capture=True, count_bound=True),
              dict(field="wide", matrix=wide_mtx, prime=P61, n=4, grid=(2, 2),
-                  sync_every=1, capture=True)]
+                  sync_every=1, capture=True),
+             dict(field="gf2", matrix=GF2, prime=2, n=32, grid=(4, 1),
+                  sync_every=1, capture=True, count_bound=True)]
     with ThreadPoolExecutor(1) as pool:      # the ranks run meanwhile
         port = pool.submit(launch.spawn, mesh_ranks.solve_job, ["cpu"] * 4,
                            args=(tasks,), wall_s=WALL_S)
-        jax = {"gf2": _jax_solve(JGF2, jmmio.load_mtx(GF2, 2), 32,
-                                 lambda w: w.view(np.int32)),
+        words = lambda w: w.view(np.int32)  # noqa: E731
+        jax = {"gf2": _jax_solve(JGF2, jmmio.load_mtx(GF2, 2), 32, words),
                "wide": _jax_solve(JWide, jmmio.load_mtx(wide_mtx, P61), 4,
                                   lambda a: jgw.np_unpair(a).astype(
-                                      np.int64))}
-        gf2, wide = port.result()[0]
-    return {"gf2": gf2, "wide": wide}, jax, wide_mtx
+                                      np.int64)),
+               "gf2-4x1": _jax_solve(JGF2, jmmio.load_mtx(GF2, 2), 32, words,
+                                     grid=(4, 1))}
+        gf2, wide, gf2_4x1 = port.result()[0]
+    return {"gf2": gf2, "wide": wide, "gf2-4x1": gf2_4x1}, jax, wide_mtx
 
 
-@pytest.mark.parametrize("field", ["gf2", "wide"])
+FIELDS = ["gf2", "wide", "gf2-4x1"]
+
+
+@pytest.mark.parametrize("field", FIELDS)
 def test_mesh_field_matches_jax(runs, field):
     got = runs[0][field]
     want, _ = runs[1][field]
@@ -111,13 +122,13 @@ def test_mesh_field_matches_jax(runs, field):
         (want.v_nonzero, want.product_zero)
     assert got["v_nonzero"] and got["product_zero"]
     np.testing.assert_array_equal(got["kernel"], want.kernel)
-    if field == "gf2":
+    if field.startswith("gf2"):
         ref = jmmio.read_array_mtx(os.path.join(GOLDEN,
                                                 "left_p2_n32.kernel.mtx"))[2]
         np.testing.assert_array_equal(got["kernel"].astype(np.int64), ref)
 
 
-@pytest.mark.parametrize("field", ["gf2", "wide"])
+@pytest.mark.parametrize("field", FIELDS)
 def test_mesh_field_iterates_match_jax(runs, field):
     got = runs[0][field]["iterates"]
     _, want = runs[1][field]
@@ -125,6 +136,18 @@ def test_mesh_field_iterates_match_jax(runs, field):
     for (it, gv, gp), (_, wv, wp) in zip(got, want):
         np.testing.assert_array_equal(gv, wv, err_msg=f"v at {it}")
         np.testing.assert_array_equal(gp, wp, err_msg=f"p at {it}")
+
+
+@pytest.mark.parametrize("field", ["gf2", "gf2-4x1"])
+def test_gf2_mesh_step_runs_the_bound_pxor(runs, field):
+    """The GF(2) step reaches K3 only through its workspace's three
+    collectives.Pxor (tmp, Av, the Grams): no sum reached the transport
+    but theirs during the solve, and they ran three times a step."""
+    got = runs[0][field]
+    calls = got["bound_calls"]
+    assert set(calls) == {"Pxor"}, calls
+    assert calls["Pxor"] % 3 == 0
+    assert calls["Pxor"] >= 3 * got["iterations"], (calls, got["iterations"])
 
 
 def _start_cli(args):
