@@ -22,7 +22,14 @@ NumPy arrays, so this module needs nothing of the JAX package:
     and `wide_op_from_jax` turns a JAX `WideHybridOp`'s arrays into the
     port's HybridOp: its slab and spill hold Montgomery pairs, val * 2^64
     mod p, taken out of that form on the host with Python ints, and stored
-    in the port's narrow (int32 signed) or int64 slab.
+    in the port's narrow (int32 signed) or int64 slab;
+  * the way back, for checkpoints that either package resumes:
+    `state_to_numpy`, `gf2_state_to_numpy` and `wide_state_to_numpy` take
+    the port's {v, p[, iteration]} blocks (tensors or NumPy) to the JAX
+    solvers' on-disk forms: uint32 residues, packed uint32 words (a view of
+    the int32 words: bit 31 kept), and (rows, n, 2) uint32 (lo, hi) pairs
+    of canonical residues.  TO_NUMPY and FROM_NUMPY map a manifest's
+    "field" (narrow, gf2, wide) to the pair.
 """
 
 from __future__ import annotations
@@ -138,7 +145,11 @@ def wide_state_from_numpy(state: dict, device) -> dict:
     residues on `device`, in true row order."""
     out = {"iteration": int(state["iteration"])}
     for name in ("v", "p"):
-        vals = _unpair(state_rows(state, name))
+        pairs = np.asarray(state_rows(state, name), np.uint64)
+        if pairs.shape[-1:] != (2,):
+            raise ValueError(f"state block {name!r} must be (rows, n, 2) "
+                             f"(lo, hi) pairs, got {pairs.shape}")
+        vals = (pairs[..., 1] << np.uint64(32)) | pairs[..., 0]
         if vals.size and int(vals.max()) >= 1 << 62:
             raise ValueError(f"state block {name!r} holds values >= 2^62; "
                              "not wide-field residues")
@@ -183,3 +194,48 @@ def wide_op_from_jax(arrays: dict, p: int) -> HybridOp:
         sp_cols=np.asarray(arrays["spill_in_idx"])[:s_nnz].astype(np.int32),
         sp_vals=wide_ops.slab_values(p, sp_vals, narrow),
     ), out_dim, int(arrays["in_dim"]))
+
+
+def _host(block) -> np.ndarray:
+    if isinstance(block, torch.Tensor):
+        return block.cpu().numpy()
+    return np.asarray(block)
+
+
+def _to_numpy(state: dict, convert) -> dict:
+    out = {name: convert(_host(state[name])) for name in ("v", "p")}
+    if "iteration" in state:
+        out["iteration"] = int(state["iteration"])
+    return out
+
+
+def state_to_numpy(state: dict) -> dict:
+    """The port's narrow {v, p[, iteration]} state (int32 residues) in the
+    JAX solver's on-disk form: uint32 residues, (rows, n)."""
+    return _to_numpy(state, lambda a: a.astype(np.uint32))
+
+
+def gf2_state_to_numpy(state: dict) -> dict:
+    """The port's GF(2) state (int32 word patterns) as the JAX solver's
+    packed uint32 words, (rows, n/32): the same bits, bit 31 included."""
+    return _to_numpy(state, lambda a: np.ascontiguousarray(a).view(np.uint32))
+
+
+def wide_state_to_numpy(state: dict) -> dict:
+    """The port's wide state (int64 residues in [0, p), p < 2^62) as the JAX
+    wide solver's (rows, n, 2) uint32 (lo, hi) pairs."""
+    def pairs(a):
+        if a.size and int(a.min()) < 0:
+            raise ValueError("wide state blocks hold residues >= 0")
+        a = a.astype(np.uint64)
+        return np.stack([a & np.uint64(0xFFFFFFFF), a >> np.uint64(32)],
+                        axis=-1).astype(np.uint32)
+    return _to_numpy(state, pairs)
+
+
+# a manifest's "field" -> the way to the JAX on-disk form, and back (to the
+# port's resume state on a device)
+TO_NUMPY = {"narrow": state_to_numpy, "gf2": gf2_state_to_numpy,
+            "wide": wide_state_to_numpy}
+FROM_NUMPY = {"narrow": state_from_numpy, "gf2": gf2_state_from_numpy,
+              "wide": wide_state_from_numpy}

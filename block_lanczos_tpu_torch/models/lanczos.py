@@ -102,6 +102,20 @@ def state_rows(state: dict, name: str) -> np.ndarray:
     return out
 
 
+def resume_rows(state: dict, name: str, rows: int, width: int) -> np.ndarray:
+    """A resume-state block in true row order, fitted to `rows` rows, which
+    must hold `width` entries a row (the port's form: residues or words; a
+    JAX package state goes through convert.FROM_NUMPY first, so that a
+    wide field's (rows, n, 2) pairs are refused here, not misread)."""
+    arr = np.asarray(fit_rows(state_rows(state, name), rows))
+    if arr.shape[1:] != (width,):
+        raise ValueError(
+            f"resume block {name!r} must be (rows, {width}), got "
+            f"{arr.shape}; a JAX package state goes through "
+            "convert.FROM_NUMPY[field] first")
+    return arr
+
+
 # ---------------------------------------------------------------------------
 # The orthogonalize kernel and its plain version
 # ---------------------------------------------------------------------------
@@ -299,6 +313,8 @@ class BlockLanczos:
     runs the plain PyTorch versions of the kernels.
     """
 
+    field = "narrow"   # the checkpoint manifest's field
+
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  check_invariants: bool = True,
                  sync_every: int | None = None, device=None):
@@ -329,7 +345,7 @@ class BlockLanczos:
         return torch.from_numpy(v0).to(self.device)
 
     def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
-        arr = fit_rows(state_rows(resume_state, name), self.np_rows)
+        arr = resume_rows(resume_state, name, self.np_rows, self.n)
         return torch.from_numpy(arr.astype(np.int32)).to(self.device)
 
     def solve(self, stop_after: int = -1, verbose: bool = False,

@@ -33,9 +33,8 @@ import torch
 from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.models.lanczos import (PAD_MULTIPLE, SolveResult,
                                                     blocked_solve_loop,
-                                                    fit_rows, pad_rows,
-                                                    resolve_device,
-                                                    state_rows)
+                                                    pad_rows, resolve_device,
+                                                    resume_rows)
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.ops.gf2 import (WORD, colmask, gram_gf2,
                                              matmul_gf2, semi_inverse_gf2)
@@ -321,6 +320,8 @@ class BlockLanczosGF2:
     runs the plain PyTorch versions of the kernels.
     """
 
+    field = "gf2"   # the checkpoint manifest's field
+
     def __init__(self, M: COOMatrix, n: int = 32, right: bool = False,
                  pad_multiple: int = PAD_MULTIPLE,
                  check_invariants: bool = True, seed=None,
@@ -370,11 +371,7 @@ class BlockLanczosGF2:
         return torch.from_numpy(v0).to(self.device)
 
     def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
-        arr = np.asarray(fit_rows(state_rows(resume_state, name),
-                                  self.np_rows))
-        if arr.shape[1:] != (self.W,):
-            raise ValueError(f"resume block {name!r} must be (rows, {self.W}) "
-                             f"words, got {arr.shape}")
+        arr = resume_rows(resume_state, name, self.np_rows, self.W)
         words32 = np.ascontiguousarray(arr).astype(np.uint32).view(np.int32)
         return torch.from_numpy(words32).to(self.device)
 

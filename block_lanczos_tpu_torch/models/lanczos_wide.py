@@ -30,9 +30,9 @@ from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.models.lanczos import (PAD_MULTIPLE,
                                                     SolveResult,
                                                     blocked_solve_loop,
-                                                    final_check, fit_rows,
-                                                    pad_rows, resolve_device,
-                                                    state_rows)
+                                                    final_check, pad_rows,
+                                                    resolve_device,
+                                                    resume_rows)
 from block_lanczos_tpu_torch.ops import gfp_wide as gw
 from block_lanczos_tpu_torch.ops import wide_ops as wo
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
@@ -163,6 +163,8 @@ class BlockLanczosWide:
     runs the plain PyTorch versions of the kernels.
     """
 
+    field = "wide"   # the checkpoint manifest's field
+
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  check_invariants: bool = True,
                  sync_every: int | None = None, device=None):
@@ -194,8 +196,7 @@ class BlockLanczosWide:
         return torch.from_numpy(v0).to(self.device)
 
     def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
-        arr = fit_rows(state_rows(resume_state, name), self.np_rows)
-        arr = np.asarray(arr)
+        arr = resume_rows(resume_state, name, self.np_rows, self.n)
         if arr.size and (arr.min() < 0 or int(arr.max()) >= self.f.p):
             raise ValueError(f"resume block {name!r} holds values outside "
                              f"[0, p)")

@@ -40,15 +40,15 @@ from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.models import lanczos as single
 from block_lanczos_tpu_torch.models.lanczos import (SolveResult,
                                                     blocked_solve_loop,
-                                                    final_check, fit_rows,
-                                                    state_rows)
+                                                    final_check,
+                                                    resume_rows)
 from block_lanczos_tpu_torch.ops import spmm
 from block_lanczos_tpu_torch.ops.dense import gram_mod
 from block_lanczos_tpu_torch.ops.gfp import GFp
 from block_lanczos_tpu_torch.ops.semi_inverse import (MAX_N, empty_outputs,
                                                       new_state,
                                                       semi_inverse)
-from block_lanczos_tpu_torch.parallel import collectives
+from block_lanczos_tpu_torch.parallel import collectives, multihost
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
 from block_lanczos_tpu_torch.parallel.multihost import (fetch_global,
@@ -59,8 +59,8 @@ from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
 def agree_max(x: float, grid: Grid) -> float:
     """The largest x over the grid's ranks (one tiny all_reduce)."""
-    dev = grid.device if dist.get_backend(grid.group) == "nccl" else "cpu"
-    t = torch.tensor([x], dtype=torch.float64, device=dev)
+    t = torch.tensor([x], dtype=torch.float64,
+                     device=multihost.group_device(grid.group))
     dist.all_reduce(t, op=dist.ReduceOp.MAX, group=grid.group)
     return float(t.item())
 
@@ -78,8 +78,9 @@ def _bound_sums(ws: dict, grid: Grid, cls, *field) -> dict:
 class _ShardedSolver:
     """The mesh driver shared by the three fields: v0 and resume bands,
     the blocked host loop, the final gather and check.  A field sets
-    `label` and writes `_v0`, `_state_block`, `_workspace`, `_step`,
-    `_final` and `_invariant_failure`."""
+    `label` and `field` (the checkpoint manifest's) and writes `_v0`,
+    `_state_block`, `_workspace`, `_step`, `_final` and
+    `_invariant_failure`."""
 
     label = ""
 
@@ -183,6 +184,8 @@ class ShardedBlockLanczos(_ShardedSolver):
     there is no CUDA; torch.distributed must be initialized, e.g. by
     parallel/launch.py); blocks live on grid.device."""
 
+    field = "narrow"
+
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  grid: Grid | None = None, pad_multiple: int = 8,
                  check_invariants: bool = True,
@@ -205,7 +208,7 @@ class ShardedBlockLanczos(_ShardedSolver):
             block.reshape(self.n_eff, self.n).astype(np.int32))
 
     def _state_block(self, resume_state: dict, name: str) -> np.ndarray:
-        arr = fit_rows(state_rows(resume_state, name), self.n_eff)
+        arr = resume_rows(resume_state, name, self.n_eff, self.n)
         return self.row_map.scatter(arr.astype(np.int32))
 
     def _workspace(self) -> dict:

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from block_lanczos_tpu_torch.models import lanczos_gf2 as lg
-from block_lanczos_tpu_torch.models.lanczos import fit_rows, state_rows
+from block_lanczos_tpu_torch.models.lanczos import resume_rows
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.parallel import collectives
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
@@ -58,6 +58,7 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
     on CUDA); dedup as in models.lanczos_gf2.BlockLanczosGF2."""
 
     label = "GF(2) bitsliced, "
+    field = "gf2"
 
     def __init__(self, M: COOMatrix, n: int = 32, right: bool = False,
                  grid: Grid | None = None, pad_multiple: int = 8,
@@ -83,11 +84,7 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
         return gf2.pack_bits_np(block).view(np.int32)
 
     def _state_block(self, resume_state: dict, name: str) -> np.ndarray:
-        arr = np.asarray(fit_rows(state_rows(resume_state, name),
-                                  self.n_eff))
-        if arr.shape[1:] != (self.W,):
-            raise ValueError(f"resume block {name!r} must be (rows, {self.W}) "
-                             f"words, got {arr.shape}")
+        arr = resume_rows(resume_state, name, self.n_eff, self.W)
         return self.row_map.scatter(arr.astype(np.uint32).view(np.int32))
 
     def _workspace(self) -> dict:

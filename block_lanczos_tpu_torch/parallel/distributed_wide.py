@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 from block_lanczos_tpu_torch.models import lanczos_wide as lw
-from block_lanczos_tpu_torch.models.lanczos import (final_check, fit_rows,
-                                                    state_rows)
+from block_lanczos_tpu_torch.models.lanczos import final_check, resume_rows
 from block_lanczos_tpu_torch.ops import wide_ops as wo
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.parallel import collectives
@@ -43,6 +42,7 @@ class ShardedBlockLanczosWide(_ShardedSolver):
     ShardedBlockLanczos.  The result's `kernel` and `vtM` are uint64."""
 
     label = "wide field, "
+    field = "wide"
 
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  grid: Grid | None = None, pad_multiple: int = 8,
@@ -64,8 +64,7 @@ class ShardedBlockLanczosWide(_ShardedSolver):
             block.reshape(self.n_eff, self.n).astype(np.int64))
 
     def _state_block(self, resume_state: dict, name: str) -> np.ndarray:
-        arr = np.asarray(fit_rows(state_rows(resume_state, name),
-                                  self.n_eff))
+        arr = resume_rows(resume_state, name, self.n_eff, self.n)
         if arr.size and (arr.min() < 0 or int(arr.max()) >= self.f.p):
             raise ValueError(f"resume block {name!r} holds values outside "
                              f"[0, p)")

@@ -39,6 +39,7 @@ class Grid:
     cols_group: object
     group: object        # all R * C ranks
     device: torch.device
+    root: int = 0        # the global rank of (0, 0)
 
     @property
     def shape(self) -> tuple[int, int]:
@@ -104,7 +105,8 @@ def make_grid(R: int, C: int, device=None, ranks=None) -> Grid | None:
         return None
     r, c = divmod(ranks.index(me), C)
     return Grid(R=R, C=C, r=r, c=c, rows_group=rows_groups[c],
-                cols_group=cols_groups[r], group=group, device=device)
+                cols_group=cols_groups[r], group=group, device=device,
+                root=ranks[0])
 
 
 def make_mesh(device=None) -> Grid:

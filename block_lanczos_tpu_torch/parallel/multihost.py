@@ -14,11 +14,14 @@ scattered.  The only whole-block traffic is the final gather.
   * `put_global`: this rank's band of a block that every rank holds whole;
   * `fetch_global`: the whole block on every rank, an all_gather of equal
     bands over the axis that splits it (through the host on a gloo group:
-    gloo gathers no CUDA tensors).
-
-The JAX module's is_root / process_count / barrier are not ported: the
-port's root is the grid's (mesh.Grid.is_root), and only checkpoints, not
-ported yet, need a barrier.
+    gloo gathers no CUDA tensors);
+  * `is_root`, `process_count` and `barrier`, the JAX module's helpers
+    that checkpoints need (utils/checkpoint.py): rank 0 of the world and
+    the world's size (a process without a world is its own root, a world
+    of 1), and a barrier over a group.  A solver's root is its grid's
+    (mesh.Grid.is_root); on a mesh the ranks are processes of their own
+    even on one host, so every mesh of more than one rank is
+    "multi-process" here, where the JAX package counts hosts.
 """
 
 from __future__ import annotations
@@ -70,3 +73,29 @@ def fetch_global(local: torch.Tensor, group) -> np.ndarray:
              for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, local.contiguous(), group=group)
     return torch.cat(parts).cpu().numpy()
+
+
+def process_count() -> int:
+    """The ranks of the world; 1 without one."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def is_root() -> bool:
+    """Whether this process is rank 0 of the world (or has no world)."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def group_device(group=None) -> torch.device:
+    """Where a collective's tensor lives on `group`: this rank's current
+    CUDA device on NCCL, the CPU on gloo."""
+    if dist.get_backend(group) == "nccl":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu")
+
+
+def barrier(group=None) -> None:
+    """Return once every rank of `group` (default the world) has called
+    it: a one-element all_reduce, read back on the host."""
+    t = torch.ones(1, dtype=torch.int32, device=group_device(group))
+    dist.all_reduce(t, group=group)
+    t.item()

@@ -8,6 +8,8 @@ Flag-compatible with the JAX package's CLI for the part this port covers
                        [--output-file K.mtx] [--right | --left]
                        [--stop-after N] [--no-checks] [--sync-every K]
                        [--salvage [--salvage-restarts K]] [--no-dedup]
+                       [--checkpoint [SECONDS]] [--load-checkpoint]
+                       [--checkpoint-dir DIR]
                        [--device cuda|cpu] [--single]
                        [--devices K | --grid R C]
                        [--coordinator HOST:PORT --num-processes P
@@ -33,33 +35,45 @@ and its `--process-id I`, and spawns `--local-devices L` ranks (default
 writes the kernel file.  `--num-processes 1 --process-id 0` alone is the
 one-device solve.
 
+Checkpoints are the JAX package's CLI's (utils/checkpoint.py, in its
+on-disk form, so that either package resumes the other's): `--checkpoint
+[SECONDS]` saves {v, p, iteration} every SECONDS (default 60) to
+`--checkpoint-dir`, `--load-checkpoint` resumes from it (validated against
+this run's prime, n, side, field, matrix shape and m_eff; exit 1 on a
+mismatch).  With `--checkpoint`, SIGTERM or SIGINT requests a save at the
+next iteration callback, after which the run exits 128 + signum; a second
+signal takes the default action.  On a mesh the signal to this process is
+passed on to its ranks (they poll a shared value), the root's request is
+the one every rank follows, and each rank exits 128 + signum.
+
 Exit code 2, before the matrix is loaded, for what this port does not
-cover yet (`--overlap` and the checkpoint flags) and for block widths
-above the kernels' caps, n <= 64 in the narrow and the wide field and, on
-CUDA, n <= 512 over GF(2).
+cover yet (`--overlap`) and for block widths above the kernels' caps,
+n <= 64 in the narrow and the wide field and, on CUDA, n <= 512 over
+GF(2).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import signal
 import sys
+import threading
 
+from block_lanczos_tpu_torch import convert
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.ops import semi_inverse as narrow
 from block_lanczos_tpu_torch.ops import wide_ops as wide
 from block_lanczos_tpu_torch.ops.gfp import PRIME_CAP
 from block_lanczos_tpu_torch.ops.gfp_wide import WIDE_PRIME_CAP
+from block_lanczos_tpu_torch.utils import checkpoint as ckpt
 from block_lanczos_tpu_torch.utils import mmio
 from block_lanczos_tpu_torch.utils.verbosity import VerbosityEngine
 
 # flags of the JAX package's CLI that select paths this port does not have:
 # dest -> (flag, the value that selects none of them)
-REFUSED_FLAGS = {
-    "overlap": ("--overlap", False), "checkpoint": ("--checkpoint", None),
-    "load_checkpoint": ("--load-checkpoint", False),
-    "checkpoint_dir": ("--checkpoint-dir", None),
-}
+REFUSED_FLAGS = {"overlap": ("--overlap", False)}
+PREEMPTION_SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -105,6 +119,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "verbatim like the reference (default: drop "
                          "duplicates to restore rank(A) on structured "
                          "instances; a no-op on duplicate-free matrices)")
+    ap.add_argument("--checkpoint", nargs="?", const=60.0, type=float,
+                    default=None, metavar="SECONDS",
+                    help="checkpoint every SECONDS seconds [default 60]")
+    ap.add_argument("--load-checkpoint", action="store_true",
+                    help="resume from the checkpoint directory")
+    ap.add_argument("--checkpoint-dir", default="lanczos_checkpoint",
+                    help="checkpoint directory [default lanczos_checkpoint]")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="run on the CUDA device [default] or on the CPU "
                          "(plain PyTorch versions of the kernels)")
@@ -136,10 +157,6 @@ def build_parser() -> argparse.ArgumentParser:
     unsupported = ap.add_argument_group(
         "not supported by this port yet (refused with exit code 2)")
     unsupported.add_argument("--overlap", action="store_true")
-    unsupported.add_argument("--checkpoint", nargs="?", const=60.0,
-                             type=float, default=None, metavar="SECONDS")
-    unsupported.add_argument("--load-checkpoint", action="store_true")
-    unsupported.add_argument("--checkpoint-dir", default=None)
     return ap
 
 
@@ -242,25 +259,45 @@ def main(argv=None) -> int:
         return 1
     if plan is None:
         return _solve(args)
+    import torch.multiprocessing as mp
+
     from block_lanczos_tpu_torch.parallel import launch
+    # the signal a checkpointed mesh's ranks poll: this process receives
+    # SIGTERM / SIGINT, its ranks do not (launch.spawn passes it on)
+    preempt = (None if args.checkpoint is None
+               else mp.get_context("spawn").RawValue("i", 0))
     try:
-        rcs = launch.spawn(_mesh_rank, plan.devices, args=(args, plan),
+        rcs = launch.spawn(_mesh_rank, plan.devices,
+                           args=(args, plan, preempt),
                            backend=plan.backend,
                            init_method=plan.init_method,
                            world_size=plan.world,
-                           rank_offset=plan.rank_offset)
+                           rank_offset=plan.rank_offset, preempt=preempt)
     except launch.RankFailed as e:
         print(f"the mesh failed: {e}", file=sys.stderr)
         return 1
     return max(rcs)
 
 
-def _mesh_rank(rank, world, device, args, plan: MeshPlan) -> int:
+def _preempted(rc: int) -> bool:
+    """The exit code of a run that saved and stopped on a signal."""
+    return rc in {128 + int(s) for s in PREEMPTION_SIGNALS}
+
+
+def _mesh_rank(rank, world, device, args, plan: MeshPlan,
+               preempt=None) -> int:
     """One rank of the mesh: the CLI's solve on the grid.  A rank that
-    fails exits non-zero, and the launcher then stops the others."""
+    fails exits non-zero, and the launcher then stops the others; a
+    preempted mesh returns 128 + signum from every rank."""
     from block_lanczos_tpu_torch.parallel.mesh import make_grid
-    rc = _solve(args, make_grid(plan.R, plan.C, device))
-    if rc != 0:
+    if preempt is not None:
+        # a terminal's Ctrl-C reaches the ranks as well as their parent:
+        # a signal here is a request like the one the parent passes on
+        def on_signal(signum, frame):
+            preempt.value = preempt.value or int(signum)
+        _on_signals(on_signal)
+    rc = _solve(args, make_grid(plan.R, plan.C, device), preempt)
+    if rc != 0 and not _preempted(rc):
         raise SystemExit(rc)
     return rc
 
@@ -304,9 +341,25 @@ def _make_solver(args, M, right: bool, grid):
                                check_invariants=checks, sync_every=sync)
 
 
-def _solve(args, grid=None) -> int:
-    """Load, solve, salvage and write, on one device (grid None) or as
-    one rank of a grid; only the root rank prints and writes."""
+class _PreemptionSaved(Exception):
+    pass
+
+
+def _on_signals(handler):
+    """Install `handler` for SIGTERM and SIGINT (in the main thread only:
+    elsewhere Python takes no handlers); returns what puts the old ones
+    back."""
+    if threading.current_thread() is not threading.main_thread():
+        return lambda: None
+    old = {sig: signal.signal(sig, handler) for sig in PREEMPTION_SIGNALS}
+    return lambda: [signal.signal(sig, h) for sig, h in old.items()]
+
+
+def _solve(args, grid=None, preempt=None) -> int:
+    """Load, resume, solve, checkpoint, salvage and write, on one device
+    (grid None) or as one rank of a grid; only the root rank prints and
+    writes.  `preempt`: a mesh rank's shared signal number, which its
+    parent process and its own handler set (0 while none came)."""
     root = grid is None or grid.is_root
     right = args.right and not args.left
 
@@ -320,9 +373,38 @@ def _solve(args, grid=None) -> int:
         print(f"cannot load matrix {args.matrix}: {e}", file=sys.stderr)
         return 1
     say(f"  - {M.nrows} x {M.ncols} with {M.nnz} nz", err=True)
-    if args.prime > PRIME_CAP:
+    field = ("wide" if args.prime > PRIME_CAP
+             else "gf2" if args.prime == 2 and args.n % 32 == 0
+             else "narrow")
+    run_meta = {"matrix": args.matrix, "prime": args.prime, "n": args.n,
+                "right": right, "field": field,
+                "nrows": M.nrows, "ncols": M.ncols, "nnz": M.nnz}
+    state = None
+    extra_time = 0.0
+    if args.load_checkpoint:
+        try:
+            state = ckpt.load_checkpoint(args.checkpoint_dir)
+        except (OSError, ValueError) as e:
+            # ValueError covers corrupt manifests (json.JSONDecodeError)
+            # and torn sharded snapshots (_load_sharded)
+            say(f"cannot load checkpoint from {args.checkpoint_dir}: {e}",
+                err=True)
+            return 1
+        try:
+            ckpt.validate_meta(state, run_meta)
+        except ckpt.CheckpointMismatch as e:
+            say(e, err=True)
+            return 1
+        if state.get("matrix") not in (None, args.matrix):
+            say(f"  - note: checkpoint was written for matrix path "
+                f"{state['matrix']!r} (shape/nnz match; continuing)",
+                err=True)
+        extra_time = float(state.get("elapsed", 0.0))
+        say(f"Resuming from iteration {state['iteration']} "
+            f"({args.checkpoint_dir})")
+    if field == "wide":
         say("  - wide field (p > 2^30): native 64-bit residues", err=True)
-    elif args.prime == 2 and args.n % 32 == 0:
+    elif field == "gf2":
         # the factorization case: bitsliced GF(2), 32 elements per word
         say("  - GF(2) bitsliced path (p = 2, n % 32 == 0)", err=True)
     try:
@@ -331,22 +413,86 @@ def _solve(args, grid=None) -> int:
         print(e, file=sys.stderr)
         return 1
 
-    verb = VerbosityEngine(solver.expected_iterations)
+    # The operator dimension m_eff depends on the GF(2) dedup setting, so a
+    # checkpoint written under a different --no-dedup choice would continue
+    # the recurrence under a DIFFERENT operator: refuse it before solving.
+    run_meta["m_eff"] = int(solver.m_eff)
+    resume_state = None
+    if state is not None:
+        try:
+            ckpt.validate_meta(state, run_meta)
+        except ckpt.CheckpointMismatch as e:
+            say(e, err=True)
+            if field == "gf2":
+                say("  (an m_eff mismatch at equal nrows/ncols/nnz means "
+                    "the checkpoint was written under a different GF(2) "
+                    "dedup setting; rerun with the matching --no-dedup "
+                    "choice)", err=True)
+            return 1
+        try:   # the JAX package's on-disk form -> the port's blocks
+            resume_state = convert.FROM_NUMPY[field](
+                state, "cpu" if grid is not None else solver.device)
+        except ValueError as e:
+            say(f"cannot load checkpoint from {args.checkpoint_dir}: {e}",
+                err=True)
+            return 1
+
+    verb = VerbosityEngine(solver.expected_iterations, extra_time=extra_time)
+    verb.n_iterations = int(state["iteration"]) if state is not None else 0
+    manager = restore = None
+    if args.checkpoint is not None:
+        manager = ckpt.CheckpointManager(
+            args.checkpoint_dir, interval_s=args.checkpoint, meta=run_meta,
+            verbose=True, solver=solver)
+    if manager is not None and grid is None:
+        # Preemption-safe exit: SIGTERM/SIGINT request a checkpoint; the
+        # next callback persists {v, p, iteration} and the run exits
+        # 128 + signum; a second signal before the save takes the default
+        # action.  (A mesh rank polls `preempt` instead, below; its parent
+        # kills the ranks on a second signal, parallel/launch.py.)
+        def on_signal(signum, frame):
+            manager.request_save(signum)
+            signal.signal(signum, signal.SIG_DFL)
+
+        restore = _on_signals(on_signal)
 
     def on_iteration(slv, iteration, v, p_blk, start):
+        # iteration == 0 happens when the very first probe converges (the
+        # stopping iteration is uncounted): nothing to report, but the
+        # checkpoint due-check below must still run (collective on a mesh)
         verb.n_iterations = max(iteration - 1, 0)
-        if iteration > 0:
+        if root and iteration > 0:
             verb.tick(start)
+        if manager is None:
+            return
+        if preempt is not None and preempt.value:
+            manager.request_save(preempt.value)
+        if manager.maybe_save(iteration, v, p_blk, start,
+                              extra_time=extra_time) \
+                and manager.signum is not None:
+            raise _PreemptionSaved
 
-    res = solver.solve(stop_after=args.stop_after, verbose=root,
-                       on_iteration=on_iteration if root else None)
+    try:
+        res = solver.solve(stop_after=args.stop_after, verbose=root,
+                           on_iteration=on_iteration,
+                           resume_state=resume_state)
+    except _PreemptionSaved:
+        say(f"\nReceived signal {manager.signum}; state checkpointed to "
+            f"{args.checkpoint_dir} — resume with --load-checkpoint",
+            err=True)
+        return 128 + manager.signum
+    finally:
+        if restore is not None:
+            restore()
     say()
     kernel, n_cols = res.kernel, args.n
     if args.salvage and res.product_zero is False and res.vtM is not None:
         from block_lanczos_tpu_torch.utils.salvage import (
             salvage_kernel, salvage_with_restarts)
         if args.salvage_restarts > 0:
-            # every rank re-solves: the restarts are collective on a mesh
+            # every rank re-solves: the restarts are collective on a mesh;
+            # they skip the checkpoint machinery, each a fresh independent
+            # block rather than a resumable recurrence
             salvaged = salvage_with_restarts(
                 lambda: solver.solve(stop_after=args.stop_after,
                                      verbose=root),

@@ -3,7 +3,8 @@
 Random sparse integer general MatrixMarket matrices, structurally like the
 reference's benchmark inputs.  A left kernel (x*M == 0) is guaranteed
 nontrivial whenever nrows > ncols.  The same seed gives the same matrix as
-the JAX package's generator.
+the JAX package's generator, for the uniform `random_sparse` and the
+power-law `random_sparse_skewed` alike.
 """
 
 from __future__ import annotations
@@ -39,3 +40,30 @@ def write_random_mtx(path: str, nrows: int, ncols: int, row_density: int,
     i, j, x = random_sparse(nrows, ncols, row_density, seed, max_value)
     mmio.write_coo_mtx(path, nrows, ncols, i, j, x)
     return len(x)
+
+
+def random_sparse_skewed(nrows: int, ncols: int, row_density: int,
+                         seed: int = 0, alpha: float = 1.2,
+                         max_value: int = 1 << 20):
+    """Random COO with power-law (Zipf-like) column popularity.
+
+    Matrices from integer factorization / discrete log have heavily skewed
+    column weights (a few dense "small prime" columns, a long sparse tail);
+    this generator reproduces that shape, which exercises the layouts'
+    spill paths and the mesh's nnz-balanced band maps
+    (parallel/sharding.py::balanced_band_map).
+    """
+    rng = np.random.default_rng(seed)
+    i = np.repeat(np.arange(nrows, dtype=np.int64), row_density)
+    # inverse-CDF sample of a truncated zipf over column ranks
+    ranks = np.arange(1, ncols + 1, dtype=np.float64)
+    w = ranks ** (-alpha)
+    cdf = np.cumsum(w) / w.sum()
+    j = np.searchsorted(cdf, rng.random(len(i))).astype(np.int64)
+    j = np.minimum(j, ncols - 1)
+    key = i * ncols + j
+    _, idx = np.unique(key, return_index=True)
+    idx.sort()
+    i, j = i[idx], j[idx]
+    x = rng.integers(1, max_value, size=len(i), dtype=np.int64)
+    return i, j, x

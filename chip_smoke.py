@@ -134,6 +134,26 @@ failure:
      each field at the bench size on each; v and p must equal the
      single-device solvers' after 200 iterations (a check of the mesh,
      not a multi-GPU speed);
+  15. checkpoints (utils/checkpoint.py, the JAX package's on-disk form;
+     the CLI's round trip below runs beside the rest, in processes of its
+     own):
+     the solves of phases 4, 6 and 9 and phase 13's narrow mesh solve each
+     save their state at their first block boundary past half their
+     expected iterations (CheckpointManager.request_save; the save's
+     seconds are taken out of their ms/iter); each is loaded and resumed to
+     convergence in a fresh solver, whose kernel file must be
+     byte-identical to the uninterrupted one's and pass the checker, with
+     every kernel of the field launched (counts reset just before, read
+     just after); phase 13's checkpoint also ends at phase 4's file on one
+     device, and its first RESUME_ITERS iterations on phase 14's 2 x 2
+     grid equal one device's; phase 14's 2 x 2 wide solve saves at its
+     middle on the root's request alone (every rank must follow it), and
+     that checkpoint resumed to MESH_ITERS on one device and on the 4 x 1
+     grid equals the uninterrupted solve; the CLI, `--checkpoint 0
+     --sync-every 1` on a 30000 x 20000 matrix, gets SIGTERM after its
+     first save line and must exit 143, then `--load-checkpoint` runs to
+     the end and the checker passes; the seconds a save and a load take
+     and the bytes of each checkpoint are printed beside the card;
   11. last: print the kernels JSON line (fifteen kernels), the card line,
      and the result line.
 
@@ -1446,6 +1466,8 @@ MESH_ITERS = 200           # phase 14's iterations of each field
 # an axis of 4, where K1 sends int64, K2 two 31-bit halves and K3 4-bit lanes
 MESH_GRIDS = ((2, 2), (4, 1))
 MESH_RANKS = 4
+RESUME_ITERS = 100         # phase 15: the 2 x 2 grid's run from phase 13's
+# checkpoint, held against one device's from the same file
 # each field's kernels on the mesh: its SpMV (two an iteration), the
 # three others (one each) and its collective (three)
 MESH_KERNELS = {
@@ -1718,11 +1740,18 @@ def refuses_others(b, x):
                              "than its own")
 
 
-def _mesh_rank(rank, world, device, coo, primes, n_by_field, iters):
+def _mesh_rank(rank, world, device, coo, primes, n_by_field, iters,
+               ckpt_a, ckpt_b):
     """Phase 14's rank: the three fields' sharded solvers on each grid of
     MESH_GRIDS over gloo, `iters` iterations each; returns (v, p) of each
     (by (grid, field)) in true row order, the iterations, and the launch
-    counts of this rank."""
+    counts of this rank.  Phase 15's mesh checkpoints: the 2 x 2 wide solve
+    saves at its first block boundary past iters / 2 into `ckpt_b` (only
+    the root requests it; every rank's manager must save); afterwards the
+    2 x 2 narrow solver resumes phase 13's checkpoint `ckpt_a` for
+    RESUME_ITERS iterations and the 4 x 1 wide solver resumes `ckpt_b` to
+    `iters`, each recording (v, p) at its end ("resume", grid, field)."""
+    from block_lanczos_tpu_torch import convert
     from block_lanczos_tpu_torch.parallel import distributed as D
     from block_lanczos_tpu_torch.parallel.distributed_gf2 import \
         ShardedBlockLanczosGF2
@@ -1742,29 +1771,57 @@ def _mesh_rank(rank, world, device, coo, primes, n_by_field, iters):
             M = mmio.COOMatrix(nrows, ncols, len(i), i, j, x.astype(dtype),
                                primes[field])
             solver = cls(M, n=n_by_field[field], grid=grid)
-            last = {}
+            last, saved = {}, {}
+            mgr = None
+            if (g, field) == ((2, 2), "wide"):
+                from block_lanczos_tpu_torch.utils import checkpoint as ckpt
+                mgr = ckpt.CheckpointManager(
+                    ckpt_b, interval_s=3600.0, meta={"field": field},
+                    solver=solver)
 
             def grab(slv, iteration, v, p_blk, start):
+                if mgr is not None and not saved and iteration >= iters // 2:
+                    if grid.is_root:
+                        mgr.request_save()
+                    t0 = time.time()
+                    if not mgr.maybe_save(iteration, v, p_blk, start):
+                        raise AssertionError(f"rank {rank}: the root's save "
+                                             "request was not followed")
+                    saved.update(iteration=iteration, s=time.time() - t0)
                 last["vp"] = (slv.gather_rows(v), slv.gather_rows(p_blk),
                               iteration)
             t0 = time.time()
             res = solver.solve(stop_after=iters, on_iteration=grab)
             out[g, field] = last["vp"] + (res.iterations, time.time() - t0)
+            if saved:
+                out["saved", g, field] = saved
+            resume = {((2, 2), "narrow"): (ckpt_a, None),
+                      ((4, 1), "wide"): (ckpt_b, iters)}.get((g, field))
+            if resume is not None:
+                from block_lanczos_tpu_torch.utils import checkpoint as ckpt
+                state = ckpt.load_checkpoint(resume[0])
+                stop = resume[1] or int(state["iteration"]) + RESUME_ITERS
+                last.clear()
+                solver.solve(stop_after=stop, on_iteration=grab,
+                             resume_state=convert.FROM_NUMPY[field](
+                                 state, "cpu"))
+                out["resume", g, field] = last["vp"]
             del solver
     out["counts"] = D.launch_counts()
     return out if rank == 0 else None
 
 
 
-def mesh_solves(recs, dev, backend, cases, shapes, mtx, card):
+def mesh_solves(recs, dev, backend, cases, shapes, mtx, card, saves):
     """Phase 13: each (field, M, n, one-device result, prime) of `cases`
     solved whole by the field's sharded solver on a 1 x 1 grid of this
     process over `backend`; the kernel must equal the one-device solve's
     and pass the checker (on the file mtx[field]), and the launch counts
     (reset just before, read just after) show each of the field's kernels
     and its collective three times an iteration.  The transport's all_reduce of each collective's
-    1-rank payload (`shapes`) is timed on its own.  Returns the
-    collectives' launch counts."""
+    1-rank payload (`shapes`) is timed on its own.  The narrow solve saves
+    a checkpoint at its middle (`mid_save`, saves["mesh-1x1-n4"]: phase
+    15's).  Returns the collectives' launch counts."""
     import torch
     import torch.distributed as tdist
     from block_lanczos_tpu_torch.parallel import distributed as D
@@ -1800,15 +1857,24 @@ def mesh_solves(recs, dev, backend, cases, shapes, mtx, card):
             t0 = time.time()
             msolver = solvers[field](Mx, n=n, grid=grid)
             t1 = time.time()
+            on_iteration = None
+            if field == "narrow":
+                on_iteration = mid_save(
+                    msolver, os.path.join(WORK, "ckpt_mesh_narrow"),
+                    ckpt_meta(msolver, Mx, mtx[field]), saves, "mesh-1x1-n4")
             D.reset_launch_counts()
             sync()
-            mres = msolver.solve(verbose=True)
+            mres = msolver.solve(verbose=True, on_iteration=on_iteration)
             sync()
             mc = D.launch_counts()
             it = mres.iterations
+            save_s = (saves["mesh-1x1-n4"]["save_s"] if field == "narrow"
+                      else 0.0)
             print(f"  {field}: layout {t1 - t0:.1f} s; {it} iterations, loop "
-                  f"{mres.elapsed:.3f} s, "
-                  f"{mres.elapsed / max(it, 1) * 1e3:.4f} ms/iter against "
+                  f"{mres.elapsed:.3f} s (a checkpoint save {save_s:.3f} s "
+                  "of it), "
+                  f"{(mres.elapsed - save_s) / max(it, 1) * 1e3:.4f} ms/iter "
+                  "without it, against "
                   "the one-device solve's "
                   f"{want.elapsed / max(want.iterations, 1) * 1e3:.4f} "
                   f"[{card}]", flush=True)
@@ -1838,22 +1904,26 @@ def mesh_solves(recs, dev, backend, cases, shapes, mtx, card):
     return mesh_counts
 
 
-def mesh_grid_run(device, M, primes, refs, n_by_field, iters):
+def mesh_grid_run(device, M, primes, refs, n_by_field, iters, ckpt_a,
+                  ckpt_b):
     """Phase 14: the three fields' sharded solvers on each of MESH_GRIDS,
     over MESH_RANKS ranks spawned over gloo, all on `device`, `iters`
     iterations each (the matrix M's entries, at each field's prime); each
     field's v and p must equal those of refs[field]() (a one-device
-    solver) after as many, on every grid."""
-    import torch
+    solver) after as many, on every grid.  Returns the ranks' results
+    (with phase 15's mesh checkpoints: `_mesh_rank`) and each reference's
+    (v, p) after `iters`, by field."""
     from block_lanczos_tpu_torch.parallel import launch
     t0 = time.time()
     out = launch.spawn(
         _mesh_rank, [device] * MESH_RANKS,
-        args=((M.nrows, M.ncols, M.i, M.j, M.x), primes, n_by_field, iters),
+        args=((M.nrows, M.ncols, M.i, M.j, M.x), primes, n_by_field, iters,
+              ckpt_a, ckpt_b),
         backend="gloo", timeout_s=300, wall_s=900)[0]
     print(f"  {MESH_RANKS} ranks spawned, built and run in "
           f"{time.time() - t0:.1f} s; "
           f"rank 0's launches: {out['counts']}", flush=True)
+    ref_vp = {}
     for field, make in refs.items():
         ref = make()
         got = {}
@@ -1862,6 +1932,8 @@ def mesh_grid_run(device, M, primes, refs, n_by_field, iters):
             got["vp"] = (v.clone(), p_blk.clone(), iteration)
         ref.solve(stop_after=iters, on_iteration=grab)
         rv, rp, rit = got["vp"]
+        ref_vp[field] = (rv[:ref.n_eff].cpu().numpy(),
+                         rp[:ref.n_eff].cpu().numpy())
         for g in MESH_GRIDS:
             mv, mp, mit, mits, msecs = out[g, field]
             assert rit == mit == mits == iters, (g, field, rit, mit, mits)
@@ -1879,7 +1951,143 @@ def mesh_grid_run(device, M, primes, refs, n_by_field, iters):
     for name in ("psum_mod", "psum_mod_wide", "pxor"):
         assert out["counts"][name] >= 3 * iters * len(MESH_GRIDS), \
             out["counts"]
+    return out, ref_vp
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: checkpoints
+# ---------------------------------------------------------------------------
+
+def ckpt_meta(solver, M, mtx) -> dict:
+    """The run meta the CLI writes into a checkpoint's manifest."""
+    return {"matrix": mtx, "prime": int(M.prime), "n": solver.n,
+            "right": False, "field": solver.field, "nrows": M.nrows,
+            "ncols": M.ncols, "nnz": M.nnz, "m_eff": int(solver.m_eff)}
+
+
+def dir_bytes(d) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+
+
+def mid_save(solver, ckdir, meta, saves, key):
+    """An on_iteration callback that saves the solve's state once, through
+    CheckpointManager.request_save, at its first block boundary at or past
+    half its expected iterations (the manager's timer is an hour: nothing
+    else saves); saves[key] gets the iteration, the save's seconds and the
+    checkpoint's bytes."""
+    import shutil
+
+    from block_lanczos_tpu_torch.utils import checkpoint as ckpt
+    shutil.rmtree(ckdir, ignore_errors=True)
+    mgr = ckpt.CheckpointManager(ckdir, interval_s=3600.0, meta=meta,
+                                 solver=solver)
+    half = solver.expected_iterations // 2
+
+    def on_iteration(slv, iteration, v, p_blk, start):
+        if key in saves or iteration < half:
+            return
+        mgr.request_save()
+        t0 = time.time()
+        if not mgr.maybe_save(iteration, v, p_blk, start):
+            raise AssertionError(f"{key}: the requested save did not happen")
+        saves[key] = {"iteration": iteration, "save_s": time.time() - t0,
+                      "bytes": dir_bytes(ckdir), "dir": ckdir}
+    return on_iteration
+
+
+def load_resume(key, saves, field, device):
+    """The checkpoint of saves[key] read and brought to `device` as the
+    port's resume state (convert.FROM_NUMPY); its seconds go into
+    saves[key]["load_s"]."""
+    from block_lanczos_tpu_torch import convert
+    from block_lanczos_tpu_torch.utils import checkpoint as ckpt
+    t0 = time.time()
+    state = ckpt.load_checkpoint(saves[key]["dir"])
+    rs = convert.FROM_NUMPY[field](state, device)
+    saves[key]["load_s"] = time.time() - t0
+    assert rs["iteration"] == saves[key]["iteration"], (key, state)
+    return rs
+
+
+def load_resume_dir(d, field, device):
+    from block_lanczos_tpu_torch import convert
+    from block_lanczos_tpu_torch.utils import checkpoint as ckpt
+    return convert.FROM_NUMPY[field](ckpt.load_checkpoint(d), device)
+
+
+def write_kernel(res, solver, p, path):
+    """The solve's kernel file as phases 4, 6 and 9 write it (a KO block
+    salvaged, as phase 6 does)."""
+    from block_lanczos_tpu_torch.utils import mmio, salvage
+    kernel = res.kernel
+    if not res.product_zero:
+        kernel = salvage.salvage_kernel(res.kernel, res.vtM, p)
+        assert kernel.shape[1] >= 1, "salvage recovered no kernel vector"
+    mmio.write_kernel_mtx(path, kernel, solver.n_eff, kernel.shape[1])
+    return path
+
+
+def same_bytes(a, b) -> bool:
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        return fa.read() == fb.read()
+
+
+def cli_preempt_round_trip(prime, card):
+    """The CLI on the card: --checkpoint 0 --sync-every 1, SIGTERM to its
+    process after the first save line, exit 143; then --load-checkpoint to
+    the end and the checker.  Returns the line to print (phase 15 runs
+    this beside its own solves, so it prints nothing itself)."""
+    import shutil
+    import signal
+
+    from block_lanczos_tpu_torch.utils import checker, gen
+    mtx = os.path.join(WORK, "cli_30000x20000.mtx")
+    gen.write_random_mtx(mtx, 30_000, 20_000, gen.BENCH_DENSITY,
+                         seed=gen.BENCH_SEED)
+    ckdir, kfile = (os.path.join(WORK, "ckpt_cli"),
+                    os.path.join(WORK, "cli.kernel.mtx"))
+    shutil.rmtree(ckdir, ignore_errors=True)
+    base = [sys.executable, "-m", "block_lanczos_tpu_torch.utils.cli",
+            "--matrix", mtx, "--prime", str(prime), "--n", "4",
+            "--checkpoint-dir", ckdir, "--output-file", kfile]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    t0 = time.time()
+    proc = subprocess.Popen(base + ["--checkpoint", "0", "--sync-every", "1"],
+                            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, sent = [], False
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if not sent and ">> checkpoint at iteration" in line:
+                proc.send_signal(signal.SIGTERM)
+                sent = True
+        rc = proc.wait(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    first_s = time.time() - t0
+    out = "".join(lines)
+    if not sent or rc != 128 + signal.SIGTERM or \
+            "state checkpointed" not in out:
+        raise AssertionError(f"the preempted CLI exited {rc} (signal sent: "
+                             f"{sent}):\n{out[-3000:]}")
+    with open(os.path.join(ckdir, "manifest.json")) as fh:
+        at = json.load(fh)["iteration"]
+    t0 = time.time()
+    r = subprocess.run(base + ["--load-checkpoint"], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    second_s = time.time() - t0
+    if r.returncode != 0 or f"Resuming from iteration {at}" not in r.stdout:
+        raise AssertionError(f"the resumed CLI exited {r.returncode}:\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    checker.check_kernel_file(mtx, kfile, prime)
+    return (f"  CLI: SIGTERM after the first save line -> exit {rc} at "
+            f"iteration {at} ({first_s:.1f} s, the process's start "
+            f"included); --load-checkpoint to the end, checker OK "
+            f"({second_s:.1f} s) [{card}]")
 
 
 def main() -> int:
@@ -2218,19 +2426,27 @@ def main() -> int:
     # ---- phase 4: the main path at full size -------------------------------
     print(f"phase 4: full solve, p={prime}, n=4, left kernel, invariant "
           "checks on", flush=True)
+    # the solve saves a checkpoint at its middle (phase 15 resumes it)
+    saves = {}
+    mid4 = mid_save(solver4, os.path.join(WORK, "ckpt_n4"),
+                    ckpt_meta(solver4, M, mtx), saves, "bench-n4")
     L.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    res = res4 = solver4.solve(verbose=True)
+    res = res4 = solver4.solve(verbose=True, on_iteration=mid4)
     torch.cuda.synchronize()
     total_s = time.time() - t0
     counts = L.launch_counts()
     # res.elapsed is the iteration loop (v0 drawn before it starts); each
-    # block of the loop ends in a device sync
+    # block of the loop ends in a device sync; the checkpoint's save is
+    # taken out of the ms/iter
+    save_s = saves["bench-n4"]["save_s"]
     print(f"  iterations {res.iterations} (expected about "
-          f"{solver4.expected_iterations}); loop {res.elapsed:.3f} s, "
-          f"{res.elapsed / max(res.iterations, 1) * 1e3:.4f} ms/iter; "
-          f"solve() {total_s:.3f} s [{card}]", flush=True)
+          f"{solver4.expected_iterations}); loop {res.elapsed:.3f} s with "
+          f"a checkpoint save of {save_s:.3f} s, "
+          f"{(res.elapsed - save_s) / max(res.iterations, 1) * 1e3:.4f} "
+          f"ms/iter without it; solve() {total_s:.3f} s [{card}]",
+          flush=True)
     print(f"  launches during the solve: {counts}", flush=True)
     assert res.v_nonzero and res.product_zero, "final check failed"
     kpath = os.path.join(WORK, "bench.kernel.mtx")
@@ -2259,18 +2475,23 @@ def main() -> int:
     # ---- phase 6: the GF(2) slice at full size -----------------------------
     print("phase 6: GF(2) full solve of the bench matrix mod 2, n=128, left "
           "kernel, invariant checks on", flush=True)
+    mid_g = mid_save(gsolver, os.path.join(WORK, "ckpt_gf2"),
+                     ckpt_meta(gsolver, M2, mtx), saves, "bench-gf2-n128")
     G.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    gres = gsolver.solve(verbose=True)
+    gres = gsolver.solve(verbose=True, on_iteration=mid_g)
     torch.cuda.synchronize()
     total_s = time.time() - t0
     gcounts = G.launch_counts()
     git = gres.iterations
+    save_s = saves["bench-gf2-n128"]["save_s"]
     print(f"  iterations {git} (expected about "
-          f"{gsolver.expected_iterations}); loop {gres.elapsed:.3f} s, "
-          f"{gres.elapsed / max(git, 1) * 1e3:.4f} ms/iter; solve() "
-          f"{total_s:.3f} s (v0 drawn before the loop) [{card}]", flush=True)
+          f"{gsolver.expected_iterations}); loop {gres.elapsed:.3f} s with "
+          f"a checkpoint save of {save_s:.3f} s, "
+          f"{(gres.elapsed - save_s) / max(git, 1) * 1e3:.4f} ms/iter "
+          f"without it; solve() {total_s:.3f} s (v0 drawn before the loop) "
+          f"[{card}]", flush=True)
     print(f"  launches during the solve: {gcounts}", flush=True)
     assert gres.v_nonzero, "GF(2) solve ended with v == 0"
     gkernel = gres.kernel
@@ -2344,18 +2565,22 @@ def main() -> int:
     # ---- phase 9: the wide slice at full size -----------------------------
     print(f"phase 9: wide full solve of the bench matrix, p=2^61-1, n=4, "
           "left kernel, invariant checks on", flush=True)
+    mid_w = mid_save(wsolver, os.path.join(WORK, "ckpt_wide"),
+                     ckpt_meta(wsolver, Mw, mtx), saves, "bench-wide-p61-n4")
     LW.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    wres = wsolver.solve(verbose=True)
+    wres = wsolver.solve(verbose=True, on_iteration=mid_w)
     torch.cuda.synchronize()
     total_s = time.time() - t0
     wcounts = LW.launch_counts()
     wit = wres.iterations
+    save_s = saves["bench-wide-p61-n4"]["save_s"]
     print(f"  iterations {wit} (expected about "
-          f"{wsolver.expected_iterations}); loop {wres.elapsed:.3f} s, "
-          f"{wres.elapsed / max(wit, 1) * 1e3:.4f} ms/iter; solve() "
-          f"{total_s:.3f} s [{card}]", flush=True)
+          f"{wsolver.expected_iterations}); loop {wres.elapsed:.3f} s with "
+          f"a checkpoint save of {save_s:.3f} s, "
+          f"{(wres.elapsed - save_s) / max(wit, 1) * 1e3:.4f} ms/iter "
+          f"without it; solve() {total_s:.3f} s [{card}]", flush=True)
     print(f"  launches during the solve: {wcounts}", flush=True)
     assert wres.v_nonzero and wres.product_zero, "wide final check failed"
     assert wres.kernel.dtype == np.uint64
@@ -2406,7 +2631,7 @@ def main() -> int:
          ("wide", Mw, 4, wres, wprime)],
         {"psum_mod": mesh_shapes, "psum_mod_wide": mesh_shapes,
          "pxor": gmesh_shapes}, dict.fromkeys(("narrow", "gf2", "wide"), mtx),
-        card)
+        card, saves)
 
     # ---- phase 14: the multi-rank mesh on the one card ---------------------
     grids = " and ".join(f"{r} x {c}" for r, c in MESH_GRIDS)
@@ -2414,11 +2639,127 @@ def main() -> int:
           f"cuda:0, {MESH_ITERS} iterations of each field on each (the "
           "per-shard kernels at shard shapes, the folds on 2- and 4-rank "
           "sums; a check of the mesh, NOT a multi-GPU speed)", flush=True)
-    mesh_grid_run(DEVICE, M, {"narrow": prime, "gf2": 2, "wide": wprime},
-                  {"narrow": lambda: L.BlockLanczos(M, n=4, device=dev),
-                   "gf2": lambda: G.BlockLanczosGF2(M2, n=128, device=dev),
-                   "wide": lambda: LW.BlockLanczosWide(Mw, n=4, device=dev)},
-                  {"narrow": 4, "gf2": 128, "wide": 4}, MESH_ITERS)
+    ckpt_b = os.path.join(WORK, "ckpt_mesh_2x2_wide")
+    mesh_out, ref_vp = mesh_grid_run(
+        DEVICE, M, {"narrow": prime, "gf2": 2, "wide": wprime},
+        {"narrow": lambda: L.BlockLanczos(M, n=4, device=dev),
+         "gf2": lambda: G.BlockLanczosGF2(M2, n=128, device=dev),
+         "wide": lambda: LW.BlockLanczosWide(Mw, n=4, device=dev)},
+        {"narrow": 4, "gf2": 128, "wide": 4}, MESH_ITERS,
+        saves["mesh-1x1-n4"]["dir"], ckpt_b)
+
+    # ---- phase 15: checkpoints -----------------------------------------
+    print("phase 15: checkpoints in the JAX package's on-disk form: the "
+          "mid-solve saves of phases 4, 6 and 9 resumed in fresh solvers to "
+          "the end; the mesh's (phase 13's 1 x 1 NCCL, phase 14's 2 x 2 "
+          "gloo) resumed on one device and on another grid; the CLI "
+          "preempted by SIGTERM and resumed", flush=True)
+    t15 = time.time()
+    # the CLI's round trip is processes of its own: it runs meanwhile
+    cli_pool = ThreadPoolExecutor(1)
+    cli_job = cli_pool.submit(cli_preempt_round_trip, prime, card)
+    kfiles = {"bench-n4": os.path.join(WORK, "bench.kernel.mtx"),
+              "bench-gf2-n128": os.path.join(WORK, "bench_gf2.kernel.mtx"),
+              "bench-wide-p61-n4": os.path.join(WORK,
+                                                "bench_wide.kernel.mtx")}
+    fresh = {}
+    for key, field, make, mod, whole, fp, names in (
+            ("bench-n4", "narrow", lambda: L.BlockLanczos(M, n=4, device=dev),
+             L, res4, prime, ("spmv_ell", "gram_mod", "semi_inverse",
+                              "orthogonalize")),
+            ("bench-gf2-n128", "gf2",
+             lambda: G.BlockLanczosGF2(M2, n=128, device=dev), G, gres, 2,
+             ("spmv_gf2", "gram_gf2", "semi_inverse_gf2",
+              "orthogonalize_gf2")),
+            ("bench-wide-p61-n4", "wide",
+             lambda: LW.BlockLanczosWide(Mw, n=4, device=dev), LW, wres,
+             wprime, ("spmv_wide", "gram_wide", "semi_inverse_wide",
+                      "orthogonalize_wide"))):
+        t0 = time.time()
+        fresh[field] = solver = make()
+        layout_s = time.time() - t0
+        state = load_resume(key, saves, field, dev)
+        mod.reset_launch_counts()
+        torch.cuda.synchronize()
+        rres = solver.solve(resume_state=state)
+        torch.cuda.synchronize()
+        rc = mod.launch_counts()
+        ran = rres.iterations - saves[key]["iteration"]
+        assert rres.iterations == whole.iterations, (key, rres.iterations)
+        kpath = write_kernel(rres, solver, fp,
+                             os.path.join(WORK, f"resumed_{field}.mtx"))
+        if not same_bytes(kpath, kfiles[key]):
+            raise AssertionError(f"{key}: the resumed solve's kernel file "
+                                 "differs from the uninterrupted one's")
+        checker.check_kernel_file(mtx, kpath, fp)
+        assert rc[names[0]] >= 2 * ran, rc
+        for name in names[1:]:
+            assert rc[name] >= ran, rc
+        sv = saves[key]
+        print(f"  {key}: saved at iteration {sv['iteration']} in "
+              f"{sv['save_s']:.3f} s, {sv['bytes']} bytes; loaded in "
+              f"{sv['load_s']:.3f} s; a fresh solver (layout {layout_s:.1f} "
+              f"s) resumed it to iteration {rres.iterations} in "
+              f"{rres.elapsed:.3f} s: kernel file byte-identical, checker "
+              f"OK; launches {rc} [{card}]", flush=True)
+    # the mesh's checkpoints: phase 13's (1 x 1 NCCL, narrow) to the end on
+    # one device, and RESUME_ITERS iterations against phase 14's 2 x 2
+    a_key = "mesh-1x1-n4"
+    sa = load_resume(a_key, saves, "narrow", dev)
+    L.reset_launch_counts()
+    ares = fresh["narrow"].solve(resume_state=sa)
+    ac = L.launch_counts()
+    kpath = write_kernel(ares, fresh["narrow"], prime,
+                         os.path.join(WORK, "resumed_mesh_narrow.mtx"))
+    if ares.iterations != res4.iterations or \
+            not same_bytes(kpath, kfiles["bench-n4"]):
+        raise AssertionError("the 1 x 1 mesh's checkpoint, resumed on one "
+                             "device, does not end at phase 4's kernel")
+    assert ac["spmv_ell"] >= 2 * (ares.iterations - sa["iteration"]), ac
+    last = {}
+    fresh["narrow"].solve(
+        stop_after=sa["iteration"] + RESUME_ITERS, resume_state=sa,
+        on_iteration=grab("a"))
+    av, ap, ait = last["a"]
+    mv, mp = mesh_out["resume", (2, 2), "narrow"][:2]
+    if ait != sa["iteration"] + RESUME_ITERS or \
+            not np.array_equal(mv, av[:fresh["narrow"].n_eff].cpu().numpy()) \
+            or not np.array_equal(mp, ap[:fresh["narrow"].n_eff].cpu().numpy()):
+        raise AssertionError("the 1 x 1 mesh's checkpoint resumed on the "
+                             "2 x 2 grid differs from one device's")
+    sv = saves[a_key]
+    print(f"  {a_key} (phase 13): saved at iteration {sv['iteration']} in "
+          f"{sv['save_s']:.3f} s, {sv['bytes']} bytes; loaded in "
+          f"{sv['load_s']:.3f} s; resumed on one device to the end: phase "
+          f"4's kernel file, byte for byte; on the 2 x 2 gloo grid "
+          f"{RESUME_ITERS} iterations: v and p equal to one device's",
+          flush=True)
+    # phase 14's 2 x 2 wide checkpoint, to MESH_ITERS on one device and on
+    # the 4 x 1 grid, against the uninterrupted one-device (v, p)
+    sb = mesh_out["saved", (2, 2), "wide"]
+    wv, wp = ref_vp["wide"]
+    state_b = load_resume_dir(ckpt_b, "wide", dev)
+    fresh["wide"].solve(stop_after=MESH_ITERS, resume_state=state_b,
+                        on_iteration=grab("b"))
+    bv, bp, bit = last["b"]
+    n_eff = fresh["wide"].n_eff
+    gv, gp = mesh_out["resume", (4, 1), "wide"][:2]
+    for who, v_, p_ in (("one device", bv[:n_eff].cpu().numpy(),
+                         bp[:n_eff].cpu().numpy()), ("the 4 x 1 grid", gv,
+                                                     gp)):
+        if not (np.array_equal(v_, wv) and np.array_equal(p_, wp)):
+            raise AssertionError(f"phase 14's 2 x 2 checkpoint resumed on "
+                                 f"{who} differs from the uninterrupted "
+                                 f"solve after {MESH_ITERS} iterations")
+    assert bit == MESH_ITERS, bit
+    print(f"  mesh-2x2-wide (phase 14): the root's request saved on every "
+          f"rank at iteration {sb['iteration']} ({sb['s']:.3f} s at rank 0, "
+          f"{dir_bytes(ckpt_b)} bytes); resumed to iteration {MESH_ITERS} on "
+          f"one device and on the 4 x 1 grid: v and p equal to the "
+          f"uninterrupted solve's", flush=True)
+    print(cli_job.result(), flush=True)
+    cli_pool.shutdown()
+    print(f"  phase 15 took {time.time() - t15:.1f} s", flush=True)
 
     # ---- phase 11: summary (last) -------------------------------------------
     counts.update(gcounts)

@@ -228,3 +228,62 @@ def cli_job(rank, world, device, cases):
         args = cli.build_parser().parse_args(argv)
         rcs.append(cli._solve(args, make_grid(R, C_, device)))
     return rcs if rank == 0 else None
+
+
+def checkpoint_job(rank, world, device, tasks):
+    """Each task (a dict) on a grid over the whole world: grid (R, C),
+    field, matrix, prime, n, stop_after, and optionally
+      resume: a checkpoint directory the solve resumes from (through
+        convert.FROM_NUMPY, as the CLI does);
+      save: {dir, interval (s, default 0), request: (iteration, who)}: a
+        CheckpointManager bound to the solver, at every rank's callback
+        (sync_every 1); at that iteration the root (who "root") or every
+        other rank (who "other") calls request_save(SIGTERM).
+    Returns, at rank 0, each task's kernel, iterations, whether its row
+    map is the identity, and every rank's (saves' iterations, the signal
+    its manager ends with); and every rank's (multihost.is_root(),
+    multihost.process_count())."""
+    import signal
+
+    from block_lanczos_tpu_torch import convert
+    from block_lanczos_tpu_torch.parallel import multihost
+    from block_lanczos_tpu_torch.utils import checkpoint as ckpt
+    out = []
+    world_view = [None] * world
+    dist.all_gather_object(world_view, (multihost.is_root(),
+                                        multihost.process_count()))
+    for task in tasks:
+        grid = make_grid(*task["grid"], device)
+        field = task["field"]
+        solver = SOLVERS[field](_matrix(task), n=task["n"], grid=grid,
+                                sync_every=1)
+        resume = None
+        if "resume" in task:
+            resume = convert.FROM_NUMPY[field](
+                ckpt.load_checkpoint(task["resume"]), "cpu")
+        saves, mgr, on_iteration = [], None, None
+        if "save" in task:
+            sv = task["save"]
+            mgr = ckpt.CheckpointManager(
+                sv["dir"], interval_s=sv.get("interval", 0.0),
+                meta={"field": field}, solver=solver)
+            at, who = sv.get("request", (None, None))
+            me = "root" if grid.is_root else "other"
+
+            def on_iteration(slv, iteration, v, p_blk, start):
+                if iteration == at and who == me:
+                    mgr.request_save(signal.SIGTERM)
+                if mgr.maybe_save(iteration, v, p_blk, start):
+                    saves.append(iteration)
+        res = solver.solve(stop_after=task.get("stop_after", -1),
+                           on_iteration=on_iteration, resume_state=resume)
+        every = [None] * grid.size
+        dist.all_gather_object(
+            every, (saves, None if mgr is None else mgr.signum),
+            group=grid.group)
+        if grid.is_root:
+            out.append(dict(kernel=res.kernel, iterations=res.iterations,
+                            row_identity=solver.row_map.identity,
+                            ranks=every))
+    multihost.barrier()
+    return (out, world_view) if rank == 0 else None

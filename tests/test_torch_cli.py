@@ -1,7 +1,9 @@
 """The port's CLI: byte-identical kernel files on the CPU (narrow field and
-GF(2), salvage and --no-dedup against the JAX package's CLI), and honest
-refusals (exit code 2) for the paths this port does not cover yet and for
-mesh flags that cannot run (the mesh's own runs: test_torch_mesh_fields)."""
+GF(2), salvage and --no-dedup against the JAX package's CLI), the
+checkpoint flags running (their checks: test_torch_checkpoint*.py), and
+honest refusals (exit code 2) for the path this port does not cover yet
+(--overlap) and for mesh flags that cannot run (the mesh's own runs:
+test_torch_mesh_fields)."""
 
 import os
 
@@ -41,22 +43,15 @@ REFUSED = [
     (["--grid", "64", "64", "--device", "cuda"],
      "4096 ranks on this host need 4096 CUDA devices"),
     (["--overlap"], f"--overlap {NOT_YET}"),
-    (["--checkpoint"], f"--checkpoint {NOT_YET}"),
-    (["--checkpoint", "30"], f"--checkpoint {NOT_YET}"),
-    (["--load-checkpoint"], f"--load-checkpoint {NOT_YET}"),
-    (["--checkpoint-dir", "cp"], f"--checkpoint-dir {NOT_YET}"),
     (["--coordinator", "localhost:1234", "--process-id", "3"],
      "--process-id 3 is not in [0, 1)"),
     (["--num-processes", "2"], "--num-processes needs --coordinator"),
     (["--process-id", "1"], "--process-id needs --coordinator"),
     (["--local-devices", "2"], "--local-devices needs --coordinator"),
-    (["--grid", "2", "2", "--checkpoint-dir", "cp"],
-     f"--checkpoint-dir {NOT_YET}"),
     (["--grid", "2", "2", "--devices", "3"],
      "--devices 3 does not match the grid 2 x 2"),
 ]
-REFUSED_IDS = [a[0] for a, _ in REFUSED[:-2]] + ["mesh-and-checkpoint",
-                                                 "grid-and-devices"]
+REFUSED_IDS = [a[0] for a, _ in REFUSED[:-1]] + ["grid-and-devices"]
 
 
 @pytest.mark.parametrize("extra,message", REFUSED, ids=REFUSED_IDS)
@@ -67,6 +62,43 @@ def test_cli_refuses_paths_of_later_slices(extra, message, tmp_path, capsys):
                    "65537", "--n", "4", "--device", "cpu", *extra])
     assert rc == 2
     assert message in capsys.readouterr().err
+
+
+# the checkpoint flags, refused by earlier slices, with what each run
+# needs first (a checkpoint in the default directory to resume from)
+CHECKPOINT_FLAGS = [
+    (["--checkpoint"], None),
+    (["--checkpoint", "30"], None),
+    (["--load-checkpoint"], ["--stop-after", "3", "--checkpoint", "0"]),
+    (["--checkpoint-dir", "cp"], None),
+    (["--grid", "2", "2", "--checkpoint-dir", "cp"], None),
+]
+CHECKPOINT_IDS = ["--checkpoint", "--checkpoint", "--load-checkpoint",
+                  "--checkpoint-dir", "mesh-and-checkpoint"]
+
+
+@pytest.mark.parametrize("extra,prepare", CHECKPOINT_FLAGS,
+                         ids=CHECKPOINT_IDS)
+def test_cli_runs_the_checkpoint_flags(extra, prepare, tmp_path,
+                                       monkeypatch, capsys):
+    """The checkpoint flags run (default directory lanczos_checkpoint in
+    the working directory) and write the golden; --load-checkpoint resumes
+    from a checkpoint at iteration 3."""
+    monkeypatch.chdir(tmp_path)
+    name = "left_p65537_n4"
+    args = ["--matrix", os.path.join(GOLDEN, f"{name}.mtx"), "--prime",
+            "65537", "--n", "4", "--device", "cpu"]
+    if prepare is not None:
+        assert cli.main([*args, *prepare]) == 0
+        assert os.path.isfile(tmp_path / "lanczos_checkpoint" /
+                              "manifest.json")
+        capsys.readouterr()
+    out = tmp_path / "kernel.mtx"
+    assert cli.main([*args, *extra, "--output-file", str(out)]) == 0
+    if prepare is not None:
+        assert "Resuming from iteration 3" in capsys.readouterr().out
+    with open(os.path.join(GOLDEN, f"{name}.kernel.mtx"), "rb") as fh:
+        assert out.read_bytes() == fh.read()
 
 
 @pytest.mark.parametrize("extra", [["--single"],

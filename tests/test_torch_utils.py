@@ -1,8 +1,9 @@
 """The port's host utilities against the JAX package's copies, and the
 package's import boundary.
 
-  * xoshiro256+ stream, MatrixMarket reader/writer, generator and checker
-    give the same numbers and bytes as the JAX package's;
+  * xoshiro256+ stream, MatrixMarket reader/writer, generators (uniform
+    and power-law) and checker give the same numbers and bytes as the JAX
+    package's;
   * importing every module of block_lanczos_tpu_torch pulls in neither
     jax nor any module of block_lanczos_tpu (a subprocess guard);
   * without nvcc the kernel build raises instead of falling back;
@@ -114,6 +115,18 @@ def test_generator_matches_jax(tmp_path):
     gen.write_random_mtx(str(tmp_path / "a.mtx"), 30, 20, 4, seed=9)
     jgen.write_random_mtx(str(tmp_path / "b.mtx"), 30, 20, 4, seed=9)
     assert (tmp_path / "a.mtx").read_bytes() == (tmp_path / "b.mtx").read_bytes()
+
+
+@pytest.mark.parametrize("args,alpha", [
+    ((50, 40, 5, 3), 1.2), ((400, 300, 6, 11), 1.2),
+    ((5000, 3000, 8, 11), 1.2), ((200, 1000, 4, 0), 0.8)])
+def test_skewed_generator_matches_jax(args, alpha):
+    """random_sparse_skewed: the JAX generator's COO, entry for entry."""
+    got = gen.random_sparse_skewed(*args, alpha=alpha)
+    want = jgen.random_sparse_skewed(*args, alpha=alpha)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
 
 
 def test_checker_accepts_goldens_and_rejects_garbage():
