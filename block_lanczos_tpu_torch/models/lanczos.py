@@ -344,6 +344,20 @@ class BlockLanczos:
         v0[:self.n_eff] = block.reshape(self.n_eff, self.n)
         return torch.from_numpy(v0).to(self.device)
 
+    def workspace(self) -> dict:
+        """The iteration's buffers (iteration_step's `ws`): tmp, and on
+        CUDA the kernels' outputs av, grams and si."""
+        n, dev = self.n, self.device
+        ws = {"tmp": torch.zeros((self.mp_rows, n), dtype=torch.int32,
+                                 device=dev)}
+        if dev.type == "cuda":
+            ws["av"] = torch.empty((self.np_rows, n), dtype=torch.int32,
+                                   device=dev)
+            ws["grams"] = torch.empty((2 * n, n), dtype=torch.int32,
+                                      device=dev)
+            ws["si"] = empty_outputs(n, dev)
+        return ws
+
     def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
         arr = resume_rows(resume_state, name, self.np_rows, self.n)
         return torch.from_numpy(arr.astype(np.int32)).to(self.device)
@@ -375,16 +389,10 @@ class BlockLanczos:
             print(f"  - Expecting {self.expected_iterations} iterations")
             print("  - Main loop")
 
-        state = new_state(self.device)
-        ws = {"tmp": torch.zeros((self.mp_rows, self.n), dtype=torch.int32,
-                                 device=self.device)}
         if self.device.type == "cuda":
             kernels.load_all()
-            ws["av"] = torch.empty((self.np_rows, self.n), dtype=torch.int32,
-                                   device=self.device)
-            ws["grams"] = torch.empty((2 * self.n, self.n), dtype=torch.int32,
-                                      device=self.device)
-            ws["si"] = empty_outputs(self.n, self.device)
+        state = new_state(self.device)
+        ws = self.workspace()
         k_seen = [0]
 
         def multi_step(k: int):

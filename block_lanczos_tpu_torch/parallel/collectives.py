@@ -25,7 +25,8 @@ Each is an object bound to one tensor (a sharded solver builds one per
 workspace block, once): the group, its size (so the payload), the payload
 buffer and, on CUDA, the kernels' prepared ctypes arguments
 (`kernels.bind`) are fixed there, so that a call is at most a pack launch,
-`all_reduce` and a fold launch, with no validation left to repeat.  On
+`all_reduce` and a fold launch, with no validation left to repeat; the
+overlap step splits a call at its `all_reduce` (`start`, `finish`).  On
 CUDA tensors the pack and the fold are the kernels of csrc/collectives.cu
 (`launch_counts()` counts a call once, where its fold kernel launches); on
 CPU tensors the `*_plain` versions beside them, which the CPU tests hold
@@ -173,7 +174,8 @@ class _BoundSum:
     the payload buffer and the pack and fold launches are prepared here
     (x must then stay the tensor they point to), on the CPU every call runs
     the plain versions on the tensor it is given.  A call is pack,
-    all_reduce over the group, fold, in place on x."""
+    all_reduce over the group, fold, in place on x; `start` and `finish`
+    split it at the all_reduce, which is then in flight between them."""
 
     def __init__(self, x: torch.Tensor, group, ranks):
         self.group = group
@@ -181,6 +183,7 @@ class _BoundSum:
                       else int(ranks))
         self.x = x
         self._pack = self._fold = None
+        self._pending = None      # (x, payload, work) between start, finish
         # a fold of nothing launches nothing and counts nothing
         self._count = int(x.numel() > 0)
 
@@ -206,11 +209,30 @@ class _BoundSum:
         self._fold()
         _launches[self.name] += self._count
 
-    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+    def start(self, x: torch.Tensor) -> None:
+        """Pack x and issue the all_reduce of its payload without waiting
+        for it (`finish` waits and folds): the overlap step's other work
+        runs meanwhile.  One call of a bound form is in flight at a time;
+        its payload is its own, so two bound forms' calls may be."""
+        if self._pending is not None:
+            raise RuntimeError(f"{self.name}: a call is already in flight")
         payload = self.pack(x)
-        dist.all_reduce(payload, group=self.group)
+        work = dist.all_reduce(payload, group=self.group, async_op=True)
+        self._pending = (x, payload, work)
+
+    def finish(self) -> torch.Tensor:
+        """Wait for the all_reduce that `start` issued (on CUDA: the
+        current stream waits for it, the host does not) and fold it into
+        its x, which is returned."""
+        x, payload, work = self._pending
+        self._pending = None
+        work.wait()
         self.fold(payload, x)
         return x
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        self.start(x)
+        return self.finish()
 
 
 class PsumMod(_BoundSum):

@@ -1,8 +1,8 @@
 """The sharded block Lanczos solver on a process grid, narrow field.
 
 The port of the JAX package's parallel/distributed.py (`_local_step`,
-`_local_multi_step`, `ShardedBlockLanczos`; its overlap variant is not
-ported) on torch.distributed.  Each rank of an (R, C) grid
+`_local_multi_step`, `ShardedBlockLanczos`, and with overlap=True
+`_local_step_overlap`) on torch.distributed.  Each rank of an (R, C) grid
 (parallel/mesh.py) holds its block of the matrix (parallel/sharding.py),
 the rows-band of v, Av and p and the cols-band of tmp; one iteration is
 the single-device iteration (models/lanczos.py::iteration_step) with an
@@ -14,7 +14,12 @@ exact all-reduce after each partial (parallel/collectives.py):
     semi_inverse, orthogonalize: on every rank, from the replicated Grams
 
 so every rank latches the same [stop, inv_ok, k_done, frozen] state, runs
-the same number of iterations and issues the same collectives.  There is
+the same number of iterations and issues the same collectives.  With
+overlap (the JAX package's comm/compute overlap) each SpMV direction is
+two row chunks (sharding.partition_overlap): chunk A's all-reduce is
+started (collectives' `start`) before chunk B's SpMV and finished after
+it, five all-reduces an iteration where the plain step has three; on a
+card NCCL runs A's on its own stream while B's SpMV runs.  There is
 no root: each rank draws the same xoshiro v0 and keeps its band, and the
 final kernel is gathered through the band maps at the end.  The host loop
 is the single-device one (blocked_solve_loop); the adaptive block length
@@ -65,27 +70,28 @@ def agree_max(x: float, grid: Grid) -> float:
     return float(t.item())
 
 
-def _bound_sums(ws: dict, grid: Grid, cls, *field) -> dict:
-    """The exact all-reduce of each partial of an iteration, bound to its
-    workspace block: tmp over the grid's rows, Av over its columns, the
-    Grams over its rows (collectives.PsumMod or PsumModWide at the field
-    `field`, or Pxor)."""
-    return {"tmp": cls(ws["tmp"], *field, group=grid.rows_group),
-            "av": cls(ws["av"], *field, group=grid.cols_group),
-            "grams": cls(ws["grams"], *field, group=grid.rows_group)}
+def _chunk_views(block: torch.Tensor, split: int | None) -> list:
+    """The row chunks of a workspace block the step writes and sums: the
+    block itself, or its rows [0, split) and [split, ...) (contiguous
+    views)."""
+    return [block] if split is None else [block[:split], block[split:]]
 
 
 class _ShardedSolver:
     """The mesh driver shared by the three fields: v0 and resume bands,
-    the blocked host loop, the final gather and check.  A field sets
-    `label` and `field` (the checkpoint manifest's) and writes `_v0`,
-    `_state_block`, `_workspace`, `_step`, `_final` and
+    the workspace's bound collectives, the two reduced products (whole, or
+    in two row chunks with overlap), the blocked host loop, the final
+    gather and check.  A field sets `label`, `overlap_mark` (the verbose
+    header's, with overlap) and `field` (the checkpoint manifest's) and writes
+    `_v0`, `_state_block`, `_workspace`, `_spmv`, `_step`, `_final` and
     `_invariant_failure`."""
 
     label = ""
+    overlap_mark = ""
 
-    def _setup(self, grid: Grid, ops: shard_lib.ShardedOps, n: int,
-               check_invariants: bool, sync_every: int | None):
+    def _setup(self, grid: Grid, ops, n: int, check_invariants: bool,
+               sync_every: int | None, overlap: bool):
+        self.overlap = bool(overlap)
         self.grid = grid
         self.device = grid.device
         self.ops = ops
@@ -96,6 +102,46 @@ class _ShardedSolver:
         self.np_rows, self.mp_rows = ops.np_rows, ops.mp_rows
         self.row_map, self.col_map = ops.row_map, ops.col_map
         self.expected_iterations = 1 + self.m_eff // self.n
+
+    # -- the reduced products --------------------------------------------
+
+    def _bind_sums(self, ws: dict, cls, *field) -> None:
+        """The exact all-reduce of each partial of an iteration, bound to
+        its workspace block (collectives.PsumMod or PsumModWide at the
+        field `field`, or Pxor): tmp over the grid's rows, Av over its
+        columns, the Grams over its rows.  ws["chunks"][key] lists the
+        (operator, view of ws[key], bound sum) of each product: one, or
+        with overlap the two row chunks'."""
+        grid, ops = self.grid, self.ops
+        split = ((None, None) if not self.overlap else (ops.ha, ops.hb))
+        dirs = (((ops.first,), (ops.second,)) if not self.overlap else
+                ((ops.first_a, ops.first_b), (ops.second_a, ops.second_b)))
+        ws["chunks"] = {
+            key: [(op, view, cls(view, *field, group=group))
+                  for op, view in zip(d, _chunk_views(ws[key], s))]
+            for key, d, s, group in (
+                ("tmp", dirs[0], split[0], grid.rows_group),
+                ("av", dirs[1], split[1], grid.cols_group))}
+        ws["grams_sum"] = cls(ws["grams"], *field, group=grid.rows_group)
+
+    def _product(self, ws: dict, key: str, x: torch.Tensor) -> torch.Tensor:
+        """ws[key] <- this rank's band of the matrix's product with x,
+        summed exactly over the grid: the first direction (key "tmp", x =
+        v's band, summed over the rows) or the second ("av", x = tmp's,
+        over the columns).  With overlap, chunk A's sum is in flight while
+        chunk B's SpMV runs; every rank issues the same sums in the same
+        order (A, then B)."""
+        chunks = ws["chunks"][key]
+        done = []
+        for op, view, total in chunks:
+            part = self._spmv(op, x, view)
+            total.start(part)
+            done.append((part, view, total))
+        for part, view, total in done:
+            total.finish()
+            if part is not view:     # the CPU's plain SpMVs return blocks
+                view.copy_(part)     # of their own
+        return ws[key]
 
     # -- blocks in and out ------------------------------------------------
 
@@ -137,7 +183,8 @@ class _ShardedSolver:
             start_iter = int(resume_state["iteration"])
         if verbose:
             R, C = self.grid.shape
-            print(f"Block Lanczos [{self.label}sharded {R}x{C}]")
+            mark = self.overlap_mark if self.overlap else ""
+            print(f"Block Lanczos [{self.label}sharded {R}x{C}{mark}]")
             print(self.ops.stats.summary())
             print(f"  - Expecting {self.expected_iterations} iterations")
             print("  - Main loop")
@@ -182,23 +229,27 @@ class ShardedBlockLanczos(_ShardedSolver):
     mirrors models.lanczos.BlockLanczos.  `grid` defaults to the rows-only
     grid over the whole world on CUDA (mesh.make_mesh, which raises when
     there is no CUDA; torch.distributed must be initialized, e.g. by
-    parallel/launch.py); blocks live on grid.device."""
+    parallel/launch.py); blocks live on grid.device.  overlap=True splits
+    each SpMV into two row chunks, so that chunk A's all-reduce is in
+    flight while chunk B's product runs (sharding.partition_overlap;
+    ValueError when a band is too small to split)."""
 
     field = "narrow"
 
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  grid: Grid | None = None, pad_multiple: int = 8,
                  check_invariants: bool = True,
-                 sync_every: int | None = None):
+                 sync_every: int | None = None, overlap: bool = False):
         grid = make_mesh() if grid is None else grid
         if not 1 <= int(n) <= MAX_N:
             raise ValueError(f"block width n must be in [1, {MAX_N}]")
         self.f = GFp.make(M.prime)
         self.right = bool(right)
         self._rng = Xoshiro256Plus()
-        self._setup(grid, shard_lib.partition_matrix(
-            self.f, M, right, grid, pad_multiple), n, check_invariants,
-            sync_every)
+        part = (shard_lib.partition_matrix_overlap if overlap
+                else shard_lib.partition_matrix)
+        self._setup(grid, part(self.f, M, right, grid, pad_multiple), n,
+                    check_invariants, sync_every, overlap)
 
     def _v0(self) -> np.ndarray:
         """v0 over TRUE kernel rows (the sequential xoshiro block, bit-exact
@@ -219,22 +270,24 @@ class ShardedBlockLanczos(_ShardedSolver):
               "grams": torch.zeros((2 * n, n), dtype=torch.int32, device=dev)}
         if dev.type == "cuda":
             ws["si"] = empty_outputs(n, dev)
-        ws["sum"] = _bound_sums(ws, self.grid, collectives.PsumMod, self.f.p)
+        self._bind_sums(ws, collectives.PsumMod, self.f.p)
         return ws
 
+    def _spmv(self, op, x, out):
+        return spmm.spmv(op, x, out_rows=out.shape[0], out=out)
+
     def _step(self, v, p_blk, state, ws) -> None:
-        """One iteration on this rank (the JAX package's _local_step)."""
-        ops, p, sums = self.ops, self.f.p, ws["sum"]
-        tmp = spmm.spmv(ops.first, v, out_rows=ops.mband, out=ws["tmp"])
-        sums["tmp"](tmp)                                # split by cols
-        av = spmm.spmv(ops.second, tmp, out_rows=ops.band, out=ws["av"])
-        sums["av"](av)                                  # split by rows
+        """One iteration on this rank (the JAX package's _local_step, or
+        with overlap its _local_step_overlap)."""
+        p = self.f.p
+        tmp = self._product(ws, "tmp", v)               # split by cols
+        av = self._product(ws, "av", tmp)               # split by rows
         grams = gram_mod(v, av, av, p, out=ws["grams"])
-        sums["grams"](grams)                            # replicated
+        ws["grams_sum"](grams)                          # replicated
         si = semi_inverse(grams, p, state, self.check_invariants,
                           out=ws.get("si"))
         single.orthogonalize(v, p_blk, av, si.rhs, si.d, p, state)
-        ws.update(tmp=tmp, av=av, grams=grams, si=si)
+        ws.update(grams=grams, si=si)
 
     def _invariant_failure(self, ws, iteration):
         # reproduce the precise failing assertion on the host

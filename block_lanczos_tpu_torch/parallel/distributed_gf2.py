@@ -1,8 +1,9 @@
 """The sharded bitsliced GF(2) block Lanczos solver.
 
 The port of the JAX package's parallel/distributed_gf2.py
-(`partition_matrix_gf2`, `_local_step`, `ShardedBlockLanczosGF2`; not its
-overlap variant nor the `_pxor_planes` yardstick): parallel/distributed.py's
+(`partition_matrix_gf2`, `_local_step`, `ShardedBlockLanczosGF2`, the
+overlap variant `partition_matrix_overlap_gf2` and `_local_step_overlap`;
+not the `_pxor_planes` yardstick): parallel/distributed.py's
 driver on (rows, n/32) int32 bit words, with the GF(2) kernels
 (ops/gf2.py, models/lanczos_gf2.py) and the exact XOR all-reduce `pxor`
 (parallel/collectives.py, K3) after each partial, through its bound form
@@ -22,11 +23,34 @@ from block_lanczos_tpu_torch.models.lanczos import resume_rows
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.parallel import collectives
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
-from block_lanczos_tpu_torch.parallel.distributed import (_bound_sums,
-                                                          _ShardedSolver)
+from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
+
+
+def _odd_entries(M: COOMatrix, right: bool, dedup: bool):
+    """(mi, mj, nrows_eff, ncols_eff, dedup_dropped): the odd entries,
+    after the m_eff-side dedup when `dedup`."""
+    odd = (np.asarray(M.x) & 1) == 1
+    mi, mj = M.i[odd], M.j[odd]
+    if not dedup:
+        return mi, mj, M.nrows, M.ncols, (0, 0)
+    mi, mj, nrows_eff, ncols_eff, n_dup, n_empty = gf2.dedup_lines(
+        mi, mj, M.nrows, M.ncols, right)
+    return mi, mj, nrows_eff, ncols_eff, (n_dup, n_empty)
+
+
+def _op_maker(grid: Grid, W: int):
+    """A block's operator: GF2Op column bands for blocks of W words, as
+    many as its own slice of x needs on this card's L2."""
+    l2 = (torch.cuda.get_device_properties(grid.device).L2_cache_size
+          if grid.device.type == "cuda" else None)
+
+    def build(out_idx, in_idx, _vals, out_dim, in_dim):
+        return lg.make_gf2_bands(out_idx, in_idx, out_dim, in_dim,
+                                 lg.choose_bands(in_dim, W, l2))
+    return build
 
 
 def partition_matrix_gf2(M: COOMatrix, right: bool, grid: Grid, W: int,
@@ -34,22 +58,22 @@ def partition_matrix_gf2(M: COOMatrix, right: bool, grid: Grid, W: int,
     """(ops, dedup_dropped): this rank's block of the odd entries (after
     the m_eff-side dedup, then balanced on the surviving entries), each
     direction a tuple of GF2Op column bands for blocks of W words."""
-    odd = (np.asarray(M.x) & 1) == 1
-    mi, mj = M.i[odd], M.j[odd]
-    if dedup:
-        mi, mj, nrows_eff, ncols_eff, n_dup, n_empty = gf2.dedup_lines(
-            mi, mj, M.nrows, M.ncols, right)
-    else:
-        nrows_eff, ncols_eff, n_dup, n_empty = M.nrows, M.ncols, 0, 0
-    l2 = (torch.cuda.get_device_properties(grid.device).L2_cache_size
-          if grid.device.type == "cuda" else None)
+    mi, mj, nrows_eff, ncols_eff, dropped = _odd_entries(M, right, dedup)
+    return shard_lib.partition(grid, mi, mj, None, nrows_eff, ncols_eff,
+                               right, _op_maker(grid, W),
+                               pad_multiple), dropped
 
-    def build(out_idx, in_idx, _vals, out_dim, in_dim):
-        return lg.make_gf2_bands(out_idx, in_idx, out_dim, in_dim,
-                                 lg.choose_bands(in_dim, W, l2))
-    ops = shard_lib.partition(grid, mi, mj, None, nrows_eff, ncols_eff,
-                              right, build, pad_multiple)
-    return ops, (n_dup, n_empty)
+
+def partition_matrix_overlap_gf2(M: COOMatrix, right: bool, grid: Grid,
+                                 W: int, pad_multiple: int = 8,
+                                 dedup: bool = True):
+    """(ops, dedup_dropped) of `partition_matrix_gf2` with each direction
+    split into two row chunks (sharding.partition_overlap), each chunk's
+    operator in its own column bands."""
+    mi, mj, nrows_eff, ncols_eff, dropped = _odd_entries(M, right, dedup)
+    return shard_lib.partition_overlap(
+        grid, mi, mj, None, nrows_eff, ncols_eff, right, _op_maker(grid, W),
+        pad_multiple, solver="ShardedBlockLanczosGF2"), dropped
 
 
 class ShardedBlockLanczosGF2(_ShardedSolver):
@@ -58,12 +82,14 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
     on CUDA); dedup as in models.lanczos_gf2.BlockLanczosGF2."""
 
     label = "GF(2) bitsliced, "
+    overlap_mark = " overlap"
     field = "gf2"
 
     def __init__(self, M: COOMatrix, n: int = 32, right: bool = False,
                  grid: Grid | None = None, pad_multiple: int = 8,
                  check_invariants: bool = True,
-                 sync_every: int | None = None, dedup: bool = True):
+                 sync_every: int | None = None, dedup: bool = True,
+                 overlap: bool = False):
         grid = make_mesh() if grid is None else grid
         if int(M.prime) != 2 or int(n) % gf2.WORD != 0:
             raise ValueError("GF(2) sharded solver requires p == 2 and "
@@ -72,10 +98,11 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
              else gf2.words(int(n)))
         self.right = bool(right)
         self._rng = Xoshiro256Plus()
-        ops, self.dedup_dropped = partition_matrix_gf2(
-            M, right, grid, W, pad_multiple, dedup)
+        part = (partition_matrix_overlap_gf2 if overlap
+                else partition_matrix_gf2)
+        ops, self.dedup_dropped = part(M, right, grid, W, pad_multiple, dedup)
         self.W = W
-        self._setup(grid, ops, n, check_invariants, sync_every)
+        self._setup(grid, ops, n, check_invariants, sync_every, overlap)
 
     def _v0(self) -> np.ndarray:
         bits = self._rng.fill_mod(self.n_eff * self.n, 2)
@@ -95,22 +122,23 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
               "grams": torch.zeros((2 * n, W), dtype=torch.int32, device=dev)}
         if dev.type == "cuda":
             ws["si"] = gf2.empty_outputs(n, dev)
-        ws["sum"] = _bound_sums(ws, self.grid, collectives.Pxor)
+        self._bind_sums(ws, collectives.Pxor)
         return ws
 
+    def _spmv(self, ops, x, out):
+        return lg.spmv_gf2(ops, x, out_rows=out.shape[0], out=out)
+
     def _step(self, v, p_blk, state, ws) -> None:
-        """One iteration on this rank (the JAX package's _local_step)."""
-        ops, xors = self.ops, ws["sum"]
-        tmp = lg.spmv_gf2(ops.first, v, out_rows=ops.mband, out=ws["tmp"])
-        xors["tmp"](tmp)                                # split by cols
-        av = lg.spmv_gf2(ops.second, tmp, out_rows=ops.band, out=ws["av"])
-        xors["av"](av)                                  # split by rows
+        """One iteration on this rank (the JAX package's _local_step, or
+        with overlap its _local_step_overlap)."""
+        tmp = self._product(ws, "tmp", v)               # split by cols
+        av = self._product(ws, "av", tmp)               # split by rows
         grams = gf2.gram_gf2(v, av, out=ws["grams"])
-        xors["grams"](grams)                            # replicated
+        ws["grams_sum"](grams)                          # replicated
         si = gf2.semi_inverse_gf2(grams, state, self.check_invariants,
                                   out=ws.get("si"))
         lg.orthogonalize_gf2(v, p_blk, av, si.rhs, si.d, state)
-        ws.update(tmp=tmp, av=av, grams=grams, si=si)
+        ws.update(grams=grams, si=si)
 
     def _invariant_failure(self, ws, iteration):
         raise AssertionError("device invariant check failed (GF2, sharded) "

@@ -1,8 +1,9 @@
 """The sharded block Lanczos solver for wide primes (2^30 - 35 < p < 2^62).
 
 The port of the JAX package's parallel/distributed_wide.py
-(`partition_matrix_wide`, `_local_step`, `ShardedBlockLanczosWide`; not
-its overlap variant): parallel/distributed.py's driver on int64 residues,
+(`partition_matrix_wide`, `_local_step`, `ShardedBlockLanczosWide`, and
+the overlap variant `partition_matrix_overlap_wide` and
+`_local_step_overlap`): parallel/distributed.py's solver on int64 residues,
 with the wide kernels (ops/wide_ops.py, models/lanczos_wide.py) and the
 exact wide all-reduce `psum_mod_wide` after each partial.  Each rank's
 block is built by the single-device wide layout builder
@@ -21,20 +22,35 @@ from block_lanczos_tpu_torch.ops import wide_ops as wo
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.parallel import collectives
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
-from block_lanczos_tpu_torch.parallel.distributed import (_bound_sums,
-                                                          _ShardedSolver)
+from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
 
+def _op_maker(f: GFpWide):
+    """A block's operator: the single-device wide layout (its slab chosen
+    per block)."""
+    def build(out_idx, in_idx, vals, out_dim, in_dim):
+        return wo.make_wide_op(f, out_idx, in_idx, vals, out_dim, in_dim)
+    return build
+
+
 def partition_matrix_wide(f: GFpWide, M: COOMatrix, right: bool, grid: Grid,
                           pad_multiple: int = 8) -> shard_lib.ShardedOps:
     """This rank's block of the wide-field matrix as wide HybridOps."""
-    def build(out_idx, in_idx, vals, out_dim, in_dim):
-        return wo.make_wide_op(f, out_idx, in_idx, vals, out_dim, in_dim)
     return shard_lib.partition(grid, M.i, M.j, np.asarray(M.x), M.nrows,
-                               M.ncols, right, build, pad_multiple)
+                               M.ncols, right, _op_maker(f), pad_multiple)
+
+
+def partition_matrix_overlap_wide(f: GFpWide, M: COOMatrix, right: bool,
+                                  grid: Grid, pad_multiple: int = 8
+                                  ) -> shard_lib.OverlapShardedOps:
+    """`partition_matrix_wide` with each direction split into two row
+    chunks (sharding.partition_overlap)."""
+    return shard_lib.partition_overlap(
+        grid, M.i, M.j, np.asarray(M.x), M.nrows, M.ncols, right,
+        _op_maker(f), pad_multiple, solver="ShardedBlockLanczosWide")
 
 
 class ShardedBlockLanczosWide(_ShardedSolver):
@@ -47,16 +63,17 @@ class ShardedBlockLanczosWide(_ShardedSolver):
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  grid: Grid | None = None, pad_multiple: int = 8,
                  check_invariants: bool = True,
-                 sync_every: int | None = None):
+                 sync_every: int | None = None, overlap: bool = False):
         grid = make_mesh() if grid is None else grid
         if not 1 <= int(n) <= lw.MAX_N:
             raise ValueError(f"block width n must be in [1, {lw.MAX_N}]")
         self.f = GFpWide.make(M.prime)
         self.right = bool(right)
         self._rng = Xoshiro256Plus()
-        self._setup(grid, partition_matrix_wide(self.f, M, right, grid,
-                                                pad_multiple),
-                    n, check_invariants, sync_every)
+        part = (partition_matrix_overlap_wide if overlap
+                else partition_matrix_wide)
+        self._setup(grid, part(self.f, M, right, grid, pad_multiple), n,
+                    check_invariants, sync_every, overlap)
 
     def _v0(self) -> np.ndarray:
         block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
@@ -78,25 +95,24 @@ class ShardedBlockLanczosWide(_ShardedSolver):
               "grams": torch.zeros((2 * n, n), dtype=torch.int64, device=dev)}
         if dev.type == "cuda":
             ws["si"] = wo.empty_outputs(n, dev)
-        ws["sum"] = _bound_sums(ws, self.grid, collectives.PsumModWide,
-                                self.f)
+        self._bind_sums(ws, collectives.PsumModWide, self.f)
         return ws
 
+    def _spmv(self, op, x, out):
+        return wo.spmv_wide(self.f, op, x, out_rows=out.shape[0], out=out)
+
     def _step(self, v, p_blk, state, ws) -> None:
-        """One iteration on this rank (the JAX package's _local_step)."""
-        ops, f, sums = self.ops, self.f, ws["sum"]
-        tmp = wo.spmv_wide(f, ops.first, v, out_rows=ops.mband,
-                           out=ws["tmp"])
-        sums["tmp"](tmp)
-        av = wo.spmv_wide(f, ops.second, tmp, out_rows=ops.band,
-                          out=ws["av"])
-        sums["av"](av)
+        """One iteration on this rank (the JAX package's _local_step, or
+        with overlap its _local_step_overlap)."""
+        f = self.f
+        tmp = self._product(ws, "tmp", v)
+        av = self._product(ws, "av", tmp)
         grams = wo.gram_wide(v, av, f, out=ws["grams"])
-        sums["grams"](grams)
+        ws["grams_sum"](grams)
         si = wo.semi_inverse_wide(grams, f, state, self.check_invariants,
                                   out=ws.get("si"))
         lw.orthogonalize_wide(v, p_blk, av, si.rhs, si.d, f, state)
-        ws.update(tmp=tmp, av=av, grams=grams, si=si)
+        ws.update(grams=grams, si=si)
 
     def _invariant_failure(self, ws, iteration):
         n, grams, si = self.n, ws["grams"], ws["si"]

@@ -22,6 +22,11 @@ Where the JAX package stacks every block on leading (R, C) axes with one
 slab width for all (shard_map needs identical shapes), a rank here holds
 its own block only, built by the single-device layout builder with its
 own width: mod-p sums are exact, so the layout changes no residue.
+
+For comm/compute overlap (`partition_overlap`, the JAX package's
+`partition_matrix_overlap*`) each direction's output rows are split in
+two at a multiple of pad_multiple, over the same band maps, and each
+chunk gets an operator of its own.
 """
 
 from __future__ import annotations
@@ -319,37 +324,139 @@ class ShardedOps:
     stats: PartitionStats
 
 
+def _block(grid, nnz_i, nnz_j, vals, nrows: int, ncols: int, right: bool,
+           pad_multiple: int):
+    """This rank's place in the partition over `grid` (parallel/mesh.py):
+    (n_eff, m_eff, row_map, col_map, its GridBlock)."""
+    n_eff, m_eff, key, other, row_map, col_map = _grid_maps(
+        nnz_i, nnz_j, nrows, ncols, right, grid.R, grid.C, pad_multiple)
+    blk = grid_block(key, other, vals, row_map, col_map, grid.r, grid.c)
+    return n_eff, m_eff, row_map, col_map, blk
+
+
+def _to_device(op, device):
+    """A local operator (a HybridOp or a tuple of GF2Op bands) on device."""
+    if isinstance(op, tuple):
+        return tuple(b.to(device) for b in op)
+    return op.to(device)
+
+
 def partition(grid, nnz_i, nnz_j, vals, nrows: int, ncols: int,
               right: bool, build, pad_multiple: int = 8) -> ShardedOps:
     """Split the matrix over `grid` (parallel/mesh.py) and build this
     rank's block: build(out_idx, in_idx, vals, out_dim, in_dim) makes one
     local operator on the host (a field's single-device layout builder);
     both are moved to grid.device."""
-    R, C = grid.shape
-    n_eff, m_eff, key, other, row_map, col_map = _grid_maps(
-        nnz_i, nnz_j, nrows, ncols, right, R, C, pad_multiple)
+    n_eff, m_eff, row_map, col_map, blk = _block(
+        grid, nnz_i, nnz_j, vals, nrows, ncols, right, pad_multiple)
     band, mband = row_map.band, col_map.band
-    blk = grid_block(key, other, vals, row_map, col_map, grid.r, grid.c)
     first = build(blk.lo, blk.lk, blk.vals, mband, band)
     second = build(blk.lk, blk.lo, blk.vals, band, mband)
-    stats = PartitionStats(grid=(R, C), shard_nnz=blk.shard_nnz,
+    stats = PartitionStats(grid=grid.shape, shard_nnz=blk.shard_nnz,
                            row_balanced=not row_map.identity,
                            col_balanced=not col_map.identity,
                            first=dir_stats(first), second=dir_stats(second))
-    move = (lambda op: tuple(b.to(grid.device) for b in op)
-            if isinstance(op, tuple) else op.to(grid.device))
-    return ShardedOps(grid=(R, C), band=band, mband=mband,
-                      np_rows=band * R, mp_rows=mband * C,
+    return ShardedOps(grid=grid.shape, band=band, mband=mband,
+                      np_rows=band * grid.R, mp_rows=mband * grid.C,
                       n_eff=n_eff, m_eff=m_eff,
-                      first=move(first), second=move(second),
+                      first=_to_device(first, grid.device),
+                      second=_to_device(second, grid.device),
                       row_map=row_map, col_map=col_map, stats=stats)
+
+
+@dataclasses.dataclass
+class OverlapShardedOps:
+    """ShardedOps with each SpMV direction split into two row chunks, so
+    that chunk A's exact all-reduce can run while chunk B's product is
+    computed (the JAX package's comm/compute overlap).  The chunks are the
+    rows [0, ha) and [ha, mband) of tmp, [0, hb) and [hb, band) of Av;
+    each chunk's operator reads the whole input band.  The band maps are
+    the non-overlap partition's, so the iterates are the same."""
+    grid: tuple[int, int]
+    band: int
+    mband: int
+    np_rows: int
+    mp_rows: int
+    n_eff: int
+    m_eff: int
+    ha: int            # first direction's split row (out dim = mband)
+    hb: int            # second direction's split row (out dim = band)
+    first_a: object    # v band -> tmp rows [0, ha)
+    first_b: object    # v band -> tmp rows [ha, mband)
+    second_a: object   # tmp band -> Av rows [0, hb)
+    second_b: object   # tmp band -> Av rows [hb, band)
+    row_map: BandMap
+    col_map: BandMap
+    stats: PartitionStats
+
+
+def _chunk_stats(a: DirStats, b: DirStats) -> DirStats:
+    return DirStats(ell=(a.ell, b.ell),
+                    slab_slots=a.slab_slots + b.slab_slots,
+                    spill_slots=a.spill_slots + b.spill_slots)
+
+
+def partition_overlap(grid, nnz_i, nnz_j, vals, nrows: int, ncols: int,
+                      right: bool, build, pad_multiple: int = 8,
+                      solver: str = "ShardedBlockLanczos"
+                      ) -> OverlapShardedOps:
+    """`partition` with each direction's output rows split in two (the
+    split a multiple of pad_multiple).  Raises ValueError, naming the
+    non-overlap `solver` to use instead, when a band is too small to
+    split."""
+    n_eff, m_eff, row_map, col_map, blk = _block(
+        grid, nnz_i, nnz_j, vals, nrows, ncols, right, pad_multiple)
+    band, mband = row_map.band, col_map.band
+    ha = (mband // 2 // pad_multiple) * pad_multiple
+    hb = (band // 2 // pad_multiple) * pad_multiple
+    if not (0 < ha < mband and 0 < hb < band):
+        raise ValueError(
+            "matrix bands too small to chunk for comm/compute overlap; "
+            f"use the default {solver}")
+
+    def chunks(out_idx, in_idx, split, out_dim, in_dim):
+        a = out_idx < split
+        b = ~a
+        va, vb = ((None, None) if blk.vals is None
+                  else (blk.vals[a], blk.vals[b]))
+        return (build(out_idx[a], in_idx[a], va, split, in_dim),
+                build((out_idx[b] - split).astype(np.int32), in_idx[b], vb,
+                      out_dim - split, in_dim))
+
+    first_a, first_b = chunks(blk.lo, blk.lk, ha, mband, band)
+    second_a, second_b = chunks(blk.lk, blk.lo, hb, band, mband)
+    stats = PartitionStats(
+        grid=grid.shape, shard_nnz=blk.shard_nnz,
+        row_balanced=not row_map.identity, col_balanced=not col_map.identity,
+        first=_chunk_stats(dir_stats(first_a), dir_stats(first_b)),
+        second=_chunk_stats(dir_stats(second_a), dir_stats(second_b)))
+    dev = grid.device
+    return OverlapShardedOps(
+        grid=grid.shape, band=band, mband=mband, np_rows=band * grid.R,
+        mp_rows=mband * grid.C, n_eff=n_eff, m_eff=m_eff, ha=ha, hb=hb,
+        first_a=_to_device(first_a, dev), first_b=_to_device(first_b, dev),
+        second_a=_to_device(second_a, dev),
+        second_b=_to_device(second_b, dev),
+        row_map=row_map, col_map=col_map, stats=stats)
+
+
+def _hybrid_op_maker(f):
+    def build(out_idx, in_idx, vals, out_dim, in_dim):
+        return spmm.make_hybrid_op(f, out_idx, in_idx, vals, out_dim, in_dim)
+    return build
 
 
 def partition_matrix(f, M, right: bool, grid,
                      pad_multiple: int = 8) -> ShardedOps:
     """This rank's block of the narrow-field matrix (values in [0, p)) in
     the single-device hybrid layout (ops/spmm.py::make_hybrid_op)."""
-    def build(out_idx, in_idx, vals, out_dim, in_dim):
-        return spmm.make_hybrid_op(f, out_idx, in_idx, vals, out_dim, in_dim)
     return partition(grid, M.i, M.j, np.asarray(M.x), M.nrows, M.ncols,
-                     right, build, pad_multiple)
+                     right, _hybrid_op_maker(f), pad_multiple)
+
+
+def partition_matrix_overlap(f, M, right: bool, grid,
+                             pad_multiple: int = 8) -> OverlapShardedOps:
+    """`partition_matrix` with each direction split into two row chunks
+    (`partition_overlap`)."""
+    return partition_overlap(grid, M.i, M.j, np.asarray(M.x), M.nrows,
+                             M.ncols, right, _hybrid_op_maker(f), pad_multiple)

@@ -11,7 +11,7 @@ Flag-compatible with the JAX package's CLI for the part this port covers
                        [--checkpoint [SECONDS]] [--load-checkpoint]
                        [--checkpoint-dir DIR]
                        [--device cuda|cpu] [--single]
-                       [--devices K | --grid R C]
+                       [--devices K | --grid R C] [--overlap]
                        [--coordinator HOST:PORT --num-processes P
                         --process-id I [--local-devices L]]
 
@@ -33,7 +33,11 @@ and its `--process-id I`, and spawns `--local-devices L` ranks (default
 1), global ranks I*L .. I*L+L-1 of P*L; the grid is `--grid` or `--devices`
 (which must then count P*L ranks) or (P*L, 1).  Rank 0 alone prints and
 writes the kernel file.  `--num-processes 1 --process-id 0` alone is the
-one-device solve.
+one-device solve.  `--overlap` splits each SpMV into two row chunks so
+that one chunk's exact all-reduce runs while the other's product is
+computed (the mesh solvers' overlap=True); alone, it runs the mesh over
+every CUDA device of this host (one gloo rank with `--device cpu`), as
+the JAX CLI runs it over every device; `--single` ignores it.
 
 Checkpoints are the JAX package's CLI's (utils/checkpoint.py, in its
 on-disk form, so that either package resumes the other's): `--checkpoint
@@ -46,10 +50,9 @@ signal takes the default action.  On a mesh the signal to this process is
 passed on to its ranks (they poll a shared value), the root's request is
 the one every rank follows, and each rank exits 128 + signum.
 
-Exit code 2, before the matrix is loaded, for what this port does not
-cover yet (`--overlap`) and for block widths above the kernels' caps,
-n <= 64 in the narrow and the wide field and, on CUDA, n <= 512 over
-GF(2).
+Exit code 2, before the matrix is loaded, for mesh flags that cannot
+run and for block widths above the kernels' caps, n <= 64 in the narrow
+and the wide field and, on CUDA, n <= 512 over GF(2).
 """
 
 from __future__ import annotations
@@ -70,9 +73,6 @@ from block_lanczos_tpu_torch.utils import checkpoint as ckpt
 from block_lanczos_tpu_torch.utils import mmio
 from block_lanczos_tpu_torch.utils.verbosity import VerbosityEngine
 
-# flags of the JAX package's CLI that select paths this port does not have:
-# dest -> (flag, the value that selects none of them)
-REFUSED_FLAGS = {"overlap": ("--overlap", False)}
 PREEMPTION_SIGNALS = (signal.SIGTERM, signal.SIGINT)
 
 
@@ -154,16 +154,15 @@ def build_parser() -> argparse.ArgumentParser:
                       metavar="L",
                       help="ranks this process spawns [default 1]; with "
                            "--device cuda, L CUDA devices on this host")
-    unsupported = ap.add_argument_group(
-        "not supported by this port yet (refused with exit code 2)")
-    unsupported.add_argument("--overlap", action="store_true")
+    mesh.add_argument("--overlap", action="store_true",
+                      help="chunk each SpMV so exact reductions overlap "
+                           "local compute (mesh solvers, all three "
+                           "fields); alone, a mesh over every CUDA device "
+                           "of this host (one rank with --device cpu)")
     return ap
 
 
 def _refusal(args) -> str | None:
-    for dest, (flag, default) in REFUSED_FLAGS.items():
-        if getattr(args, dest) != default:
-            return f"{flag} is not supported by this port yet"
     if args.prime > PRIME_CAP:
         if args.n > wide.MAX_N:
             return (f"n = {args.n} is above the wide field's cap of n <= "
@@ -202,10 +201,14 @@ def _mesh_plan(args):
             return "--process-id needs --coordinator"
         if args.local_devices is not None:
             return "--local-devices needs --coordinator"
-        if args.devices is None and args.grid is None:
+        if args.grid is not None:
+            local = world = args.grid[0] * args.grid[1]
+        elif args.devices is not None:
+            local = world = args.devices
+        elif args.overlap:      # the JAX CLI's mesh over every device
+            local = world = _device_count(args.device)
+        else:
             return None
-        local = world = (args.grid[0] * args.grid[1] if args.grid
-                         else args.devices)
         init_method, offset = None, 0
     else:
         P, local = args.num_processes, args.local_devices or 1
@@ -237,6 +240,16 @@ def _mesh_plan(args):
     else:
         devices, backend = ("cpu",) * local, "gloo"
     return MeshPlan(R, C, devices, backend, init_method, world, offset)
+
+
+def _device_count(device: str) -> int:
+    """The ranks a mesh over every device of this host has: its CUDA
+    devices (at least one, so that a host without any is told it needs
+    one), or one CPU rank."""
+    if device != "cuda":
+        return 1
+    import torch
+    return max(torch.cuda.device_count(), 1)
 
 
 def main(argv=None) -> int:
@@ -303,7 +316,7 @@ def _mesh_rank(rank, world, device, args, plan: MeshPlan,
 
 
 def _make_solver(args, M, right: bool, grid):
-    checks, sync = not args.no_checks, args.sync_every
+    checks, sync, overlap = not args.no_checks, args.sync_every, args.overlap
     if args.prime > PRIME_CAP:
         if grid is None:
             from block_lanczos_tpu_torch.models.lanczos_wide import \
@@ -315,7 +328,7 @@ def _make_solver(args, M, right: bool, grid):
             ShardedBlockLanczosWide
         return ShardedBlockLanczosWide(M, n=args.n, right=right, grid=grid,
                                        check_invariants=checks,
-                                       sync_every=sync)
+                                       sync_every=sync, overlap=overlap)
     if args.prime == 2 and args.n % 32 == 0:
         if grid is None:
             from block_lanczos_tpu_torch.models.lanczos_gf2 import \
@@ -329,7 +342,8 @@ def _make_solver(args, M, right: bool, grid):
         return ShardedBlockLanczosGF2(M, n=args.n, right=right, grid=grid,
                                       check_invariants=checks,
                                       sync_every=sync,
-                                      dedup=not args.no_dedup)
+                                      dedup=not args.no_dedup,
+                                      overlap=overlap)
     if grid is None:
         from block_lanczos_tpu_torch.models.lanczos import BlockLanczos
         return BlockLanczos(M, n=args.n, right=right,
@@ -338,7 +352,8 @@ def _make_solver(args, M, right: bool, grid):
     from block_lanczos_tpu_torch.parallel.distributed import \
         ShardedBlockLanczos
     return ShardedBlockLanczos(M, n=args.n, right=right, grid=grid,
-                               check_invariants=checks, sync_every=sync)
+                               check_invariants=checks, sync_every=sync,
+                               overlap=overlap)
 
 
 class _PreemptionSaved(Exception):

@@ -157,7 +157,7 @@ def profile_width(M, field: str, n: int, label: str,
         tmp, group = mesh_ws["tmp"], s.grid.rows_group
         # the step's bound form of the collective on tmp (PsumMod,
         # PsumModWide or Pxor)
-        bound = mesh_ws["sum"]["tmp"]
+        (_, _, bound), = mesh_ws["chunks"]["tmp"]
         payload = bound.pack(tmp)
         host_us = {"collective": _host_us_per_call(lambda: bound(tmp)),
                    "all_reduce": _host_us_per_call(

@@ -133,7 +133,8 @@ failure:
      int64 payload, K2's halves and K3's 4-bit lanes): 200 iterations of
      each field at the bench size on each; v and p must equal the
      single-device solvers' after 200 iterations (a check of the mesh,
-     not a multi-GPU speed);
+     not a multi-GPU speed; phase 16's overlap solves follow in the same
+     world);
   15. checkpoints (utils/checkpoint.py, the JAX package's on-disk form;
      the CLI's round trip below runs beside the rest, in processes of its
      own):
@@ -154,6 +155,19 @@ failure:
      first save line and must exit 143, then `--load-checkpoint` runs to
      the end and the checker passes; the seconds a save and a load take
      and the bytes of each checkpoint are printed beside the card;
+  16. comm/compute overlap (the sharded solvers' overlap=True: each SpMV
+     in two row chunks, chunk A's all-reduce in flight during chunk B's
+     SpMV) on a 1 x 1 NCCL grid: bench-gf2-n128 whole (its kernel file
+     byte-identical to phase 6's, checker OK), bench-n4 and
+     bench-wide-p61-n4 to 4096 iterations (v and p equal to the one-device
+     solvers' there); the launch counts (reset just before, read just
+     after each solve) must show every chunk's SpMV (twice phase 13's
+     rate), five collective folds and one of each other kernel an
+     iteration; each ms/iter printed beside phase 13's; in phase 14's
+     world the three fields again with overlap on the 2 x 2 grid, 200
+     iterations, v and p equal to one device's; utils/profiling.py's
+     phase_timers and ablation_timers on bench-n4, and its trace of 10
+     iterations, which must name the spmv_ell kernel;
   11. last: print the kernels JSON line (fifteen kernels), the card line,
      and the result line.
 
@@ -1745,7 +1759,9 @@ def _mesh_rank(rank, world, device, coo, primes, n_by_field, iters,
     """Phase 14's rank: the three fields' sharded solvers on each grid of
     MESH_GRIDS over gloo, `iters` iterations each; returns (v, p) of each
     (by (grid, field)) in true row order, the iterations, and the launch
-    counts of this rank.  Phase 15's mesh checkpoints: the 2 x 2 wide solve
+    counts of this rank; then phase 16's: the same on the 2 x 2 grid with
+    overlap=True, ("overlap", field), and their own launch counts.  Phase
+    15's mesh checkpoints: the 2 x 2 wide solve
     saves at its first block boundary past iters / 2 into `ckpt_b` (only
     the root requests it; every rank's manager must save); afterwards the
     2 x 2 narrow solver resumes phase 13's checkpoint `ckpt_a` for
@@ -1808,6 +1824,28 @@ def _mesh_rank(rank, world, device, coo, primes, n_by_field, iters,
                 out["resume", g, field] = last["vp"]
             del solver
     out["counts"] = D.launch_counts()
+    # phase 16: the overlap step on the 2 x 2 grid, `iters` iterations of
+    # each field, its own launch counts
+    D.reset_launch_counts()
+    for field, cls, dtype in (
+            ("narrow", D.ShardedBlockLanczos, np.uint32),
+            ("gf2", ShardedBlockLanczosGF2, np.uint32),
+            ("wide", ShardedBlockLanczosWide, np.uint64)):
+        M = mmio.COOMatrix(nrows, ncols, len(i), i, j, x.astype(dtype),
+                           primes[field])
+        solver = cls(M, n=n_by_field[field],
+                     grid=grids[MESH_GRIDS.index((2, 2))], overlap=True)
+        last = {}
+
+        def grab_last(slv, iteration, v, p_blk, start):
+            last["vp"] = (slv.gather_rows(v), slv.gather_rows(p_blk),
+                          iteration)
+        t0 = time.time()
+        res = solver.solve(stop_after=iters, on_iteration=grab_last)
+        out["overlap", field] = last["vp"] + (res.iterations,
+                                              time.time() - t0)
+        del solver
+    out["overlap_counts"] = D.launch_counts()
     return out if rank == 0 else None
 
 
@@ -1821,7 +1859,9 @@ def mesh_solves(recs, dev, backend, cases, shapes, mtx, card, saves):
     and its collective three times an iteration.  The transport's all_reduce of each collective's
     1-rank payload (`shapes`) is timed on its own.  The narrow solve saves
     a checkpoint at its middle (`mid_save`, saves["mesh-1x1-n4"]: phase
-    15's).  Returns the collectives' launch counts."""
+    15's).  Returns the collectives' launch counts and, by field, the
+    solve's ms/iter (the save taken out) and launches an iteration of its
+    SpMV and its collective."""
     import torch
     import torch.distributed as tdist
     from block_lanczos_tpu_torch.parallel import distributed as D
@@ -1851,7 +1891,7 @@ def mesh_solves(recs, dev, backend, cases, shapes, mtx, card, saves):
                            f"{t_ar:.4f} ms a call (not in ms)")
         print(f"  {name}: {recs[name].note}", flush=True)
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    mesh_counts = {}
+    mesh_counts, per_field = {}, {}
     try:
         for field, Mx, n, want, fp in cases:
             t0 = time.time()
@@ -1899,9 +1939,13 @@ def mesh_solves(recs, dev, backend, cases, shapes, mtx, card, saves):
                 assert mc[name] >= it, mc
             assert mc[coll] >= 3 * it, mc
             mesh_counts[coll] = mc[coll]
+            per_field[field] = {
+                "ms_iter": (mres.elapsed - save_s) / max(it, 1) * 1e3,
+                "spmv_iter": mc[spmv] / max(it, 1),
+                "coll_iter": mc[coll] / max(it, 1)}
     finally:
         tdist.destroy_process_group()
-    return mesh_counts
+    return mesh_counts, per_field
 
 
 def mesh_grid_run(device, M, primes, refs, n_by_field, iters, ckpt_a,
@@ -2088,6 +2132,122 @@ def cli_preempt_round_trip(prime, card):
             f"iteration {at} ({first_s:.1f} s, the process's start "
             f"included); --load-checkpoint to the end, checker OK "
             f"({second_s:.1f} s) [{card}]")
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: comm/compute overlap and the profilers
+# ---------------------------------------------------------------------------
+
+OVERLAP_ITERS = 4096        # the narrow and wide overlap solves' depth
+
+
+def chunk_spmv_launches(solver) -> int:
+    """SpMV launches an overlap step makes: one a column band of each of
+    its four chunk operators (a narrow or wide operator is one)."""
+    ops = solver.ops
+    return sum(len(op) if isinstance(op, tuple) else 1
+               for op in (ops.first_a, ops.first_b, ops.second_a,
+                          ops.second_b))
+
+
+def overlap_solves(dev, cases, card, mesh13):
+    """Phase 16 on a 1 x 1 NCCL grid: each (field, M, n, stop, check) of
+    `cases` solved by the field's sharded solver with overlap=True, to
+    `stop` iterations or (stop None) whole; check(result, solver, [v, p]
+    at the end in true row order]) holds it against the one-device
+    solve.  The launch counts (reset just before,
+    read just after each solve) must show the overlap step's launches: its
+    chunks' SpMVs, five collective folds, one of each other kernel an
+    iteration.  Prints each ms/iter beside phase 13's (`mesh13`)."""
+    import torch
+    import torch.distributed as tdist
+    from block_lanczos_tpu_torch.parallel import distributed as D
+    from block_lanczos_tpu_torch.parallel import multihost
+    from block_lanczos_tpu_torch.parallel.distributed_gf2 import \
+        ShardedBlockLanczosGF2
+    from block_lanczos_tpu_torch.parallel.distributed_wide import \
+        ShardedBlockLanczosWide
+    from block_lanczos_tpu_torch.parallel.mesh import make_grid
+    solvers = {"narrow": D.ShardedBlockLanczos,
+               "gf2": ShardedBlockLanczosGF2, "wide": ShardedBlockLanczosWide}
+    rdv = os.path.join(WORK, "overlap_rendezvous")
+    if os.path.exists(rdv):
+        os.remove(rdv)
+    multihost.init_distributed("file://" + rdv, 1, 0, "nccl", 300, dev)
+    try:
+        grid = make_grid(1, 1, dev)
+        for field, Mx, n, stop, check in cases:
+            t0 = time.time()
+            solver = solvers[field](Mx, n=n, grid=grid, overlap=True)
+            layout_s = time.time() - t0
+            last = {}
+
+            def keep(slv, iteration, v, p_blk, start):
+                last["vp"] = (v.clone(), p_blk.clone())
+            D.reset_launch_counts()
+            torch.cuda.synchronize()
+            res = solver.solve(stop_after=stop or -1, verbose=stop is None,
+                               on_iteration=keep)
+            torch.cuda.synchronize()
+            mc = D.launch_counts()
+            check(res, solver, [solver.gather_rows(t) for t in last["vp"]])
+            spmv, *rest, coll = MESH_KERNELS[field]
+            steps = mc[rest[0]]       # one Gram an iteration run
+            assert steps >= res.iterations, mc
+            assert mc[spmv] == chunk_spmv_launches(solver) * steps, mc
+            assert mc[coll] == 5 * steps, mc
+            for name in rest:
+                assert mc[name] == steps, mc
+            if stop is not None:
+                assert steps == res.iterations == stop, (mc, res.iterations)
+            ms = res.elapsed / max(res.iterations, 1) * 1e3
+            m13 = mesh13[field]
+            print(f"  {field}: overlap (chunks ha = {solver.ops.ha}, hb = "
+                  f"{solver.ops.hb}), layout {layout_s:.1f} s; "
+                  f"{res.iterations} iterations, loop {res.elapsed:.3f} s, "
+                  f"{ms:.4f} ms/iter against phase 13's (no overlap, whole "
+                  f"solve) {m13['ms_iter']:.4f}; launches an iteration: "
+                  f"{spmv} {mc[spmv] / steps:.2f} (phase 13 "
+                  f"{m13['spmv_iter']:.2f}), {coll} {mc[coll] / steps:.2f} "
+                  f"(phase 13 {m13['coll_iter']:.2f}) [{card}]", flush=True)
+            del solver
+    finally:
+        tdist.destroy_process_group()
+
+
+def run_profilers(solver, card):
+    """Phase 16's profilers on the card: utils/profiling.py's phase_timers
+    and ablation_timers on `solver` (a one-device BlockLanczos), and its
+    trace around 10 iterations, whose Chrome trace must name spmv_ell."""
+    from block_lanczos_tpu_torch.utils import profiling
+    t0 = time.time()
+    rep = profiling.phase_timers(solver, iters=20)
+    print(f"  phase_timers (20 calls a phase): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in rep.items())
+          + f" [{card}]", flush=True)
+    abl = profiling.ablation_timers(solver, iters=200, runs=2)
+    print(f"  ablation_timers (200 iterations, best of 2): "
+          + ", ".join(f"{k} {v:.6g}" for k, v in abl.items())
+          + f" [{card}]", flush=True)
+    for r in (rep, abl):
+        assert all(v >= 0 for v in r.values()), r
+    assert rep["total_s"] > 0 and 0 <= rep["spmv_share"] <= 1, rep
+    assert abl["full_iteration_s"] > 0, abl
+    tdir = os.path.join(WORK, "trace")
+    with profiling.trace(tdir):
+        tres = solver.solve(stop_after=10)
+    assert tres.iterations == 10, tres.iterations
+    path = os.path.join(tdir, profiling.TRACE_FILE)
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    kernels_seen = sorted({e["name"] for e in events
+                           if e.get("cat") == "kernel"})
+    if not any("spmv_ell" in k for k in kernels_seen):
+        raise AssertionError(f"the trace of 10 iterations names no spmv_ell "
+                             f"kernel: {kernels_seen[:20]}")
+    print(f"  trace: {os.path.getsize(path)} bytes, {len(events)} events, "
+          f"device kernels {kernels_seen}; the profilers took "
+          f"{time.time() - t0:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -2625,7 +2785,7 @@ def main() -> int:
     print("phase 13: the three sharded solvers on a 1 x 1 grid over NCCL "
           "(the mesh path: pack, all_reduce, fold after each partial), each "
           "solve whole", flush=True)
-    mesh_counts = mesh_solves(
+    mesh_counts, mesh13 = mesh_solves(
         recs, torch.device("cuda", torch.cuda.current_device()), "nccl",
         [("narrow", M, 4, res4, prime), ("gf2", M2, 128, gres, 2),
          ("wide", Mw, 4, wres, wprime)],
@@ -2760,6 +2920,69 @@ def main() -> int:
     print(cli_job.result(), flush=True)
     cli_pool.shutdown()
     print(f"  phase 15 took {time.time() - t15:.1f} s", flush=True)
+
+    # ---- phase 16: comm/compute overlap and the profilers ---------------
+    print(f"phase 16: the overlap step (overlap=True: each SpMV in two row "
+          f"chunks, chunk A's all-reduce in flight during chunk B's SpMV) on "
+          f"a 1 x 1 NCCL grid (GF(2) whole, narrow and wide to "
+          f"{OVERLAP_ITERS} iterations) and on phase 14's 2 x 2 gloo grid; "
+          "the profilers on the card", flush=True)
+    t16 = time.time()
+    ref = {}
+    for field, solver in (("narrow", fresh["narrow"]),
+                          ("wide", fresh["wide"])):
+        # the one-device solve to the same iteration (the solvers' first
+        # v0: phase 15 only resumed them)
+        solver.solve(stop_after=OVERLAP_ITERS, on_iteration=grab(field))
+        v_, p_, it_ = last[field]
+        assert it_ == OVERLAP_ITERS, it_
+        ref[field] = (v_[:solver.n_eff].cpu().numpy(),
+                      p_[:solver.n_eff].cpu().numpy())
+
+    def same_vp(field):
+        def check(res, solver, vp):
+            for name, a, b in zip("vp", vp, ref[field]):
+                if not np.array_equal(a, b):
+                    raise AssertionError(
+                        f"phase 16 {field}: the overlap solve's {name} "
+                        f"differs from one device's after {OVERLAP_ITERS} "
+                        "iterations")
+        return check
+
+    def same_gf2_file(res, solver, vp):
+        kpath = write_kernel(res, solver, 2,
+                             os.path.join(WORK, "overlap_gf2.kernel.mtx"))
+        if res.iterations != gres.iterations or \
+                not same_bytes(kpath, kfiles["bench-gf2-n128"]):
+            raise AssertionError("phase 16 gf2: the overlap solve's kernel "
+                                 "file differs from phase 6's")
+        checker.check_kernel_file(mtx, kpath, 2)
+
+    overlap_solves(
+        torch.device("cuda", torch.cuda.current_device()),
+        [("gf2", M2, 128, None, same_gf2_file),
+         ("narrow", M, 4, OVERLAP_ITERS, same_vp("narrow")),
+         ("wide", Mw, 4, OVERLAP_ITERS, same_vp("wide"))], card, mesh13)
+    oc = mesh_out["overlap_counts"]
+    for field in ("narrow", "gf2", "wide"):
+        mv, mp, mit, mits, msecs = mesh_out["overlap", field]
+        rv, rp = ref_vp[field]
+        assert mit == mits == MESH_ITERS, (field, mit, mits)
+        if not (np.array_equal(mv, rv) and np.array_equal(mp, rp)):
+            raise AssertionError(f"phase 16 {field} on 2 x 2 with overlap: "
+                                 "v or p differs from the one-device solver's "
+                                 f"after {MESH_ITERS} iterations")
+        print(f"  {field} on 2 x 2 (gloo, 4 ranks on one card) with overlap: "
+              f"v and p equal to one device's after {MESH_ITERS} iterations; "
+              f"the loop took {msecs:.1f} s (not a multi-GPU speed)",
+              flush=True)
+    for spmv, *_, coll in MESH_KERNELS.values():
+        assert oc[coll] == 5 * MESH_ITERS, oc
+        assert oc[spmv] >= 4 * MESH_ITERS, oc
+    print(f"  rank 0's launches in the 2 x 2 overlap solves: {oc}",
+          flush=True)
+    run_profilers(fresh["narrow"], card)
+    print(f"  phase 16 took {time.time() - t16:.1f} s", flush=True)
 
     # ---- phase 11: summary (last) -------------------------------------------
     counts.update(gcounts)

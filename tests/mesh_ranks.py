@@ -86,17 +86,18 @@ def _skew_grams(real):
 @contextlib.contextmanager
 def _bound_forms_only(calls):
     """Within the block each call of a bound form (C.PsumMod, PsumModWide,
-    Pxor) adds one to calls[its class name], and a summing
-    torch.distributed.all_reduce raises unless a bound form made it (the
-    loop's agreement on its clock, a MAX, passes)."""
-    real_call, real_all_reduce = C._BoundSum.__call__, dist.all_reduce
+    Pxor; whole, or started for the overlap step to finish later) adds one
+    to calls[its class name], and a summing torch.distributed.all_reduce
+    raises unless a bound form's `start` made it (the loop's agreement on
+    its clock, a MAX, passes)."""
+    real_start, real_all_reduce = C._BoundSum.start, dist.all_reduce
     inside = []
 
     def counted(self, x):
         calls[type(self).__name__] = calls.get(type(self).__name__, 0) + 1
         inside.append(self)
         try:
-            return real_call(self, x)
+            return real_start(self, x)
         finally:
             inside.pop()
 
@@ -104,12 +105,12 @@ def _bound_forms_only(calls):
         if op == dist.ReduceOp.SUM and not inside:
             raise RuntimeError("the step summed outside a bound form")
         return real_all_reduce(tensor, op=op, **kwargs)
-    C._BoundSum.__call__ = counted
+    C._BoundSum.start = counted
     dist.all_reduce = all_reduce
     try:
         yield
     finally:
-        C._BoundSum.__call__ = real_call
+        C._BoundSum.start = real_start
         dist.all_reduce = real_all_reduce
 
 
@@ -132,10 +133,15 @@ def _ranks(task):
 
 
 def _run(task, grid):
-    solver = SOLVERS[task["field"]](
-        _matrix(task), n=task["n"], right=task.get("right", False),
-        grid=grid, check_invariants=task.get("check", True),
-        sync_every=task.get("sync_every"))
+    try:
+        solver = SOLVERS[task["field"]](
+            _matrix(task), n=task["n"], right=task.get("right", False),
+            grid=grid, pad_multiple=task.get("pad_multiple", 8),
+            check_invariants=task.get("check", True),
+            sync_every=task.get("sync_every"),
+            overlap=task.get("overlap", False))
+    except ValueError as e:     # the same on every rank: no collective ran
+        return _errors(str(e), grid)
     iterates = []
 
     def capture(slv, iteration, v, p_blk, start):
@@ -163,24 +169,32 @@ def _run(task, grid):
         out = dict(error=str(e))
     finally:
         D.gram_mod = real
-    if "error" in out:          # every member's message, at the root
-        errors = [None] * grid.size
-        dist.all_gather_object(errors, out["error"], group=grid.group)
-        out["errors"] = errors
+    if "error" in out:
+        out = _errors(out["error"], grid)
     return out
+
+
+def _errors(message, grid):
+    """A failed solve's result: every member's message, at the root."""
+    errors = [None] * grid.size
+    dist.all_gather_object(errors, message, group=grid.group)
+    return dict(error=message, errors=errors)
 
 
 def solve_job(rank, world, device, tasks):
     """Each task (a dict) on its own grid: grid (R, C) over `ranks`
     (default the first R * C), field, matrix (a path or (nrows, ncols, i,
-    j, x)), prime, n, and optionally right, stop_after, sync_every,
-    resume, check, capture (the whole (v, p) in true order after every
-    block), skew_gram (a narrow Gram made non-symmetric on every rank: the
-    invariant check must fail on all of them), count_bound (the module
+    j, x)), prime, n, and optionally right, pad_multiple, stop_after,
+    sync_every, resume, check, overlap, capture (the whole (v, p) in true
+    order after every block), skew_gram (a narrow Gram made non-symmetric
+    on every rank: the invariant check must fail on all of them),
+    count_bound (the module
     collectives refused during the solve, the bound forms' calls counted
     in the result's bound_calls).  Consecutive tasks on
     disjoint ranks run side by side.  Returns the tasks' result dicts at
-    rank 0; a failed solve's dict holds every member rank's message."""
+    rank 0; a failed solve's dict (an AssertionError in the solve, a
+    ValueError in the solver's constructor) holds every member rank's
+    message."""
     mine = {}
     for round_ in _rounds(tasks):
         grids = [make_grid(*tasks[k]["grid"], device, ranks=_ranks(tasks[k]))
@@ -219,15 +233,25 @@ def sleeping_job(rank, world, device):
 
 
 def cli_job(rank, world, device, cases):
-    """cases: (argv, (R, C)); each runs the CLI's solve as one rank of an
-    R x C grid over the whole world (rank 0 writes the kernel file).
+    """cases: (argv, (R, C)) or (argv, (R, C), ranks); each runs the CLI's
+    solve as one rank of an R x C grid over `ranks` (default the whole
+    world; they must include rank 0, which writes the kernel file).
     Returns every case's exit code at rank 0."""
     from block_lanczos_tpu_torch.utils import cli
     rcs = []
-    for argv, (R, C_) in cases:
+    for argv, (R, C_), *ranks in cases:
         args = cli.build_parser().parse_args(argv)
-        rcs.append(cli._solve(args, make_grid(R, C_, device)))
+        grid = make_grid(R, C_, device, ranks=ranks[0] if ranks else None)
+        rcs.append(None if grid is None else cli._solve(args, grid))
     return rcs if rank == 0 else None
+
+
+def sequence_job(rank, world, device, jobs):
+    """jobs: (the name of a job function of this module, its arguments),
+    run one after another in this world; returns their results at rank
+    0."""
+    out = [globals()[name](rank, world, device, *args) for name, args in jobs]
+    return out if rank == 0 else None
 
 
 def checkpoint_job(rank, world, device, tasks):
@@ -287,3 +311,4 @@ def checkpoint_job(rank, world, device, tasks):
                             ranks=every))
     multihost.barrier()
     return (out, world_view) if rank == 0 else None
+

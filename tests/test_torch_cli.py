@@ -1,9 +1,9 @@
 """The port's CLI: byte-identical kernel files on the CPU (narrow field and
 GF(2), salvage and --no-dedup against the JAX package's CLI), the
-checkpoint flags running (their checks: test_torch_checkpoint*.py), and
-honest refusals (exit code 2) for the path this port does not cover yet
-(--overlap) and for mesh flags that cannot run (the mesh's own runs:
-test_torch_mesh_fields)."""
+checkpoint flags and --overlap running (their checks:
+test_torch_checkpoint*.py, test_torch_mesh_overlap.py), and honest
+refusals (exit code 2) for mesh flags that cannot run (the mesh's own
+runs: test_torch_mesh_fields)."""
 
 import os
 
@@ -32,17 +32,15 @@ def test_cli_writes_the_golden_byte_for_byte(tmp_path, name, prime, n, side):
     assert checker.main(args + ([side] if side == "--right" else [])) == 0
 
 
-NOT_YET = "is not supported by this port yet"
-# (the arguments, the message): the flags of later slices, and the mesh and
-# multi-host flags where they cannot run (too many CUDA ranks for this or
-# any host, a process index out of range, a multi-host flag without its
-# rendezvous); each exits 2 before the matrix is loaded
+# (the arguments, the message): the mesh and multi-host flags where they
+# cannot run (too many CUDA ranks for this or any host, a process index out
+# of range, a multi-host flag without its rendezvous); each exits 2 before
+# the matrix is loaded
 REFUSED = [
     (["--devices", "4096", "--device", "cuda"],
      "4096 ranks on this host need 4096 CUDA devices"),
     (["--grid", "64", "64", "--device", "cuda"],
      "4096 ranks on this host need 4096 CUDA devices"),
-    (["--overlap"], f"--overlap {NOT_YET}"),
     (["--coordinator", "localhost:1234", "--process-id", "3"],
      "--process-id 3 is not in [0, 1)"),
     (["--num-processes", "2"], "--num-processes needs --coordinator"),
@@ -62,6 +60,27 @@ def test_cli_refuses_paths_of_later_slices(extra, message, tmp_path, capsys):
                    "65537", "--n", "4", "--device", "cpu", *extra])
     assert rc == 2
     assert message in capsys.readouterr().err
+
+
+# --overlap, refused by earlier slices: alone (the mesh over every device:
+# one gloo rank on the CPU) and with --single, which ignores it
+OVERLAP_FLAGS = [(["--overlap"], "sharded 1x1"),
+                 (["--overlap", "--single"], "Block Lanczos\n")]
+OVERLAP_IDS = ["--overlap", "overlap-and-single"]
+
+
+@pytest.mark.parametrize("extra,header", OVERLAP_FLAGS, ids=OVERLAP_IDS)
+def test_cli_runs_the_overlap_flag(extra, header, tmp_path, capfd):
+    """The run writes the golden; its header (the rank's own output on the
+    mesh) says which solver ran."""
+    name = "left_p65537_n4"
+    out = tmp_path / "kernel.mtx"
+    assert cli.main(["--matrix", os.path.join(GOLDEN, f"{name}.mtx"),
+                     "--prime", "65537", "--n", "4", "--device", "cpu",
+                     "--output-file", str(out), *extra]) == 0
+    assert header in capfd.readouterr().out
+    with open(os.path.join(GOLDEN, f"{name}.kernel.mtx"), "rb") as fh:
+        assert out.read_bytes() == fh.read()
 
 
 # the checkpoint flags, refused by earlier slices, with what each run
