@@ -26,8 +26,9 @@ values and change nothing.  Zero padding rows stay zero through every phase.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -41,6 +42,7 @@ from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
                                                       empty_outputs,
                                                       new_state,
                                                       semi_inverse)
+from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
@@ -232,9 +234,11 @@ def check_invariants(p: int, vtAv, vtAAv, winv, d):
 
 
 def final_check(v, vtM, n_rows: int, m_rows: int, verbose: bool = True):
-    """End-of-run self check: v != 0 and v^T*M == 0."""
-    v_nonzero = bool((v[:n_rows] != 0).any())
-    product_zero = bool((vtM[:m_rows] == 0).all())
+    """End-of-run self check (span final.check): v != 0 and v^T*M == 0,
+    on tensors or NumPy arrays."""
+    with profiling.span("final.check"):
+        v_nonzero = bool((v[:n_rows] != 0).any())
+        product_zero = bool((vtM[:m_rows] == 0).all())
     if verbose:
         print("Final check:")
         print(f"  - {'OK:    v != 0' if v_nonzero else 'KO:    v == 0'}")
@@ -250,9 +254,77 @@ _ADAPT_CAP, _ADAPT_TARGET_S = 1024, 0.25
 PAD_MULTIPLE = 8  # vector blocks are zero-padded to a multiple of 8 rows
 
 
+def multi_step(step: Callable[[], object], state: torch.Tensor):
+    """blocked_solve_loop's multi_step for a solver: k calls of `step()`
+    (one iteration each, on the solver's blocks) issued without a sync
+    (span block.issue), then the one sync, reading the latched state
+    (block.sync).  Returns multi_step(k) -> (k_done, stop, inv_ok), k_done
+    counted from the state's k_done since the previous block."""
+    seen = [0]
+
+    def run(k: int):
+        with profiling.span("block.issue"):
+            for _ in range(k):
+                step()
+        with profiling.span("block.sync"):
+            stop, inv_ok, k_total, _ = state.tolist()
+        k_done, seen[0] = k_total - seen[0], k_total
+        return k_done, bool(stop), bool(inv_ok)
+    return run
+
+
+def start_blocks(solver, resume_state: dict | None):
+    """(v, p, the iteration it starts at) of a solver's solve(): v0 from
+    `solver.initial_block()` (span solve.v0) and p zero, or the blocks of
+    a resume_state through `solver._resume_block` (solve.resume)."""
+    if resume_state is None:
+        with profiling.span("solve.v0"):
+            v = solver.initial_block()
+        return v, torch.zeros_like(v), 0
+    with profiling.span("solve.resume"):
+        return (solver._resume_block(resume_state, "v"),
+                solver._resume_block(resume_state, "p"),
+                int(resume_state["iteration"]))
+
+
+def block_callback(solver, on_iteration, v, p_blk):
+    """blocked_solve_loop's on_iteration for solve()'s
+    `on_iteration(solver, iteration, v, p_blk, start)`; None without
+    one."""
+    if on_iteration is None:
+        return None
+    return lambda iteration, start: on_iteration(solver, iteration, v, p_blk,
+                                                 start)
+
+
+class LoopResult(NamedTuple):
+    """What blocked_solve_loop returns: `iterations` as the reference
+    counts them; `elapsed` the loop's seconds by perf_counter; `issued`
+    the iterations the blocks ran on the device, `done` those that ran
+    unhalted (the stopping probe included), `blocks` the host syncs."""
+    iterations: int
+    stopped_by_limit: bool
+    elapsed: float
+    issued: int
+    done: int
+    blocks: int
+
+    def solve_attrs(self, launches_before: dict, launches_after: dict
+                    ) -> dict:
+        """The `solve` span's attributes: the loop's counts and each
+        kernel wrapper's launches over the solve an issued iteration."""
+        per = {k: (n - launches_before[k]) / self.issued
+               for k, n in launches_after.items()
+               if n != launches_before[k]} if self.issued else {}
+        return dict(iterations=self.iterations,
+                    iterations_issued=self.issued,
+                    iterations_done=self.done, blocks=self.blocks,
+                    launches_per_iteration=per)
+
+
 def blocked_solve_loop(multi_step, start_iter: int, stop_after: int,
                        sync_every: int | None, on_iteration=None,
-                       inv_fail=None, agree=None):
+                       inv_fail=None, agree=None) -> LoopResult:
     """The driver loop: blocks of device-side iterations + one host sync.
 
     multi_step(k) runs k iterations without a sync, then syncs once and
@@ -264,34 +336,55 @@ def blocked_solve_loop(multi_step, start_iter: int, stop_after: int,
     fires once per block as on_iteration(n_iterations, start).  agree
     (the mesh solvers) maps a block's seconds to the time every rank
     decides the next block's length by, so that all ranks run blocks of
-    the same length.  Returns (n_iterations, stopped_by_limit, start_time).
+    the same length.  `start`, given to on_iteration, is the loop's start
+    in epoch seconds (the ETA and the checkpoint manifest read it so).
+    Records the spans solve.loop and, a block, `block`
+    (attributes `issued` and `done`) around block.callback and block.agree,
+    and the counters iterations_issued, iterations_done and blocks.
     """
     start = time.time()
+    t_start = time.perf_counter()
     n_iterations = start_iter
     stopped_by_limit = False
     block = sync_every or 1
-    while True:
-        remaining = stop_after - n_iterations if stop_after > 0 else block
-        if remaining <= 0:
-            stopped_by_limit = True
-            break
-        t_blk = time.time()
-        k_done, stop, inv_ok = multi_step(min(block, remaining))
-        if inv_fail is not None and not inv_ok:
-            inv_fail(n_iterations + k_done)
-            raise AssertionError("device invariant check failed")
-        # the stopping probe iteration is not counted (the reference breaks
-        # before incrementing, sequential/lanczos_modp.c:649-656)
-        n_iterations += k_done - (1 if stop else 0)
-        if on_iteration is not None:
-            on_iteration(n_iterations, start)
-        if stop:
-            break
-        if sync_every is None and block < _ADAPT_CAP:
-            t_blk = time.time() - t_blk
-            if (t_blk if agree is None else agree(t_blk)) < _ADAPT_TARGET_S:
-                block *= 2
-    return n_iterations, stopped_by_limit, start
+    issued = done = blocks = 0
+    with profiling.span("solve.loop"):
+        while True:
+            remaining = stop_after - n_iterations if stop_after > 0 \
+                else block
+            if remaining <= 0:
+                stopped_by_limit = True
+                break
+            with profiling.span("block") as blk:
+                k = min(block, remaining)
+                t_blk = time.perf_counter()
+                k_done, stop, inv_ok = multi_step(k)
+                issued, done, blocks = issued + k, done + k_done, blocks + 1
+                blk.set(issued=k, done=k_done)
+                profiling.count("iterations_issued", k)
+                profiling.count("iterations_done", k_done)
+                profiling.count("blocks")
+                if inv_fail is not None and not inv_ok:
+                    inv_fail(n_iterations + k_done)
+                    raise AssertionError("device invariant check failed")
+                # the stopping probe iteration is not counted (the
+                # reference breaks before incrementing,
+                # sequential/lanczos_modp.c:649-656)
+                n_iterations += k_done - (1 if stop else 0)
+                if on_iteration is not None:
+                    with profiling.span("block.callback"):
+                        on_iteration(n_iterations, start)
+                if stop:
+                    break
+                if sync_every is None and block < _ADAPT_CAP:
+                    t_blk = time.perf_counter() - t_blk
+                    if agree is not None:
+                        with profiling.span("block.agree"):
+                            t_blk = agree(t_blk)
+                    if t_blk < _ADAPT_TARGET_S:
+                        block *= 2
+    return LoopResult(n_iterations, stopped_by_limit,
+                      time.perf_counter() - t_start, issued, done, blocks)
 
 
 @dataclasses.dataclass
@@ -326,7 +419,11 @@ class BlockLanczos:
         self.right = bool(right)
         self.check_invariants = bool(check_invariants)
         self.sync_every = sync_every
-        self.sp = spmm.SpMatrix.from_coo(self.f, M).to(self.device)
+        with profiling.span("layout", field=self.field):
+            with profiling.span("layout.build"):
+                sp = spmm.SpMatrix.from_coo(self.f, M)
+            with profiling.span("layout.upload"):
+                self.sp = sp.to(self.device)
         # effective dimensions: the kernel vector lives on N_eff
         self.n_eff = M.ncols if right else M.nrows
         self.m_eff = M.nrows if right else M.ncols
@@ -339,10 +436,13 @@ class BlockLanczos:
 
     def initial_block(self) -> torch.Tensor:
         """v0: xoshiro row-major over n_eff*n entries, zero-padded."""
-        block = self._rng.fill_mod(self.n_eff * self.n, self.f.p)
-        v0 = np.zeros((self.np_rows, self.n), np.int32)
-        v0[:self.n_eff] = block.reshape(self.n_eff, self.n)
-        return torch.from_numpy(v0).to(self.device)
+        with profiling.span("v0.draw"):
+            block = self._rng.fill_mod(self.n_eff * self.n, self.f.p)
+        with profiling.span("v0.pack"):
+            v0 = np.zeros((self.np_rows, self.n), np.int32)
+            v0[:self.n_eff] = block.reshape(self.n_eff, self.n)
+        with profiling.span("v0.upload"):
+            return torch.from_numpy(v0).to(self.device)
 
     def workspace(self) -> dict:
         """The iteration's buffers (iteration_step's `ws`): tmp, and on
@@ -374,63 +474,53 @@ class BlockLanczos:
         dict (NumPy or tensors, optionally with `rowmap`), e.g. from
         convert.state_from_numpy.
         """
-        f = self.f
-        if resume_state is None:
-            v = self.initial_block()
-            p_blk = torch.zeros((self.np_rows, self.n), dtype=torch.int32,
-                                device=self.device)
-            start_iter = 0
-        else:
-            v = self._resume_block(resume_state, "v")
-            p_blk = self._resume_block(resume_state, "p")
-            start_iter = int(resume_state["iteration"])
+        with profiling.span("solve", field=self.field) as sp:
+            # the wrappers' launch counters, read only while recording
+            launches = None if sp is profiling.NOOP else launch_counts()
+            v, p_blk, start_iter = start_blocks(self, resume_state)
+            if verbose:
+                print("Block Lanczos")
+                print(f"  - Expecting {self.expected_iterations} iterations")
+                print("  - Main loop")
+            with profiling.span("solve.prepare"):
+                if self.device.type == "cuda":
+                    kernels.load_all()
+                state = new_state(self.device)
+                ws = self.workspace()
+            f = self.f
+
+            def inv_fail(iteration):
+                # reproduce the precise failing assertion on the host
+                n = self.n
+                grams, si = ws["grams"], ws["si"]
+                check_invariants(f.p, grams[:n], grams[n:], si.winv, si.d)
+
+            loop = blocked_solve_loop(
+                multi_step(functools.partial(
+                    iteration_step, f, self.mp_rows, self.np_rows,
+                    self.check_invariants, self.first_op, self.second_op, v,
+                    p_blk, state, ws), state),
+                start_iter, stop_after, self.sync_every,
+                on_iteration=block_callback(self, on_iteration, v, p_blk),
+                inv_fail=inv_fail if self.check_invariants else None)
+            if launches is not None:
+                sp.set(**loop.solve_attrs(launches, launch_counts()))
+            tmp = ws["tmp"]
+            v_nonzero = product_zero = None
+            vtM = None
+            with profiling.span("solve.final"):
+                if not loop.stopped_by_limit:
+                    v_nonzero, product_zero = final_check(
+                        v, tmp, self.n_eff, self.m_eff, verbose)
+                with profiling.span("final.download"):
+                    if product_zero is False:
+                        vtM = tmp[:self.m_eff].cpu().numpy().astype(
+                            np.uint32)
+                    kernel = v[:self.n_eff].cpu().numpy().astype(np.uint32)
         if verbose:
-            print("Block Lanczos")
-            print(f"  - Expecting {self.expected_iterations} iterations")
-            print("  - Main loop")
-
-        if self.device.type == "cuda":
-            kernels.load_all()
-        state = new_state(self.device)
-        ws = self.workspace()
-        k_seen = [0]
-
-        def multi_step(k: int):
-            for _ in range(k):
-                iteration_step(f, self.mp_rows, self.np_rows,
-                               self.check_invariants, self.first_op,
-                               self.second_op, v, p_blk, state, ws)
-            stop, inv_ok, k_total, _ = state.tolist()   # the one sync
-            k_done, k_seen[0] = k_total - k_seen[0], k_total
-            return k_done, bool(stop), bool(inv_ok)
-
-        def inv_fail(iteration):
-            # reproduce the precise failing assertion on the host
-            n = self.n
-            grams, si = ws["grams"], ws["si"]
-            check_invariants(f.p, grams[:n], grams[n:], si.winv, si.d)
-
-        def on_block(iteration, start):
-            on_iteration(self, iteration, v, p_blk, start)
-
-        n_iterations, stopped_by_limit, start = blocked_solve_loop(
-            multi_step, start_iter, stop_after, self.sync_every,
-            on_iteration=None if on_iteration is None else on_block,
-            inv_fail=inv_fail if self.check_invariants else None)
-        elapsed = time.time() - start
-        tmp = ws["tmp"]
-        v_nonzero = product_zero = None
-        vtM = None
-        if not stopped_by_limit:
-            v_nonzero, product_zero = final_check(
-                v, tmp, self.n_eff, self.m_eff, verbose)
-            if product_zero is False:
-                vtM = tmp[:self.m_eff].cpu().numpy().astype(np.uint32)
-        if verbose:
-            print(f"  - Terminated in {elapsed:.1f}s after "
-                  f"{n_iterations} iterations")
-        kernel = v[:self.n_eff].cpu().numpy().astype(np.uint32)
-        return SolveResult(kernel=kernel, iterations=n_iterations,
+            print(f"  - Terminated in {loop.elapsed:.1f}s after "
+                  f"{loop.iterations} iterations")
+        return SolveResult(kernel=kernel, iterations=loop.iterations,
                            v_nonzero=v_nonzero, product_zero=product_zero,
-                           elapsed=elapsed, stopped_by_limit=stopped_by_limit,
-                           vtM=vtM)
+                           elapsed=loop.elapsed,
+                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)

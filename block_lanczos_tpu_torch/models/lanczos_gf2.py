@@ -24,7 +24,7 @@ block recomputes the same values.  Zero padding rows stay zero throughout.
 from __future__ import annotations
 
 import dataclasses
-import time
+import functools
 from typing import Callable
 
 import numpy as np
@@ -32,15 +32,18 @@ import torch
 
 from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.models.lanczos import (PAD_MULTIPLE, SolveResult,
+                                                    block_callback,
                                                     blocked_solve_loop,
+                                                    final_check, multi_step,
                                                     pad_rows, resolve_device,
-                                                    resume_rows)
+                                                    resume_rows, start_blocks)
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.ops.gf2 import (WORD, colmask, gram_gf2,
                                              matmul_gf2, semi_inverse_gf2)
 from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
                                                       STOP, new_state)
 from block_lanczos_tpu_torch.ops.spmm import _check_args, build_hybrid_arrays
+from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
@@ -336,26 +339,34 @@ class BlockLanczosGF2:
         self.right = bool(right)
         self.check_invariants = bool(check_invariants)
         self.sync_every = sync_every
-        odd = (np.asarray(M.x) & 1) == 1
-        i, j = M.i[odd], M.j[odd]
-        if dedup:
-            i, j, nrows_eff, ncols_eff, n_dup, n_empty = gf2.dedup_lines(
-                i, j, M.nrows, M.ncols, right)
-        else:
-            nrows_eff, ncols_eff, n_dup, n_empty = (M.nrows, M.ncols, 0, 0)
+        with profiling.span("layout", field=self.field):
+            odd = (np.asarray(M.x) & 1) == 1
+            i, j = M.i[odd], M.j[odd]
+            if dedup:
+                with profiling.span("layout.dedup"):
+                    i, j, nrows_eff, ncols_eff, n_dup, n_empty = \
+                        gf2.dedup_lines(i, j, M.nrows, M.ncols, right)
+            else:
+                nrows_eff, ncols_eff, n_dup, n_empty = (M.nrows, M.ncols, 0,
+                                                        0)
+            l2 = (torch.cuda.get_device_properties(self.device).L2_cache_size
+                  if self.device.type == "cuda" else None)
+            # each direction as a tuple of column bands (spmv_gf2)
+            with profiling.span("layout.build"):
+                fwd, bwd = (make_gf2_bands(o, c, out_dim, in_dim,
+                                           choose_bands(in_dim, self.W, l2))
+                            for o, c, out_dim, in_dim in (
+                                (i, j, nrows_eff, ncols_eff),
+                                (j, i, ncols_eff, nrows_eff)))
+            with profiling.span("layout.upload"):
+                fwd, bwd = (tuple(b.to(self.device) for b in bands)
+                            for bands in (fwd, bwd))
         self.dedup_dropped = (n_dup, n_empty)
         self.nnz = len(i)
         self.n_eff = ncols_eff if right else nrows_eff
         self.m_eff = nrows_eff if right else ncols_eff
         self.np_rows = pad_rows(self.n_eff, pad_multiple)
         self.mp_rows = pad_rows(self.m_eff, pad_multiple)
-        l2 = (torch.cuda.get_device_properties(self.device).L2_cache_size
-              if self.device.type == "cuda" else None)
-        # each direction as a tuple of column bands (spmv_gf2)
-        fwd, bwd = (tuple(b.to(self.device) for b in make_gf2_bands(
-            o, c, out_dim, in_dim, choose_bands(in_dim, self.W, l2)))
-            for o, c, out_dim, in_dim in ((i, j, nrows_eff, ncols_eff),
-                                          (j, i, ncols_eff, nrows_eff)))
         self.first_op = fwd if right else bwd
         self.second_op = bwd if right else fwd
         self.expected_iterations = 1 + self.m_eff // self.n
@@ -364,11 +375,14 @@ class BlockLanczosGF2:
     def initial_block(self) -> torch.Tensor:
         """v0 bits from the same xoshiro stream: random64() % 2 per entry,
         row-major over n_eff * n, packed and zero-padded."""
-        bits = self._rng.fill_mod(self.n_eff * self.n, 2)
-        block = np.zeros((self.np_rows, self.n), np.uint32)
-        block[:self.n_eff] = bits.reshape(self.n_eff, self.n)
-        v0 = gf2.pack_bits_np(block).view(np.int32)
-        return torch.from_numpy(v0).to(self.device)
+        with profiling.span("v0.draw"):
+            bits = self._rng.fill_mod(self.n_eff * self.n, 2)
+        with profiling.span("v0.pack"):
+            block = np.zeros((self.np_rows, self.n), np.uint32)
+            block[:self.n_eff] = bits.reshape(self.n_eff, self.n)
+            v0 = gf2.pack_bits_np(block).view(np.int32)
+        with profiling.span("v0.upload"):
+            return torch.from_numpy(v0).to(self.device)
 
     def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
         arr = resume_rows(resume_state, name, self.np_rows, self.W)
@@ -388,76 +402,66 @@ class BlockLanczosGF2:
         convert.gf2_state_from_numpy.
         """
         n, W = self.n, self.W
-        if resume_state is None:
-            v = self.initial_block()
-            p_blk = torch.zeros((self.np_rows, W), dtype=torch.int32,
-                                device=self.device)
-            start_iter = 0
-        else:
-            v = self._resume_block(resume_state, "v")
-            p_blk = self._resume_block(resume_state, "p")
-            start_iter = int(resume_state["iteration"])
-        if verbose:
-            print("Block Lanczos [GF(2) bitsliced]")
-            if any(self.dedup_dropped):
-                nd, ne = self.dedup_dropped
-                print(f"  - GF(2) dedup: dropped {nd} duplicate + {ne} "
-                      "empty lines (operator rank restoration)")
-            print(f"  - Expecting {self.expected_iterations} iterations")
-            print("  - Main loop")
-
-        state = new_state(self.device)
-        ws = {"tmp": torch.zeros((self.mp_rows, W), dtype=torch.int32,
-                                 device=self.device)}
-        if self.device.type == "cuda":
-            kernels.load_all()
-            ws["av"] = torch.empty((self.np_rows, W), dtype=torch.int32,
-                                   device=self.device)
-            ws["grams"] = torch.empty((2 * n, W), dtype=torch.int32,
-                                      device=self.device)
-            ws["si"] = gf2.empty_outputs(n, self.device)
-        k_seen = [0]
-
-        def multi_step(k: int):
-            for _ in range(k):
-                iteration_step(n, self.mp_rows, self.np_rows,
-                               self.check_invariants, self.first_op,
-                               self.second_op, v, p_blk, state, ws)
-            stop, inv_ok, k_total, _ = state.tolist()   # the one sync
-            k_done, k_seen[0] = k_total - k_seen[0], k_total
-            return k_done, bool(stop), bool(inv_ok)
-
-        def inv_fail(iteration):
-            raise AssertionError(
-                f"device invariant check failed (GF2) at iteration "
-                f"~{iteration}")
-
-        def on_block(iteration, start):
-            on_iteration(self, iteration, v, p_blk, start)
-
-        n_iterations, stopped_by_limit, start = blocked_solve_loop(
-            multi_step, start_iter, stop_after, self.sync_every,
-            on_iteration=None if on_iteration is None else on_block,
-            inv_fail=inv_fail if self.check_invariants else None)
-        elapsed = time.time() - start
-        v_bits = gf2.unpack_bits_np(v.cpu().numpy(), n)
-        v_nonzero = product_zero = None
-        vtM = None
-        if not stopped_by_limit:
-            tmp_bits = gf2.unpack_bits_np(ws["tmp"].cpu().numpy(), n)
-            v_nonzero = bool((v_bits[:self.n_eff] != 0).any())
-            product_zero = bool((tmp_bits[:self.m_eff] == 0).all())
-            if not product_zero:
-                vtM = tmp_bits[:self.m_eff]
+        with profiling.span("solve", field=self.field) as sp:
+            # the wrappers' launch counters, read only while recording
+            launches = None if sp is profiling.NOOP else launch_counts()
+            v, p_blk, start_iter = start_blocks(self, resume_state)
             if verbose:
-                print("Final check:")
-                print(f"  - {'OK:    v != 0' if v_nonzero else 'KO:    v == 0'}")
-                print(f"  - {'OK: vt*M == 0' if product_zero else 'KO: vt*M != 0'}")
+                print("Block Lanczos [GF(2) bitsliced]")
+                if any(self.dedup_dropped):
+                    nd, ne = self.dedup_dropped
+                    print(f"  - GF(2) dedup: dropped {nd} duplicate + {ne} "
+                          "empty lines (operator rank restoration)")
+                print(f"  - Expecting {self.expected_iterations} iterations")
+                print("  - Main loop")
+            with profiling.span("solve.prepare"):
+                state = new_state(self.device)
+                ws = {"tmp": torch.zeros((self.mp_rows, W), dtype=torch.int32,
+                                         device=self.device)}
+                if self.device.type == "cuda":
+                    kernels.load_all()
+                    ws["av"] = torch.empty((self.np_rows, W),
+                                           dtype=torch.int32,
+                                           device=self.device)
+                    ws["grams"] = torch.empty((2 * n, W), dtype=torch.int32,
+                                              device=self.device)
+                    ws["si"] = gf2.empty_outputs(n, self.device)
+
+            def inv_fail(iteration):
+                raise AssertionError(
+                    f"device invariant check failed (GF2) at iteration "
+                    f"~{iteration}")
+
+            loop = blocked_solve_loop(
+                multi_step(functools.partial(
+                    iteration_step, n, self.mp_rows, self.np_rows,
+                    self.check_invariants, self.first_op, self.second_op, v,
+                    p_blk, state, ws), state),
+                start_iter, stop_after, self.sync_every,
+                on_iteration=block_callback(self, on_iteration, v, p_blk),
+                inv_fail=inv_fail if self.check_invariants else None)
+            if launches is not None:
+                sp.set(**loop.solve_attrs(launches, launch_counts()))
+            v_nonzero = product_zero = vtM = None
+            with profiling.span("solve.final"):
+                with profiling.span("final.download"):
+                    v_words = v.cpu().numpy()
+                    tmp_words = (None if loop.stopped_by_limit
+                                 else ws["tmp"].cpu().numpy())
+                with profiling.span("final.unpack"):
+                    v_bits = gf2.unpack_bits_np(v_words, n)
+                    tmp_bits = (None if tmp_words is None
+                                else gf2.unpack_bits_np(tmp_words, n))
+                if tmp_bits is not None:
+                    v_nonzero, product_zero = final_check(
+                        v_bits, tmp_bits, self.n_eff, self.m_eff, verbose)
+                    if not product_zero:
+                        vtM = tmp_bits[:self.m_eff]
         if verbose:
-            print(f"  - Terminated in {elapsed:.1f}s after "
-                  f"{n_iterations} iterations")
+            print(f"  - Terminated in {loop.elapsed:.1f}s after "
+                  f"{loop.iterations} iterations")
         return SolveResult(kernel=v_bits[:self.n_eff],
-                           iterations=n_iterations,
+                           iterations=loop.iterations,
                            v_nonzero=v_nonzero, product_zero=product_zero,
-                           elapsed=elapsed, stopped_by_limit=stopped_by_limit,
-                           vtM=vtM)
+                           elapsed=loop.elapsed,
+                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)

@@ -20,7 +20,7 @@ through every kernel.
 
 from __future__ import annotations
 
-import time
+import functools
 from typing import Callable
 
 import numpy as np
@@ -29,15 +29,19 @@ import torch
 from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.models.lanczos import (PAD_MULTIPLE,
                                                     SolveResult,
+                                                    block_callback,
                                                     blocked_solve_loop,
-                                                    final_check, pad_rows,
+                                                    final_check, multi_step,
+                                                    pad_rows,
                                                     resolve_device,
-                                                    resume_rows)
+                                                    resume_rows,
+                                                    start_blocks)
 from block_lanczos_tpu_torch.ops import gfp_wide as gw
 from block_lanczos_tpu_torch.ops import wide_ops as wo
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
                                                       STOP, new_state)
+from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
@@ -176,7 +180,11 @@ class BlockLanczosWide:
         self.right = bool(right)
         self.check_invariants = bool(check_invariants)
         self.sync_every = sync_every
-        self.sp = wo.wide_matrix_from_coo(self.f, M).to(self.device)
+        with profiling.span("layout", field=self.field):
+            with profiling.span("layout.build"):
+                sp = wo.wide_matrix_from_coo(self.f, M)
+            with profiling.span("layout.upload"):
+                self.sp = sp.to(self.device)
         self.nnz = M.nnz
         self.n_eff = M.ncols if right else M.nrows
         self.m_eff = M.nrows if right else M.ncols
@@ -190,10 +198,13 @@ class BlockLanczosWide:
     def initial_block(self) -> torch.Tensor:
         """v0: xoshiro random64() % p row-major over n_eff*n entries (all
         62 bits kept), zero-padded."""
-        block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
-        v0 = np.zeros((self.np_rows, self.n), np.int64)
-        v0[:self.n_eff] = block.reshape(self.n_eff, self.n)
-        return torch.from_numpy(v0).to(self.device)
+        with profiling.span("v0.draw"):
+            block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
+        with profiling.span("v0.pack"):
+            v0 = np.zeros((self.np_rows, self.n), np.int64)
+            v0[:self.n_eff] = block.reshape(self.n_eff, self.n)
+        with profiling.span("v0.upload"):
+            return torch.from_numpy(v0).to(self.device)
 
     def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
         arr = resume_rows(resume_state, name, self.np_rows, self.n)
@@ -216,68 +227,61 @@ class BlockLanczosWide:
         `kernel` and `vtM` are uint64.
         """
         f = self.f
-        if resume_state is None:
-            v = self.initial_block()
-            p_blk = torch.zeros((self.np_rows, self.n), dtype=torch.int64,
-                                device=self.device)
-            start_iter = 0
-        else:
-            v = self._resume_block(resume_state, "v")
-            p_blk = self._resume_block(resume_state, "p")
-            start_iter = int(resume_state["iteration"])
+        with profiling.span("solve", field=self.field) as sp:
+            # the wrappers' launch counters, read only while recording
+            launches = None if sp is profiling.NOOP else launch_counts()
+            v, p_blk, start_iter = start_blocks(self, resume_state)
+            if verbose:
+                print("Block Lanczos [wide field]")
+                print(f"  - Expecting {self.expected_iterations} iterations")
+                print("  - Main loop")
+            with profiling.span("solve.prepare"):
+                state = new_state(self.device)
+                ws = {"tmp": torch.zeros((self.mp_rows, self.n),
+                                         dtype=torch.int64,
+                                         device=self.device)}
+                if self.device.type == "cuda":
+                    kernels.load_all()
+                    ws["av"] = torch.empty((self.np_rows, self.n),
+                                           dtype=torch.int64,
+                                           device=self.device)
+                    ws["grams"] = torch.empty((2 * self.n, self.n),
+                                              dtype=torch.int64,
+                                              device=self.device)
+                    ws["si"] = wo.empty_outputs(self.n, self.device)
+
+            def inv_fail(iteration):
+                # reproduce the precise failing assertion on the host
+                n = self.n
+                grams, si = ws["grams"], ws["si"]
+                check_invariants(f.p, grams[:n], grams[n:], si.winv, si.d)
+
+            loop = blocked_solve_loop(
+                multi_step(functools.partial(
+                    iteration_step, f, self.mp_rows, self.np_rows,
+                    self.check_invariants, self.first_op, self.second_op, v,
+                    p_blk, state, ws), state),
+                start_iter, stop_after, self.sync_every,
+                on_iteration=block_callback(self, on_iteration, v, p_blk),
+                inv_fail=inv_fail if self.check_invariants else None)
+            if launches is not None:
+                sp.set(**loop.solve_attrs(launches, launch_counts()))
+            tmp = ws["tmp"]
+            v_nonzero = product_zero = None
+            vtM = None
+            with profiling.span("solve.final"):
+                if not loop.stopped_by_limit:
+                    v_nonzero, product_zero = final_check(
+                        v, tmp, self.n_eff, self.m_eff, verbose)
+                with profiling.span("final.download"):
+                    if product_zero is False:
+                        vtM = tmp[:self.m_eff].cpu().numpy().astype(
+                            np.uint64)
+                    kernel = v[:self.n_eff].cpu().numpy().astype(np.uint64)
         if verbose:
-            print("Block Lanczos [wide field]")
-            print(f"  - Expecting {self.expected_iterations} iterations")
-            print("  - Main loop")
-
-        state = new_state(self.device)
-        ws = {"tmp": torch.zeros((self.mp_rows, self.n), dtype=torch.int64,
-                                 device=self.device)}
-        if self.device.type == "cuda":
-            kernels.load_all()
-            ws["av"] = torch.empty((self.np_rows, self.n), dtype=torch.int64,
-                                   device=self.device)
-            ws["grams"] = torch.empty((2 * self.n, self.n), dtype=torch.int64,
-                                      device=self.device)
-            ws["si"] = wo.empty_outputs(self.n, self.device)
-        k_seen = [0]
-
-        def multi_step(k: int):
-            for _ in range(k):
-                iteration_step(f, self.mp_rows, self.np_rows,
-                               self.check_invariants, self.first_op,
-                               self.second_op, v, p_blk, state, ws)
-            stop, inv_ok, k_total, _ = state.tolist()   # the one sync
-            k_done, k_seen[0] = k_total - k_seen[0], k_total
-            return k_done, bool(stop), bool(inv_ok)
-
-        def inv_fail(iteration):
-            # reproduce the precise failing assertion on the host
-            n = self.n
-            grams, si = ws["grams"], ws["si"]
-            check_invariants(f.p, grams[:n], grams[n:], si.winv, si.d)
-
-        def on_block(iteration, start):
-            on_iteration(self, iteration, v, p_blk, start)
-
-        n_iterations, stopped_by_limit, start = blocked_solve_loop(
-            multi_step, start_iter, stop_after, self.sync_every,
-            on_iteration=None if on_iteration is None else on_block,
-            inv_fail=inv_fail if self.check_invariants else None)
-        elapsed = time.time() - start
-        tmp = ws["tmp"]
-        v_nonzero = product_zero = None
-        vtM = None
-        if not stopped_by_limit:
-            v_nonzero, product_zero = final_check(
-                v, tmp, self.n_eff, self.m_eff, verbose)
-            if product_zero is False:
-                vtM = tmp[:self.m_eff].cpu().numpy().astype(np.uint64)
-        if verbose:
-            print(f"  - Terminated in {elapsed:.1f}s after "
-                  f"{n_iterations} iterations")
-        kernel = v[:self.n_eff].cpu().numpy().astype(np.uint64)
-        return SolveResult(kernel=kernel, iterations=n_iterations,
+            print(f"  - Terminated in {loop.elapsed:.1f}s after "
+                  f"{loop.iterations} iterations")
+        return SolveResult(kernel=kernel, iterations=loop.iterations,
                            v_nonzero=v_nonzero, product_zero=product_zero,
-                           elapsed=elapsed, stopped_by_limit=stopped_by_limit,
-                           vtM=vtM)
+                           elapsed=loop.elapsed,
+                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)

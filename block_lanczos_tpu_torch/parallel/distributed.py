@@ -34,7 +34,7 @@ other fields' kernels and collectives.
 
 from __future__ import annotations
 
-import time
+import functools
 from typing import Callable
 
 import numpy as np
@@ -44,9 +44,11 @@ import torch.distributed as dist
 from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.models import lanczos as single
 from block_lanczos_tpu_torch.models.lanczos import (SolveResult,
+                                                    block_callback,
                                                     blocked_solve_loop,
-                                                    final_check,
-                                                    resume_rows)
+                                                    final_check, multi_step,
+                                                    resume_rows,
+                                                    start_blocks)
 from block_lanczos_tpu_torch.ops import spmm
 from block_lanczos_tpu_torch.ops.dense import gram_mod
 from block_lanczos_tpu_torch.ops.gfp import GFp
@@ -58,6 +60,7 @@ from block_lanczos_tpu_torch.parallel import sharding as shard_lib
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
 from block_lanczos_tpu_torch.parallel.multihost import (fetch_global,
                                                         put_global)
+from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
@@ -149,6 +152,16 @@ class _ShardedSolver:
         """This rank's rows-band of a (np_rows, width) band-layout block."""
         return put_global(padded, self.grid.r, self.grid.R, self.device)
 
+    def initial_block(self) -> torch.Tensor:
+        """This rank's band of v0 (the field's `_v0`, in the band
+        layout)."""
+        block = self._v0()
+        with profiling.span("v0.upload"):
+            return self._band(block)
+
+    def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
+        return self._band(self._state_block(resume_state, name))
+
     def gather_rows(self, t: torch.Tensor) -> np.ndarray:
         """A rows-split block (v, p, Av) in true row order, on every rank
         (collective over the rank's column of the grid)."""
@@ -173,55 +186,46 @@ class _ShardedSolver:
         `resume_state` is a {v, p, iteration} dict in TRUE row order
         (optionally with `rowmap`), as the single-device solvers take it.
         """
-        if resume_state is None:
-            v = self._band(self._v0())
-            p_blk = torch.zeros_like(v)
-            start_iter = 0
-        else:
-            v = self._band(self._state_block(resume_state, "v"))
-            p_blk = self._band(self._state_block(resume_state, "p"))
-            start_iter = int(resume_state["iteration"])
+        with profiling.span("solve", field=self.field) as sp:
+            # the wrappers' launch counters, read only while recording
+            launches = None if sp is profiling.NOOP else launch_counts()
+            v, p_blk, start_iter = start_blocks(self, resume_state)
+            if verbose:
+                R, C = self.grid.shape
+                mark = self.overlap_mark if self.overlap else ""
+                print(f"Block Lanczos [{self.label}sharded {R}x{C}{mark}]")
+                print(self.ops.stats.summary())
+                print(f"  - Expecting {self.expected_iterations} iterations")
+                print("  - Main loop")
+            with profiling.span("solve.prepare"):
+                if self.device.type == "cuda":
+                    kernels.load_all()
+                state = new_state(self.device)
+                ws = self._workspace()
+            loop = blocked_solve_loop(
+                multi_step(functools.partial(self._step, v, p_blk, state, ws),
+                           state),
+                start_iter, stop_after, self.sync_every,
+                on_iteration=block_callback(self, on_iteration, v, p_blk),
+                inv_fail=((lambda it: self._invariant_failure(ws, it))
+                          if self.check_invariants else None),
+                agree=lambda t: agree_max(t, self.grid))
+            if launches is not None:
+                sp.set(**loop.solve_attrs(launches, launch_counts()))
+            with profiling.span("solve.final"):
+                with profiling.span("final.gather"):
+                    v_true = self.gather_rows(v)
+                    tmp_true = (None if loop.stopped_by_limit
+                                else self.gather_cols(ws["tmp"]))
+                kernel, v_nonzero, product_zero, vtM = self._final(
+                    v_true, tmp_true, verbose)
         if verbose:
-            R, C = self.grid.shape
-            mark = self.overlap_mark if self.overlap else ""
-            print(f"Block Lanczos [{self.label}sharded {R}x{C}{mark}]")
-            print(self.ops.stats.summary())
-            print(f"  - Expecting {self.expected_iterations} iterations")
-            print("  - Main loop")
-        if self.device.type == "cuda":
-            kernels.load_all()
-        state = new_state(self.device)
-        ws = self._workspace()
-        k_seen = [0]
-
-        def multi_step(k: int):
-            for _ in range(k):
-                self._step(v, p_blk, state, ws)
-            stop, inv_ok, k_total, _ = state.tolist()   # the one sync
-            k_done, k_seen[0] = k_total - k_seen[0], k_total
-            return k_done, bool(stop), bool(inv_ok)
-
-        def on_block(iteration, start):
-            on_iteration(self, iteration, v, p_blk, start)
-
-        n_iterations, stopped_by_limit, start = blocked_solve_loop(
-            multi_step, start_iter, stop_after, self.sync_every,
-            on_iteration=None if on_iteration is None else on_block,
-            inv_fail=((lambda it: self._invariant_failure(ws, it))
-                      if self.check_invariants else None),
-            agree=lambda t: agree_max(t, self.grid))
-        elapsed = time.time() - start
-        v_true = self.gather_rows(v)
-        tmp_true = None if stopped_by_limit else self.gather_cols(ws["tmp"])
-        kernel, v_nonzero, product_zero, vtM = self._final(v_true, tmp_true,
-                                                           verbose)
-        if verbose:
-            print(f"  - Terminated in {elapsed:.1f}s after "
-                  f"{n_iterations} iterations")
-        return SolveResult(kernel=kernel, iterations=n_iterations,
+            print(f"  - Terminated in {loop.elapsed:.1f}s after "
+                  f"{loop.iterations} iterations")
+        return SolveResult(kernel=kernel, iterations=loop.iterations,
                            v_nonzero=v_nonzero, product_zero=product_zero,
-                           elapsed=elapsed, stopped_by_limit=stopped_by_limit,
-                           vtM=vtM)
+                           elapsed=loop.elapsed,
+                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)
 
 
 class ShardedBlockLanczos(_ShardedSolver):
@@ -248,15 +252,18 @@ class ShardedBlockLanczos(_ShardedSolver):
         self._rng = Xoshiro256Plus()
         part = (shard_lib.partition_matrix_overlap if overlap
                 else shard_lib.partition_matrix)
-        self._setup(grid, part(self.f, M, right, grid, pad_multiple), n,
-                    check_invariants, sync_every, overlap)
+        with profiling.span("layout", field=self.field):
+            ops = part(self.f, M, right, grid, pad_multiple)
+        self._setup(grid, ops, n, check_invariants, sync_every, overlap)
 
     def _v0(self) -> np.ndarray:
         """v0 over TRUE kernel rows (the sequential xoshiro block, bit-exact
         with the reference), scattered to the band layout."""
-        block = self._rng.fill_mod(self.n_eff * self.n, self.f.p)
-        return self.row_map.scatter(
-            block.reshape(self.n_eff, self.n).astype(np.int32))
+        with profiling.span("v0.draw"):
+            block = self._rng.fill_mod(self.n_eff * self.n, self.f.p)
+        with profiling.span("v0.pack"):
+            return self.row_map.scatter(
+                block.reshape(self.n_eff, self.n).astype(np.int32))
 
     def _state_block(self, resume_state: dict, name: str) -> np.ndarray:
         arr = resume_rows(resume_state, name, self.n_eff, self.n)

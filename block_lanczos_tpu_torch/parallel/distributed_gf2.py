@@ -19,12 +19,13 @@ import numpy as np
 import torch
 
 from block_lanczos_tpu_torch.models import lanczos_gf2 as lg
-from block_lanczos_tpu_torch.models.lanczos import resume_rows
+from block_lanczos_tpu_torch.models.lanczos import final_check, resume_rows
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.parallel import collectives
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
 from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
+from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
@@ -36,8 +37,9 @@ def _odd_entries(M: COOMatrix, right: bool, dedup: bool):
     mi, mj = M.i[odd], M.j[odd]
     if not dedup:
         return mi, mj, M.nrows, M.ncols, (0, 0)
-    mi, mj, nrows_eff, ncols_eff, n_dup, n_empty = gf2.dedup_lines(
-        mi, mj, M.nrows, M.ncols, right)
+    with profiling.span("layout.dedup"):
+        mi, mj, nrows_eff, ncols_eff, n_dup, n_empty = gf2.dedup_lines(
+            mi, mj, M.nrows, M.ncols, right)
     return mi, mj, nrows_eff, ncols_eff, (n_dup, n_empty)
 
 
@@ -100,15 +102,19 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
         self._rng = Xoshiro256Plus()
         part = (partition_matrix_overlap_gf2 if overlap
                 else partition_matrix_gf2)
-        ops, self.dedup_dropped = part(M, right, grid, W, pad_multiple, dedup)
+        with profiling.span("layout", field=self.field):
+            ops, self.dedup_dropped = part(M, right, grid, W, pad_multiple,
+                                           dedup)
         self.W = W
         self._setup(grid, ops, n, check_invariants, sync_every, overlap)
 
     def _v0(self) -> np.ndarray:
-        bits = self._rng.fill_mod(self.n_eff * self.n, 2)
-        block = self.row_map.scatter(
-            bits.reshape(self.n_eff, self.n).astype(np.uint32))
-        return gf2.pack_bits_np(block).view(np.int32)
+        with profiling.span("v0.draw"):
+            bits = self._rng.fill_mod(self.n_eff * self.n, 2)
+        with profiling.span("v0.pack"):
+            block = self.row_map.scatter(
+                bits.reshape(self.n_eff, self.n).astype(np.uint32))
+            return gf2.pack_bits_np(block).view(np.int32)
 
     def _state_block(self, resume_state: dict, name: str) -> np.ndarray:
         arr = resume_rows(resume_state, name, self.n_eff, self.W)
@@ -145,16 +151,14 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
                              f"at iteration ~{iteration}")
 
     def _final(self, v_true, tmp_true, verbose):
-        v_bits = gf2.unpack_bits_np(v_true, self.n)
+        with profiling.span("final.unpack"):
+            v_bits = gf2.unpack_bits_np(v_true, self.n)
+            tmp_bits = (None if tmp_true is None
+                        else gf2.unpack_bits_np(tmp_true, self.n))
         v_nonzero = product_zero = vtM = None
-        if tmp_true is not None:
-            tmp_bits = gf2.unpack_bits_np(tmp_true, self.n)
-            v_nonzero = bool((v_bits[:self.n_eff] != 0).any())
-            product_zero = bool((tmp_bits[:self.m_eff] == 0).all())
+        if tmp_bits is not None:
+            v_nonzero, product_zero = final_check(
+                v_bits, tmp_bits, self.n_eff, self.m_eff, verbose)
             if not product_zero:
                 vtM = tmp_bits[:self.m_eff]
-            if verbose:
-                print("Final check:")
-                print(f"  - {'OK:    v != 0' if v_nonzero else 'KO:    v == 0'}")
-                print(f"  - {'OK: vt*M == 0' if product_zero else 'KO: vt*M != 0'}")
         return v_bits[:self.n_eff], v_nonzero, product_zero, vtM

@@ -24,6 +24,7 @@ from block_lanczos_tpu_torch.parallel import collectives
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
 from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
+from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
@@ -72,13 +73,16 @@ class ShardedBlockLanczosWide(_ShardedSolver):
         self._rng = Xoshiro256Plus()
         part = (partition_matrix_overlap_wide if overlap
                 else partition_matrix_wide)
-        self._setup(grid, part(self.f, M, right, grid, pad_multiple), n,
-                    check_invariants, sync_every, overlap)
+        with profiling.span("layout", field=self.field):
+            ops = part(self.f, M, right, grid, pad_multiple)
+        self._setup(grid, ops, n, check_invariants, sync_every, overlap)
 
     def _v0(self) -> np.ndarray:
-        block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
-        return self.row_map.scatter(
-            block.reshape(self.n_eff, self.n).astype(np.int64))
+        with profiling.span("v0.draw"):
+            block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
+        with profiling.span("v0.pack"):
+            return self.row_map.scatter(
+                block.reshape(self.n_eff, self.n).astype(np.int64))
 
     def _state_block(self, resume_state: dict, name: str) -> np.ndarray:
         arr = resume_rows(resume_state, name, self.n_eff, self.n)

@@ -36,6 +36,7 @@ import dataclasses
 import numpy as np
 
 from block_lanczos_tpu_torch.ops import spmm
+from block_lanczos_tpu_torch.utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -347,20 +348,22 @@ def partition(grid, nnz_i, nnz_j, vals, nrows: int, ncols: int,
     rank's block: build(out_idx, in_idx, vals, out_dim, in_dim) makes one
     local operator on the host (a field's single-device layout builder);
     both are moved to grid.device."""
-    n_eff, m_eff, row_map, col_map, blk = _block(
-        grid, nnz_i, nnz_j, vals, nrows, ncols, right, pad_multiple)
-    band, mband = row_map.band, col_map.band
-    first = build(blk.lo, blk.lk, blk.vals, mband, band)
-    second = build(blk.lk, blk.lo, blk.vals, band, mband)
+    with profiling.span("layout.build"):
+        n_eff, m_eff, row_map, col_map, blk = _block(
+            grid, nnz_i, nnz_j, vals, nrows, ncols, right, pad_multiple)
+        band, mband = row_map.band, col_map.band
+        first = build(blk.lo, blk.lk, blk.vals, mband, band)
+        second = build(blk.lk, blk.lo, blk.vals, band, mband)
     stats = PartitionStats(grid=grid.shape, shard_nnz=blk.shard_nnz,
                            row_balanced=not row_map.identity,
                            col_balanced=not col_map.identity,
                            first=dir_stats(first), second=dir_stats(second))
+    with profiling.span("layout.upload"):
+        first, second = (_to_device(op, grid.device)
+                         for op in (first, second))
     return ShardedOps(grid=grid.shape, band=band, mband=mband,
                       np_rows=band * grid.R, mp_rows=mband * grid.C,
-                      n_eff=n_eff, m_eff=m_eff,
-                      first=_to_device(first, grid.device),
-                      second=_to_device(second, grid.device),
+                      n_eff=n_eff, m_eff=m_eff, first=first, second=second,
                       row_map=row_map, col_map=col_map, stats=stats)
 
 
@@ -404,40 +407,42 @@ def partition_overlap(grid, nnz_i, nnz_j, vals, nrows: int, ncols: int,
     split a multiple of pad_multiple).  Raises ValueError, naming the
     non-overlap `solver` to use instead, when a band is too small to
     split."""
-    n_eff, m_eff, row_map, col_map, blk = _block(
-        grid, nnz_i, nnz_j, vals, nrows, ncols, right, pad_multiple)
-    band, mband = row_map.band, col_map.band
-    ha = (mband // 2 // pad_multiple) * pad_multiple
-    hb = (band // 2 // pad_multiple) * pad_multiple
-    if not (0 < ha < mband and 0 < hb < band):
-        raise ValueError(
-            "matrix bands too small to chunk for comm/compute overlap; "
-            f"use the default {solver}")
+    with profiling.span("layout.build"):
+        n_eff, m_eff, row_map, col_map, blk = _block(
+            grid, nnz_i, nnz_j, vals, nrows, ncols, right, pad_multiple)
+        band, mband = row_map.band, col_map.band
+        ha = (mband // 2 // pad_multiple) * pad_multiple
+        hb = (band // 2 // pad_multiple) * pad_multiple
+        if not (0 < ha < mband and 0 < hb < band):
+            raise ValueError(
+                "matrix bands too small to chunk for comm/compute overlap; "
+                f"use the default {solver}")
 
-    def chunks(out_idx, in_idx, split, out_dim, in_dim):
-        a = out_idx < split
-        b = ~a
-        va, vb = ((None, None) if blk.vals is None
-                  else (blk.vals[a], blk.vals[b]))
-        return (build(out_idx[a], in_idx[a], va, split, in_dim),
-                build((out_idx[b] - split).astype(np.int32), in_idx[b], vb,
-                      out_dim - split, in_dim))
+        def chunks(out_idx, in_idx, split, out_dim, in_dim):
+            a = out_idx < split
+            b = ~a
+            va, vb = ((None, None) if blk.vals is None
+                      else (blk.vals[a], blk.vals[b]))
+            return (build(out_idx[a], in_idx[a], va, split, in_dim),
+                    build((out_idx[b] - split).astype(np.int32), in_idx[b], vb,
+                          out_dim - split, in_dim))
 
-    first_a, first_b = chunks(blk.lo, blk.lk, ha, mband, band)
-    second_a, second_b = chunks(blk.lk, blk.lo, hb, band, mband)
+        first_a, first_b = chunks(blk.lo, blk.lk, ha, mband, band)
+        second_a, second_b = chunks(blk.lk, blk.lo, hb, band, mband)
     stats = PartitionStats(
         grid=grid.shape, shard_nnz=blk.shard_nnz,
         row_balanced=not row_map.identity, col_balanced=not col_map.identity,
         first=_chunk_stats(dir_stats(first_a), dir_stats(first_b)),
         second=_chunk_stats(dir_stats(second_a), dir_stats(second_b)))
-    dev = grid.device
+    with profiling.span("layout.upload"):
+        first_a, first_b, second_a, second_b = (
+            _to_device(op, grid.device)
+            for op in (first_a, first_b, second_a, second_b))
     return OverlapShardedOps(
         grid=grid.shape, band=band, mband=mband, np_rows=band * grid.R,
         mp_rows=mband * grid.C, n_eff=n_eff, m_eff=m_eff, ha=ha, hb=hb,
-        first_a=_to_device(first_a, dev), first_b=_to_device(first_b, dev),
-        second_a=_to_device(second_a, dev),
-        second_b=_to_device(second_b, dev),
-        row_map=row_map, col_map=col_map, stats=stats)
+        first_a=first_a, first_b=first_b, second_a=second_a,
+        second_b=second_b, row_map=row_map, col_map=col_map, stats=stats)
 
 
 def _hybrid_op_maker(f):

@@ -36,6 +36,8 @@ import time
 
 import numpy as np
 
+from block_lanczos_tpu_torch.utils import profiling
+
 MANIFEST = "manifest.json"
 ARRAYS = "state.npz"
 
@@ -105,16 +107,19 @@ def _load_sharded(ckpt_dir: str, manifest: dict) -> dict:
 
 
 def load_checkpoint(ckpt_dir: str) -> dict:
-    with open(os.path.join(ckpt_dir, MANIFEST)) as fh:
-        manifest = json.load(fh)
-    if "step_dir" in manifest:  # per-host sharded format
-        return _load_sharded(ckpt_dir, manifest)
-    with np.load(os.path.join(ckpt_dir, ARRAYS)) as z:
-        state = {"v": z["v"], "p": z["p"]}
-        if "rowmap" in z.files:
-            state["rowmap"] = z["rowmap"]
-    state.update(manifest)
-    return state
+    """The checkpoint in ckpt_dir as a {v, p, ...manifest} dict (span
+    checkpoint.load)."""
+    with profiling.span("checkpoint.load"):
+        with open(os.path.join(ckpt_dir, MANIFEST)) as fh:
+            manifest = json.load(fh)
+        if "step_dir" in manifest:  # per-host sharded format
+            return _load_sharded(ckpt_dir, manifest)
+        with np.load(os.path.join(ckpt_dir, ARRAYS)) as z:
+            state = {"v": z["v"], "p": z["p"]}
+            if "rowmap" in z.files:
+                state["rowmap"] = z["rowmap"]
+        state.update(manifest)
+        return state
 
 
 class CheckpointMismatch(ValueError):
@@ -258,14 +263,15 @@ class CheckpointManager:
         if not due:
             return False
         self._last = now
-        v, p_blk = self._disk_blocks(v, p_blk)
-        if self.grid is None or self.grid.is_root:
-            save_checkpoint(self.ckpt_dir, v, p_blk, iteration,
-                            (now - start_time) + extra_time, self.meta,
-                            self.verbose)
-        if multi:
-            from block_lanczos_tpu_torch.parallel import multihost
-            multihost.barrier(self.grid.group)
+        with profiling.span("checkpoint.save", iteration=iteration):
+            v, p_blk = self._disk_blocks(v, p_blk)
+            if self.grid is None or self.grid.is_root:
+                save_checkpoint(self.ckpt_dir, v, p_blk, iteration,
+                                (now - start_time) + extra_time, self.meta,
+                                self.verbose)
+            if multi:
+                from block_lanczos_tpu_torch.parallel import multihost
+                multihost.barrier(self.grid.group)
         self.saves += 1
         self.save_requested = False
         return True

@@ -1,183 +1,219 @@
-"""Profiling helpers of the port (the JAX package's utils/profiling.py on
-PyTorch), for the narrow-field `models.lanczos.BlockLanczos`:
+"""Tracing of the port: spans and counters recorded inside the solvers, and
+a Chrome trace that puts them beside the device's kernels.
 
-  * `trace(path)`: a context manager around torch.profiler (the CPU and,
-    where CUDA is available, the card's kernels) that writes a Chrome
-    trace, `path/trace.json`, viewable in Perfetto or chrome://tracing;
-  * `phase_timers(solver)`: each phase of an iteration (the two SpMVs,
-    the Gram, the semi-inverse, the update) timed alone, the device
-    synchronised at both ends, with its share and nnz/s;
-  * `ablation_timers(solver)`: the whole iteration timed, then again with
-    one phase at a time replaced by a cheap stand-in of its shape; a
-    phase's cost in context is the difference.
+  * `span(name, **attrs)`: a context manager around one piece of a layer's
+    work (the contract of names is below).  Each span records its name,
+    start and end (`time.perf_counter_ns()`), its parent's id and its solve
+    id: the id of its outermost span, so that every span of one `solve()`
+    call shares the `solve` span's id.  `.set(**attrs)` adds attributes
+    before it closes.
+  * `count(name, k=1)`: adds k to a counter.
+  * `recording()`: turns both on for a block and yields the in-memory
+    buffer (a `Recording`: its spans as `Span` tuples, in the order they
+    closed, and its counters); nothing is written until the caller asks.
+    With recording off `span()` returns the one shared no-op `NOOP` and
+    `count()` returns at once: one global read a call, no clock read.
+  * `trace(path)`: torch.profiler around the block (the CPU and, where
+    CUDA is available, the card's kernels) with recording on; writes a
+    Chrome trace, `path/trace.json`, viewable in Perfetto or
+    chrome://tracing, with the spans as a host track of their own.
 
-They run on whatever device the solver is on (CPU times are the plain
-PyTorch versions', not the card's).  Both timers draw v0 from the
-solver's xoshiro stream, as the JAX module's do, so a later solve() of
-the same solver starts from the next block.
+The solvers record these spans, each under the one it is indented under:
+
+    layout, with layout.dedup, layout.build, layout.upload    constructors
+    solve                                                     every solve()
+      solve.v0, with v0.draw, v0.pack, v0.upload              v0 from xoshiro
+      solve.resume                                            a resume_state
+      solve.prepare                                           kernels, state
+      solve.loop                                              the blocks
+        block, with block.issue, block.sync, block.callback,
+        and on a mesh block.agree
+      solve.final, with final.download (a mesh: final.gather),
+        final.unpack, final.check
+    checkpoint.save (in a block.callback that saves), checkpoint.load
+
+and the counters iterations_issued, iterations_done (the stopping probe
+included) and blocks (models/lanczos.py::blocked_solve_loop).  Spans
+never wait for the device: `block.issue` ends when the host has issued the
+block's launches, so a full launch queue shows inside it, and the device's
+time shows in `block.sync`.  Nothing is recorded finer than a block of
+iterations: no span, counter or clock read inside an iteration, a kernel
+wrapper or a collective.
 """
 
 from __future__ import annotations
 
 import contextlib
+import json
 import os
 import time
+from typing import NamedTuple
 
 import torch
 
-from block_lanczos_tpu_torch.models import lanczos as L
-from block_lanczos_tpu_torch.ops import spmm
-from block_lanczos_tpu_torch.ops.dense import gram_mod
-from block_lanczos_tpu_torch.ops.semi_inverse import new_state, semi_inverse
-
 TRACE_FILE = "trace.json"
+# the record_function that ties perf_counter to the profiler's clock
+ANCHOR = "profiling.anchor"
+
+
+class Span(NamedTuple):
+    """One closed span; `solve` is the id of its outermost span."""
+    id: int
+    parent: int | None
+    solve: int
+    name: str
+    start_ns: int
+    end_ns: int
+    attrs: dict
+
+
+class Recording:
+    """The buffer of one `recording()` block: `spans`, a Span a closed
+    span, and `counters`, {name: total}."""
+
+    def __init__(self):
+        self.spans = []
+        self.counters = {}
+        self._open = []       # the open spans, innermost last
+        self._next_id = 0
+
+
+class _OpenSpan:
+    __slots__ = ("rec", "name", "attrs", "id", "parent", "solve", "t0")
+
+    def __init__(self, rec: Recording, name: str, attrs: dict):
+        self.rec, self.name, self.attrs = rec, name, attrs
+
+    def set(self, **attrs) -> None:
+        self.attrs.update(attrs)
+
+    def __enter__(self):
+        rec = self.rec
+        self.id = rec._next_id
+        rec._next_id += 1
+        outer = rec._open[-1] if rec._open else None
+        self.parent = None if outer is None else outer.id
+        self.solve = self.id if outer is None else outer.solve
+        rec._open.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = time.perf_counter_ns()
+        rec = self.rec
+        rec._open.remove(self)
+        rec.spans.append(Span(self.id, self.parent, self.solve, self.name,
+                              self.t0, t1, self.attrs))
+        return False
+
+
+class _NoSpan:
+    """The span of recording off: records nothing."""
+    __slots__ = ()
+
+    def set(self, **attrs) -> None:
+        pass
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+NOOP = _NoSpan()
+_active: Recording | None = None      # recording() sets it for its block
+
+
+def span(name: str, **attrs):
+    """A span of `name` (a context manager), or NOOP with recording off."""
+    rec = _active
+    if rec is None:
+        return NOOP
+    return _OpenSpan(rec, name, attrs)
+
+
+def count(name: str, k: int = 1) -> None:
+    """Add k to the counter `name` (nothing with recording off)."""
+    rec = _active
+    if rec is not None:
+        rec.counters[name] = rec.counters.get(name, 0) + k
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans and counters for the block; yields the Recording.  A
+    recording() inside another takes its block's spans for itself."""
+    global _active
+    outer, _active = _active, Recording()
+    try:
+        yield _active
+    finally:
+        _active = outer
+
+
+def _anchor_ns() -> int:
+    """A record_function of the profiler at this perf_counter_ns (the
+    midpoint of the stamps around it); warmed first, so that its entry
+    costs microseconds."""
+    from torch.profiler import record_function
+    with record_function(ANCHOR + ".warm"):
+        pass
+    t0 = time.perf_counter_ns()
+    with record_function(ANCHOR):
+        pass
+    return (t0 + time.perf_counter_ns()) // 2
+
+
+def _span_events(rec: Recording, offset_us: float, pid: int) -> list:
+    """The spans as complete events of the host track `pid`, on the
+    trace's clock (microseconds = perf_counter_ns / 1e3 + offset_us)."""
+    events = [{"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+               "args": {"name": "block_lanczos spans"}}]
+    for s in rec.spans:
+        args = {"id": s.id, "parent": s.parent, "solve": s.solve,
+                **s.attrs}
+        events.append({"ph": "X", "cat": "span", "name": s.name, "pid": pid,
+                       "tid": 0, "ts": s.start_ns / 1e3 + offset_us,
+                       "dur": (s.end_ns - s.start_ns) / 1e3, "args": args})
+    return events
 
 
 @contextlib.contextmanager
 def trace(path: str):
-    """Profile the block and write its Chrome trace to path/trace.json;
-    yields the torch.profiler.profile object."""
+    """Profile the block with recording on and write its Chrome trace to
+    path/trace.json, the spans on a host track of their own; yields the
+    torch.profiler.profile object."""
     from torch.profiler import ProfilerActivity, profile
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(path, exist_ok=True)
     prof = profile(activities=activities)
-    prof.start()
-    try:
-        yield prof
-    finally:
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
-        prof.stop()
-        prof.export_chrome_trace(os.path.join(path, TRACE_FILE))
+    with recording() as rec:
+        prof.start()
+        anchor_ns = _anchor_ns()
+        try:
+            yield prof
+        finally:
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            prof.stop()
+            _export(prof, os.path.join(path, TRACE_FILE), rec, anchor_ns)
 
 
-def _sync(device: torch.device):
-    if device.type == "cuda":
-        return lambda: torch.cuda.synchronize(device)
-    return lambda: None
-
-
-def _timed(fn, sync, iters: int):
-    """(seconds a call, the last call's result), after a warm call."""
-    out = fn()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        out = fn()
-    sync()
-    return (time.perf_counter() - t0) / iters, out
-
-
-def phase_timers(solver, iters: int = 5) -> dict:
-    """Per-phase seconds of a BlockLanczos solver's iteration, each phase
-    run `iters` times alone between two device syncs: spmv_first_s,
-    spmv_second_s, gram_s, semi_inverse_s, orthogonalize_s, total_s,
-    spmv_share and spmv_nnz_per_s.  Useful for relative comparisons; the
-    loop's own pace is ablation_timers'."""
-    p, n = solver.f.p, solver.n
-    v = solver.initial_block()
-    sync, ws = _sync(v.device), solver.workspace()
-    t_spmv1, tmp = _timed(lambda: spmm.spmv(
-        solver.first_op, v, out_rows=solver.mp_rows, out=ws["tmp"]),
-        sync, iters)
-    t_spmv2, av = _timed(lambda: spmm.spmv(
-        solver.second_op, tmp, out_rows=solver.np_rows, out=ws.get("av")),
-        sync, iters)
-    t_gram, grams = _timed(lambda: gram_mod(v, av, av, p,
-                                            out=ws.get("grams")),
-                           sync, iters)
-    state = new_state(v.device)
-    t_semi, si = _timed(lambda: semi_inverse(
-        grams, p, state, solver.check_invariants, out=ws.get("si")),
-        sync, iters)
-    v2, p2 = v.clone(), torch.zeros_like(v)     # updated in place
-    t_orth, _ = _timed(lambda: L.orthogonalize(v2, p2, av, si.rhs, si.d, p,
-                                               state), sync, iters)
-    total = t_spmv1 + t_spmv2 + t_gram + t_semi + t_orth
-    report = {"spmv_first_s": t_spmv1, "spmv_second_s": t_spmv2,
-              "gram_s": t_gram, "semi_inverse_s": t_semi,
-              "orthogonalize_s": t_orth, "total_s": total,
-              "spmv_share": (t_spmv1 + t_spmv2) / total}
-    nnz = solver.sp.nnz
-    if nnz:
-        report["spmv_nnz_per_s"] = 2 * nnz / (t_spmv1 + t_spmv2)
-    return report
-
-
-PHASES = ("spmv1", "spmv2", "gram", "semi", "orth")
-
-
-def _iteration(solver, disabled, v, p_blk, state, ws) -> None:
-    """One iteration of the solve on ws's buffers (the invariant checks
-    off), with the phase `disabled` (one of PHASES, or None) replaced by a
-    cheap stand-in of its shape, as the JAX module's ablation loop does."""
-    p, n = solver.f.p, solver.n
-    if disabled == "spmv1":     # v's rows, zero-padded, as tmp
-        tmp = ws["tmp"]
-        r = min(solver.mp_rows, solver.np_rows)
-        tmp.zero_()
-        tmp[:r] = v[:r]
-    else:
-        tmp = spmm.spmv(solver.first_op, v, out_rows=solver.mp_rows,
-                        out=ws["tmp"])
-    if disabled == "spmv2":     # tmp's rows as Av
-        av = torch.zeros_like(v)
-        r = min(solver.mp_rows, solver.np_rows)
-        av[:r] = tmp[:r]
-    else:
-        av = spmm.spmv(solver.second_op, tmp, out_rows=solver.np_rows,
-                       out=ws.get("av"))
-    if disabled == "gram":      # vtAv = vtAAv = v[:n] + Av[:n]
-        u = ((v[:n].to(torch.int64) + av[:n]) % p).to(torch.int32)
-        grams = torch.cat([u, u])
-    else:
-        grams = gram_mod(v, av, av, p, out=ws.get("grams"))
-    if disabled == "semi":      # winv = vtAv, d all ones
-        rhs = torch.zeros((2 * n, 2 * n), dtype=torch.int32, device=v.device)
-        rhs[:n, n:] = grams[:n]
-        d = torch.ones(n, dtype=torch.int32, device=v.device)
-    else:
-        si = semi_inverse(grams, p, state, False, out=ws.get("si"))
-        rhs, d = si.rhs, si.d
-    if disabled == "orth":      # v <- Av + v, p <- p + v
-        p_blk.copy_((p_blk.to(torch.int64) + v) % p)
-        v.copy_((av.to(torch.int64) + v) % p)
-    else:
-        L.orthogonalize(v, p_blk, av, rhs, d, p, state)
-
-
-def ablation_timers(solver, iters: int = 50, runs: int = 2) -> dict:
-    """In-loop phase attribution for a BlockLanczos solver: `iters`
-    iterations timed whole (the best of `runs`, each from the same v0),
-    then with each phase of PHASES replaced by its stand-in; reports
-    full_iteration_s and, for each phase, <phase>_s = the difference
-    (clamped at 0), with spmv_nnz_per_s and iteration_nnz_per_s."""
-    v0 = solver.initial_block()
-    sync, ws = _sync(v0.device), solver.workspace()
-
-    def timed_loop(disabled):
-        best = float("inf")
-        for k in range(max(runs, 1) + 1):      # the first run warms up
-            v, p_blk = v0.clone(), torch.zeros_like(v0)
-            state = new_state(v0.device)
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                _iteration(solver, disabled, v, p_blk, state, ws)
-            sync()
-            if k:
-                best = min(best, (time.perf_counter() - t0) / iters)
-        return best
-
-    full = timed_loop(None)
-    report = {"full_iteration_s": full}
-    for phase in PHASES:
-        report[f"{phase}_s"] = max(full - timed_loop(phase), 0.0)
-    nnz = solver.sp.nnz
-    if nnz:
-        report["spmv_nnz_per_s"] = 2 * nnz / max(
-            report["spmv1_s"] + report["spmv2_s"], 1e-12)
-        report["iteration_nnz_per_s"] = 2 * nnz / full
-    return report
+def _export(prof, out: str, rec: Recording, anchor_ns: int) -> None:
+    """The profiler's Chrome trace at `out`, with the spans of `rec` on a
+    host track placed by the anchor."""
+    prof.export_chrome_trace(out)
+    with open(out) as fh:
+        doc = json.load(fh)
+    events = doc["traceEvents"]
+    anchor = next(e for e in events if e.get("name") == ANCHOR
+                  and e.get("ph") == "X")
+    offset_us = anchor["ts"] + anchor.get("dur", 0) / 2 - anchor_ns / 1e3
+    pid = max((e["pid"] for e in events if isinstance(e.get("pid"), int)),
+              default=0) + 1
+    events.extend(_span_events(rec, offset_us, pid))
+    with open(out, "w") as fh:
+        json.dump(doc, fh, default=str)
