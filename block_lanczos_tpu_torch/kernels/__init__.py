@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` (four narrow-field kernels on `modp.cuh`, four
 GF(2) kernels on `gf2.cuh`, four wide-field kernels on `modp64.cuh`, and
 `collectives.cu`: the mesh's exact all-reduces, whose pack and fold halves
-are six entry points of one source) is compiled by nvcc, at first use,
+are six entry points of one source, and `xoshiro_fill.cu`: the solvers'
+initial block drawn on the card) is compiled by nvcc, at first use,
 into its own shared library with a plain C interface and loaded with
 ctypes:
 
@@ -108,6 +109,10 @@ SIGNATURES = {
     "pxor_spread": ("pxor_spread", (_P, _P, _L, _I, _P)),
     # sums, x, count, lanes, stream
     "pxor_fold": ("pxor_fold", (_P, _P, _L, _I, _P)),
+    # v0 drawn on the card (ops/xoshiro.py::LaneDraw): jumps, levels,
+    # s0, s1, s2, s3, count, m, field, p, mu, out, stream
+    "xoshiro_fill": ("xoshiro_fill", (_P, _I, _U, _U, _U, _U, _L, _L, _I, _U,
+                                      _U, _P, _P)),
 }
 # exported C function -> its source stem, where that is not its own name
 SOURCES = {name: "collectives" for name in (

@@ -42,6 +42,7 @@ from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
                                                       empty_outputs,
                                                       new_state,
                                                       semi_inverse)
+from block_lanczos_tpu_torch.ops.xoshiro import LaneDraw, xoshiro_fill
 from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
@@ -169,14 +170,17 @@ orthogonalize.launches = 0
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches} of the four kernel wrappers."""
+    """{kernel name: launches} of the five kernel wrappers (xoshiro_fill,
+    v0 drawn on the card, once a solve)."""
     return {"spmv_ell": spmm.spmv.launches, "gram_mod": gram_mod.launches,
             "semi_inverse": semi_inverse.launches,
-            "orthogonalize": orthogonalize.launches}
+            "orthogonalize": orthogonalize.launches,
+            "xoshiro_fill": xoshiro_fill.launches}
 
 
 def reset_launch_counts() -> None:
-    for w in (spmm.spmv, gram_mod, semi_inverse, orthogonalize):
+    for w in (spmm.spmv, gram_mod, semi_inverse, orthogonalize,
+              xoshiro_fill):
         w.launches = 0
 
 
@@ -433,10 +437,17 @@ class BlockLanczos:
         self.mp_rows = pad_rows(self.m_eff, PAD_MULTIPLE)
         self.expected_iterations = 1 + self.m_eff // self.n
         self._rng = Xoshiro256Plus()
+        self._v0_draw = (LaneDraw(self.n_eff * self.n, self.device)
+                         if self.device.type == "cuda" else None)
 
     def initial_block(self) -> torch.Tensor:
-        """v0: xoshiro row-major over n_eff*n entries, zero-padded."""
-        with profiling.span("v0.draw"):
+        """v0: xoshiro row-major over n_eff*n entries, zero-padded; drawn
+        on the card on CUDA, in NumPy otherwise."""
+        if self._v0_draw is not None:
+            with profiling.span("v0.draw", device="cuda"):
+                return self._v0_draw.block(self._rng, self.field, self.f.p,
+                                           (self.np_rows, self.n))
+        with profiling.span("v0.draw", device="cpu"):
             block = self._rng.fill_mod(self.n_eff * self.n, self.f.p)
         with profiling.span("v0.pack"):
             v0 = np.zeros((self.np_rows, self.n), np.int32)

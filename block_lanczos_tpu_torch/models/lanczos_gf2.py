@@ -43,6 +43,7 @@ from block_lanczos_tpu_torch.ops.gf2 import (WORD, colmask, gram_gf2,
 from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
                                                       STOP, new_state)
 from block_lanczos_tpu_torch.ops.spmm import _check_args, build_hybrid_arrays
+from block_lanczos_tpu_torch.ops.xoshiro import LaneDraw, xoshiro_fill
 from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
@@ -268,11 +269,13 @@ def orthogonalize_gf2(v, p_blk, Av, rhs, d, state) -> None:
 
 orthogonalize_gf2.launches = 0
 
-_WRAPPERS = (spmv_gf2, gram_gf2, semi_inverse_gf2, orthogonalize_gf2)
+_WRAPPERS = (spmv_gf2, gram_gf2, semi_inverse_gf2, orthogonalize_gf2,
+             xoshiro_fill)
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches} of the four GF(2) kernel wrappers."""
+    """{kernel name: launches} of the four GF(2) kernel wrappers and
+    xoshiro_fill (v0 drawn on the card, once a solve)."""
     return {w.__name__: w.launches for w in _WRAPPERS}
 
 
@@ -371,11 +374,18 @@ class BlockLanczosGF2:
         self.second_op = bwd if right else fwd
         self.expected_iterations = 1 + self.m_eff // self.n
         self._rng = Xoshiro256Plus() if seed is None else Xoshiro256Plus(seed)
+        self._v0_draw = (LaneDraw(self.n_eff * self.n, self.device)
+                         if self.device.type == "cuda" else None)
 
     def initial_block(self) -> torch.Tensor:
         """v0 bits from the same xoshiro stream: random64() % 2 per entry,
-        row-major over n_eff * n, packed and zero-padded."""
-        with profiling.span("v0.draw"):
+        row-major over n_eff * n, packed and zero-padded; drawn and packed
+        on the card on CUDA, in NumPy otherwise."""
+        if self._v0_draw is not None:
+            with profiling.span("v0.draw", device="cuda"):
+                return self._v0_draw.block(self._rng, self.field, 2,
+                                           (self.np_rows, self.W))
+        with profiling.span("v0.draw", device="cpu"):
             bits = self._rng.fill_mod(self.n_eff * self.n, 2)
         with profiling.span("v0.pack"):
             block = np.zeros((self.np_rows, self.n), np.uint32)

@@ -41,6 +41,7 @@ from block_lanczos_tpu_torch.ops import wide_ops as wo
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
                                                       STOP, new_state)
+from block_lanczos_tpu_torch.ops.xoshiro import LaneDraw, xoshiro_fill
 from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
 from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
@@ -97,11 +98,13 @@ orthogonalize_wide.launches = 0
 
 _WRAPPERS = {"spmv_wide": wo.spmv_wide, "gram_wide": wo.gram_wide,
              "semi_inverse_wide": wo.semi_inverse_wide,
-             "orthogonalize_wide": orthogonalize_wide}
+             "orthogonalize_wide": orthogonalize_wide,
+             "xoshiro_fill": xoshiro_fill}
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches} of the four wide kernel wrappers."""
+    """{kernel name: launches} of the four wide kernel wrappers and
+    xoshiro_fill (v0 drawn on the card, once a solve)."""
     return {name: w.launches for name, w in _WRAPPERS.items()}
 
 
@@ -194,11 +197,18 @@ class BlockLanczosWide:
         self.mp_rows = pad_rows(self.m_eff, PAD_MULTIPLE)
         self.expected_iterations = 1 + self.m_eff // self.n
         self._rng = Xoshiro256Plus()
+        self._v0_draw = (LaneDraw(self.n_eff * self.n, self.device)
+                         if self.device.type == "cuda" else None)
 
     def initial_block(self) -> torch.Tensor:
         """v0: xoshiro random64() % p row-major over n_eff*n entries (all
-        62 bits kept), zero-padded."""
-        with profiling.span("v0.draw"):
+        62 bits kept), zero-padded; drawn on the card on CUDA, in NumPy
+        otherwise."""
+        if self._v0_draw is not None:
+            with profiling.span("v0.draw", device="cuda"):
+                return self._v0_draw.block(self._rng, self.field, self.f.p,
+                                           (self.np_rows, self.n))
+        with profiling.span("v0.draw", device="cpu"):
             block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
         with profiling.span("v0.pack"):
             v0 = np.zeros((self.np_rows, self.n), np.int64)

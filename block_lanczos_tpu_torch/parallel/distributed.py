@@ -259,7 +259,7 @@ class ShardedBlockLanczos(_ShardedSolver):
     def _v0(self) -> np.ndarray:
         """v0 over TRUE kernel rows (the sequential xoshiro block, bit-exact
         with the reference), scattered to the band layout."""
-        with profiling.span("v0.draw"):
+        with profiling.span("v0.draw", device="cpu"):
             block = self._rng.fill_mod(self.n_eff * self.n, self.f.p)
         with profiling.span("v0.pack"):
             return self.row_map.scatter(
@@ -315,7 +315,8 @@ class ShardedBlockLanczos(_ShardedSolver):
 
 def launch_counts() -> dict:
     """{kernel name: launches} of the fifteen kernels a mesh runs: the
-    three fields' four each and the three collectives."""
+    three fields' four each and the three collectives (and xoshiro_fill,
+    which only the single-device solvers launch)."""
     from block_lanczos_tpu_torch.models import lanczos_gf2, lanczos_wide
     out = single.launch_counts()
     out.update(lanczos_gf2.launch_counts())

@@ -109,7 +109,7 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
         self._setup(grid, ops, n, check_invariants, sync_every, overlap)
 
     def _v0(self) -> np.ndarray:
-        with profiling.span("v0.draw"):
+        with profiling.span("v0.draw", device="cpu"):
             bits = self._rng.fill_mod(self.n_eff * self.n, 2)
         with profiling.span("v0.pack"):
             block = self.row_map.scatter(

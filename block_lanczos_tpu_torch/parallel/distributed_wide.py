@@ -78,7 +78,7 @@ class ShardedBlockLanczosWide(_ShardedSolver):
         self._setup(grid, ops, n, check_invariants, sync_every, overlap)
 
     def _v0(self) -> np.ndarray:
-        with profiling.span("v0.draw"):
+        with profiling.span("v0.draw", device="cpu"):
             block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
         with profiling.span("v0.pack"):
             return self.row_map.scatter(

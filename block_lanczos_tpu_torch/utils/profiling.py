@@ -22,7 +22,8 @@ The solvers record these spans, each under the one it is indented under:
 
     layout, with layout.dedup, layout.build, layout.upload    constructors
     solve                                                     every solve()
-      solve.v0, with v0.draw, v0.pack, v0.upload              v0 from xoshiro
+      solve.v0, with v0.draw (attribute device), and on the   v0 from xoshiro
+        CPU v0.pack, v0.upload
       solve.resume                                            a resume_state
       solve.prepare                                           kernels, state
       solve.loop                                              the blocks
@@ -33,7 +34,9 @@ The solvers record these spans, each under the one it is indented under:
     checkpoint.save (in a block.callback that saves), checkpoint.load
 
 and the counters iterations_issued, iterations_done (the stopping probe
-included) and blocks (models/lanczos.py::blocked_solve_loop).  Spans
+included) and blocks (models/lanczos.py::blocked_solve_loop), and
+v0_draws_device, the v0 draws made on the card (ops/xoshiro.py::LaneDraw;
+the single-device solvers on CUDA: v0.draw's device "cuda").  Spans
 never wait for the device: `block.issue` ends when the host has issued the
 block's launches, so a full launch queue shows inside it, and the device's
 time shows in `block.sync`.  Nothing is recorded finer than a block of

@@ -4,9 +4,11 @@ The reference seeds one global xoshiro256+ with a fixed seed and draws
 `random64() % prime` row-major over the initial vector block
 (reference: sequential/lanczos_modp.c:67-87 and :624-625).  Matching that
 stream exactly is the anchor for bit-identical iterates across the whole
-solve.  Pure Python ints; long draws run the same stream as many
-generators side by side in NumPy, each jumped ahead by a power of the
-step's bit matrix (`fill_mod`).
+solve.  Pure Python ints; long draws (`fill_mod`) run the same stream
+in lanes of m values, as many NumPy generators side by side, each started
+from the jump matrices T^(m 2^k) at the set bits of its lane's index.  On
+a CUDA device the solvers draw v0 on the card in the same lanes, from the
+same matrices (ops/xoshiro.py, the kernel csrc/xoshiro_fill.cu).
 """
 
 from __future__ import annotations
@@ -57,55 +59,46 @@ class Xoshiro256Plus:
         return self._fill(count, prime, np.uint64)
 
     def _fill(self, count: int, prime: int, dtype) -> np.ndarray:
-        """`count` values of random64() % prime as `dtype`.
-
-        The stream is drawn by up to LANES generators side by side in
-        NumPy.  The state update is linear over GF(2), so the state m draws
-        ahead is T^m times the state, T the 256 x 256 bit matrix of one
-        step: lane l starts at T^(l m) s and draws the m values
-        l m .. l m + m - 1 of the stream; the generator then holds the
-        state after the last value, as if it had drawn them one by one."""
+        """`count` values of random64() % prime as `dtype`, drawn by
+        `draw_lanes` in the lanes of `lane_plan` (the card's lanes too:
+        ops/xoshiro.py); the generator then holds the state after the last
+        value, as if it had drawn them one by one."""
         if count == 0:
             return np.zeros(0, dtype)
-        lanes = min(LANES, count)
-        m = -(-count // lanes)
-        S = np.zeros((256, lanes), np.float32)
-        S[:, 0] = _state_bits(self.state)
-        jump, done = _bit_matrix_power(_transition(), m), 1
-        while done < lanes:         # lanes [done, 2 done) from [0, done)
-            k = min(done, lanes - done)
-            S[:, done:done + k] = (jump @ S[:, :k]) % 2
-            jump = (jump @ jump) % 2
-            done += k
-        s0, s1, s2, s3 = (_bits_to_u64(S[64 * w:64 * w + 64])
-                          for w in range(4))
-        out = np.empty((m, lanes), dtype)
-        last, tail = divmod(count, m)          # the stream ends in lane
-        if tail == 0:                          # `last` after `tail` draws
-            last, tail = last - 1, m
+        m, lanes = lane_plan(count)
         p = np.uint64(prime)
-        for k in range(m):
-            if k == tail:
-                self.state = [int(s[last]) for s in (s0, s1, s2, s3)]
-            x = s0 + s3
-            out[k] = (((x << _U23) | (x >> _U41)) + s0) % p
-            t = s1 << _U17
-            s2 ^= s0
-            s3 ^= s1
-            s1 ^= s2
-            s0 ^= s3
-            s2 ^= t
-            s3 = (s3 << _U45) | (s3 >> _U19)
-        if tail == m:
-            self.state = [int(s[last]) for s in (s0, s1, s2, s3)]
-        return np.ascontiguousarray(out.T).reshape(-1)[:count]
+        out, self.state = draw_lanes(
+            self.state, jump_columns(m, (lanes - 1).bit_length()), count, m,
+            lambda x: x % p, dtype)
+        return out
 
 
-# Generators fill_mod runs side by side: one at a time, in Python ints, a
-# draw takes about a microsecond, ~50 s for the 300000 x 128 v0 of a GF(2)
-# solve at n = 128.
-LANES = 4096
+# The most lanes a draw runs side by side, on the host (NumPy generators, a
+# vector op a step each) as on the card (csrc/xoshiro_fill.cu).  A lane
+# costs up to log2(lanes) mat-vecs of 256 x 256 bits before its first draw,
+# so more lanes trade draws for jumps.  Swept from 2^10 to 2^18 on the H100
+# (PERF.md): 2^14 was the fastest at the GF(2) cell's 64M draws (16,261
+# lanes of 3,936, 0.288 ms against 0.331 at 2^16) and within 2% of the
+# fastest at 100,000 x 32; at 100,000 x 4 the 12,500 lanes of 32 it gives
+# take 0.24 ms, the jumps' latency.
+LANES = 1 << 14
 _U17, _U19, _U23, _U41, _U45 = (np.uint64(k) for k in (17, 19, 23, 41, 45))
+
+
+def _next_np(g: list) -> np.ndarray:
+    """One step of generators side by side: g = [s0, s1, s2, s3], uint64
+    arrays of their states, updated in place; returns their outputs."""
+    s0, s1, s2, s3 = g
+    x = s0 + s3
+    out = ((x << _U23) | (x >> _U41)) + s0
+    t = s1 << _U17
+    s2 ^= s0
+    s3 ^= s1
+    s1 ^= s2
+    s0 ^= s3
+    s2 ^= t
+    g[3] = (s3 << _U45) | (s3 >> _U19)
+    return out
 
 
 def _state_bits(state) -> np.ndarray:
@@ -144,3 +137,76 @@ def _bit_matrix_power(A: np.ndarray, e: int) -> np.ndarray:
         A = (A @ A) % 2
         e >>= 1
     return R
+
+
+# ---------------------------------------------------------------------------
+# Lanes: the stream split into runs of m values, each from its own start state
+# ---------------------------------------------------------------------------
+
+def lane_plan(count: int) -> tuple:
+    """(m, L): a draw of `count` values as L <= LANES lanes of m values each
+    (the last one fewer), m the least multiple of 32 for which LANES lanes
+    hold them all (so a lane of the card's GF(2) draw owns whole words)."""
+    m = 32 * max(1, -(-count // (32 * LANES)))
+    return m, max(1, -(-count // m))
+
+
+@functools.lru_cache(maxsize=8)
+def _step_power(e: int) -> np.ndarray:
+    """T^e over GF(2) (float32 0/1), kept for the counts and lane lengths
+    of the solvers in this process."""
+    return _bit_matrix_power(_transition(), e)
+
+
+@functools.lru_cache(maxsize=8)
+def jump_columns(m: int, levels: int) -> np.ndarray:
+    """J_k = T^(m 2^k) for k < levels as the kernel reads them: (levels,
+    256, 4) uint64, [k, c, w] holding bits 64 w .. 64 w + 63 of column c
+    of J_k (the state that state bit c alone reaches)."""
+    out = np.empty((levels, 256, 4), np.uint64)
+    if levels:
+        J = _step_power(m)
+        for k in range(levels):
+            for w in range(4):
+                out[k, :, w] = _bits_to_u64(J[64 * w:64 * w + 64])
+            J = (J @ J) % 2
+    return out
+
+
+def lane_starts(state, jumps: np.ndarray, lanes: int) -> list:
+    """The lanes' start states, [s0, s1, s2, s3] uint64 arrays: lane l's is
+    `state` under the J_k (`jumps`, as jump_columns gives them) of the set
+    bits of l, as the kernel builds it.  The host shares the products:
+    lane l + 2^k (l < 2^k) is J_k applied to lane l (the J_k commute), a
+    mat-vec a lane; float32 products of 0/1 matrices are exact (sums of at
+    most 256 ones)."""
+    S = np.empty((256, lanes), np.float32)
+    S[:, 0] = _state_bits(state)
+    shifts = np.arange(64, dtype=np.uint64)
+    for k, cols in enumerate(jumps):
+        J = ((cols[:, :, None] >> shifts) & np.uint64(1)).reshape(256, 256)
+        lo, hi = 1 << k, min(2 << k, lanes)
+        S[:, lo:hi] = (J.T.astype(np.float32) @ S[:, :hi - lo]) % 2
+    return [_bits_to_u64(S[64 * w:64 * w + 64]) for w in range(4)]
+
+
+def draw_lanes(state, jumps: np.ndarray, count: int, m: int, reduce,
+               dtype) -> tuple:
+    """(values, state after): the stream's `count` values from `state`,
+    each through `reduce` (uint64 array -> `dtype`), drawn by ceil(count /
+    m) NumPy generators side by side, lane l from its `lane_starts` state
+    drawing the values l m .. l m + m - 1; the state after them is the one
+    the last value's lane holds after it."""
+    lanes = -(-count // m)
+    g = lane_starts(state, jumps, lanes)
+    out = np.empty((m, lanes), dtype)
+    last, tail = divmod(count, m)          # the stream ends in lane
+    if tail == 0:                          # `last` after `tail` draws
+        last, tail = last - 1, m
+    for k in range(m):
+        if k == tail:
+            after = [int(s[last]) for s in g]
+        out[k] = reduce(_next_np(g))
+    if tail == m:
+        after = [int(s[last]) for s in g]
+    return np.ascontiguousarray(out.T).reshape(-1)[:count], after

@@ -9,8 +9,8 @@ failure:
 
   0. print the card's name and power limit; require CUDA;
   1. build the CUDA kernels from block_lanczos_tpu_torch/csrc/ (four
-     narrow-field, four bitsliced GF(2), four wide-field, and the mesh's
-     collectives), and two builds
+     narrow-field, four bitsliced GF(2), four wide-field, the mesh's
+     collectives and xoshiro_fill, v0 on the card), and two builds
      that phase 2 uses beside them (gram_wide recombining every 64 / 128
      rows; spmv_wide's gather-only floor);
   2. hold every kernel against its plain PyTorch version on the card, at
@@ -71,7 +71,12 @@ failure:
      on either side of its tensor-core threshold, with d all 0, all 1 and
      mixed under running, stopped, failed and frozen states, all residues
      and rhs p - 1 (at n = 64 the s32 worst case of the limb sums), N = 1,
-     15, 16, 17 about the 16-row tile, misaligned views;
+     15, 16, 17 about the 16-row tile, misaligned views; then
+     xoshiro_fill (v0 drawn on the card) against the host draw, bit for
+     bit, twice in a row from one generator whose host-advanced state must
+     equal the NumPy draw's, at the benchmark's v0 shapes (GF(2) 500,000 x
+     128, narrow 100,000 x 4 and x 32), a wide one at 2^61 - 1 and a count
+     below the kernel's lanes, each timed;
   3. solve the 9 goldens on the card (left_p2_n32 through the GF(2)
      solver): every kernel file must be byte-identical to its golden;
   4. the main path at full size: generate the bench matrix (300000 x
@@ -168,7 +173,7 @@ failure:
      iterations, v and p equal to one device's; utils/profiling.py's
      trace of 10 iterations of bench-n4, which must name the spmv_ell
      kernel and hold the solve.loop span;
-  11. last: print the kernels JSON line (fifteen kernels), the card line,
+  11. last: print the kernels JSON line (sixteen kernels), the card line,
      and the result line.
 
 Scratch files go to build/chip_smoke/ in the checkout.  Design
@@ -210,6 +215,17 @@ TIMING_REPS = 30
 GOLDEN = os.path.join(ROOT, "tests", "golden")
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 DEVICE = "cuda"
+# xoshiro_fill's shapes (field, prime, rows, n): the benchmark cells' v0
+# (GF(2) 500,000 x 128; narrow 100,000 x 4 and x 32), a wide one at
+# 2^61 - 1, and one whose count is below the kernel's lanes
+XOSHIRO_SHAPES = (("gf2", 2, 500_000, 128), ("narrow", 1073741789, 100_000, 4),
+                  ("narrow", 1073741789, 100_000, 32),
+                  ("wide", (1 << 61) - 1, 100_000, 4),
+                  ("narrow", 65537, 37, 4))
+# 32-bit integer instructions a draw needs at least: the xoshiro256+ step on
+# four u64 words (an add, a rotate and an add for the output; a shift, four
+# XORs and a rotate for the state), each two 32-bit halves
+XOSHIRO_OPS_PER_DRAW = 20
 
 
 def card_line() -> str:
@@ -1431,6 +1447,69 @@ def check_ortho_wide(rec, rng, dev, LW, wo, ws, blocks):
                  d_of("mixed", n), fe, states[0], skew=1)
 
 
+def xoshiro_host_block(gen, field, p, rows, n, pad):
+    """The solvers' NumPy v0 (their CPU branch of initial_block): the
+    draw, zero padding rows, GF(2) bits packed."""
+    import torch
+    from block_lanczos_tpu_torch.ops import gf2
+    if field == "gf2":
+        block = np.zeros((rows + pad, n), np.uint32)
+        block[:rows] = gen.fill_mod(rows * n, 2).reshape(rows, n)
+        return torch.from_numpy(gf2.pack_bits_np(block).view(np.int32))
+    dtype = np.int64 if field == "wide" else np.int32
+    block = np.zeros((rows + pad, n), dtype)
+    block[:rows] = (gen.fill_mod64 if field == "wide" else gen.fill_mod)(
+        rows * n, p).reshape(rows, n)
+    return torch.from_numpy(block)
+
+
+def check_xoshiro_fill(rec, dev):
+    """xoshiro_fill (v0 drawn on the card, ops/xoshiro.py::LaneDraw) against
+    the host draw, bit for bit, at XOSHIRO_SHAPES with 3 padding rows: two
+    draws in a row from one generator, the host-advanced state equal to the
+    NumPy draw's after each; timed at each shape (event ms of a whole
+    block() call, zeroed block and state advance included; device ms a
+    launch of the kernel alone, back to back; the host draw's seconds)."""
+    import torch
+    from block_lanczos_tpu_torch.ops import xoshiro
+    from block_lanczos_tpu_torch.utils import rng as xr
+    pad = 3
+    for field, p, rows, n in XOSHIRO_SHAPES:
+        count = rows * n
+        shape = (rows + pad, n // 32 if field == "gf2" else n)
+        d = xoshiro.LaneDraw(count, dev)
+        card, host = xr.Xoshiro256Plus(), xr.Xoshiro256Plus()
+        plain = []
+        for k in range(2):
+            got = d.block(card, field, p, shape)
+            t0 = time.perf_counter()
+            want = xoshiro_host_block(host, field, p, rows, n, pad)
+            plain.append(time.perf_counter() - t0)
+            rec.agree(f"{field} p={p} {rows} x {n}, draw {k}", got,
+                      want.to(dev))
+            if card.state != host.state:
+                raise AssertionError(f"xoshiro_fill {field} {rows} x {n}: "
+                                     "the host-advanced state differs")
+        ev = median_ms(lambda: d.block(card, field, p, shape))
+        out = torch.zeros(shape, device=dev, dtype=torch.int64
+                          if field == "wide" else torch.int32)
+        args = d.args(xr.DEFAULT_SEED, field, p)
+        dms = per_launch_ms(lambda: xoshiro.xoshiro_fill(d.jumps_dev, args,
+                                                         out))
+        nbytes = out.numel() * out.element_size()
+        b_ms, b_by = bound(nbytes, count * XOSHIRO_OPS_PER_DRAW)
+        print(f"  xoshiro_fill {field} p={p} {rows} x {n}: {d.lanes} lanes "
+              f"of {d.m}, {d.levels} jumps; event {ev:.4f} ms, device "
+              f"{dms:.4f} ms a launch, bound {b_ms:.4f} ms ({b_by}); host "
+              f"draw {min(plain):.4f} s", flush=True)
+        if (field, rows, n) == ("gf2", 500_000, 128):    # the table's row
+            rec.ms, rec.plain_ms = ev, min(plain) * 1e3
+            rec.bound_ms, rec.bound_by = b_ms, b_by
+            rec.extra["device_ms"] = dms
+    rec.note = ("ms, plain_ms, bound_ms at the GF(2) cell's v0, 500,000 x "
+                "128; plain_ms is the host draw, pack included")
+
+
 def check_wide_kernels(recs, rng, dev, ws):
     """Phase 2 of the wide kernels, on the bench operators of the wide
     solver `ws` (2^61 - 1, n = 4): every kernel against its plain version
@@ -2328,6 +2407,9 @@ def main() -> int:
         "pxor": KernelRecord(
             "pxor", "block_lanczos_tpu_torch/csrc/collectives.cu",
             "block_lanczos_tpu/parallel/distributed_gf2.py:39"),
+        "xoshiro_fill": KernelRecord(
+            "xoshiro_fill", "block_lanczos_tpu_torch/csrc/xoshiro_fill.cu",
+            "block_lanczos_tpu/utils/rng.py:49"),
     }
     rng = np.random.default_rng(2024)
 
@@ -2549,6 +2631,10 @@ def main() -> int:
     check_wide_kernels(recs, rng, dev, wsolver)
     torch.cuda.synchronize()
 
+    # v0 drawn on the card
+    check_xoshiro_fill(recs["xoshiro_fill"], dev)
+    torch.cuda.synchronize()
+
     # ---- phase 3: goldens on the card --------------------------------------
     print("phase 3: goldens on the card", flush=True)
     with open(os.path.join(GOLDEN, "MANIFEST.txt")) as fh:
@@ -2607,6 +2693,7 @@ def main() -> int:
     assert counts["spmv_ell"] >= 2 * it, counts
     for name in ("gram_mod", "semi_inverse", "orthogonalize"):
         assert counts[name] >= it, counts
+    assert counts["xoshiro_fill"] == 1, counts      # v0 drawn on the card
 
     # ---- phase 5: n = 32 ---------------------------------------------------
     print("phase 5: 100 iterations at n=32", flush=True)
@@ -2657,6 +2744,7 @@ def main() -> int:
     assert gcounts["spmv_gf2"] >= 2 * git, gcounts
     for name in ("gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"):
         assert gcounts[name] >= git, gcounts
+    assert gcounts["xoshiro_fill"] == 1, gcounts    # v0 drawn on the card
 
     # ---- phase 7: GF(2) against the narrow kernels at p = 2 ----------------
     print("phase 7: 50 iterations of BlockLanczosGF2(n=64, dedup=False), of "
@@ -2744,6 +2832,7 @@ def main() -> int:
     assert wcounts["spmv_wide"] >= 2 * wit, wcounts
     for name in ("gram_wide", "semi_inverse_wide", "orthogonalize_wide"):
         assert wcounts[name] >= wit, wcounts
+    assert wcounts["xoshiro_fill"] == 1, wcounts    # v0 drawn on the card
 
     # ---- phase 10: the wide field against the narrow one -------------------
     print(f"phase 10: 50 iterations of BlockLanczosWide and of the narrow "
@@ -2846,6 +2935,7 @@ def main() -> int:
         assert rc[names[0]] >= 2 * ran, rc
         for name in names[1:]:
             assert rc[name] >= ran, rc
+        assert rc["xoshiro_fill"] == 0, rc     # a resume draws no v0
         sv = saves[key]
         print(f"  {key}: saved at iteration {sv['iteration']} in "
               f"{sv['save_s']:.3f} s, {sv['bytes']} bytes; loaded in "
@@ -2979,6 +3069,9 @@ def main() -> int:
     counts.update(gcounts)
     counts.update(wcounts)
     counts.update(mesh_counts)
+    # xoshiro_fill: phase 6's GF(2) solve's, the shape of its timed row
+    # (phases 4 and 9 counted one each as well)
+    counts["xoshiro_fill"] = gcounts["xoshiro_fill"]
     print(json.dumps({"kernels": [recs[k].as_json(counts[k]) for k in recs]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
