@@ -184,8 +184,11 @@ class BlockLanczosWide:
         self.check_invariants = bool(check_invariants)
         self.sync_every = sync_every
         with profiling.span("layout", field=self.field):
-            with profiling.span("layout.build"):
+            with profiling.span("layout.build") as build:
                 sp = wo.wide_matrix_from_coo(self.f, M)
+                first, second = (sp.fwd, sp.bwd) if right else (sp.bwd,
+                                                                 sp.fwd)
+                build.set(**wo.slab_attrs((first,), (second,)))
             with profiling.span("layout.upload"):
                 self.sp = sp.to(self.device)
         self.nnz = M.nnz

@@ -34,6 +34,7 @@ from block_lanczos_tpu_torch.ops import gfp_wide as gw
 from block_lanczos_tpu_torch.ops import spmm
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.ops.semi_inverse import FROZEN, SemiInverse
+from block_lanczos_tpu_torch.utils import profiling
 
 MAX_N = 64  # csrc/semi_inverse_wide.cu SIW_MAXN, orthogonalize_wide OW_MAX_N
 # csrc/gram_wide.cu GW_SCRATCH: two 31-bit halves an entry of G, the ticket
@@ -83,8 +84,9 @@ def make_wide_op(f: GFpWide, out_idx, in_idx, vals, out_dim: int,
                  in_dim: int, ell: int | None = None) -> spmm.HybridOp:
     """A CPU HybridOp from COO arrays (values are reduced mod p here);
     `.to(device)` moves it.  Its slab holds int32 signed coefficients when
-    every coefficient fits (narrow_fits), else int64 residues; u64_slab
-    gives the same operator on the u64 slab."""
+    every coefficient fits (narrow_fits), else int64 residues (counted in
+    wide_slab_int32_ops / wide_slab_int64_ops); u64_slab gives the same
+    operator on the u64 slab."""
     v = np.asarray(vals)
     if v.dtype.kind == "i":
         v = (v % np.int64(f.p)).astype(np.uint64)
@@ -93,10 +95,24 @@ def make_wide_op(f: GFpWide, out_idx, in_idx, vals, out_dim: int,
     else:
         v = (v.astype(object) % f.p).astype(np.uint64)
     narrow = narrow_fits(f.p, v)
+    profiling.count("wide_slab_int32_ops" if narrow else "wide_slab_int64_ops")
     arrays = spmm.build_hybrid_arrays(
         out_idx, in_idx, slab_values(f.p, v, narrow), out_dim, ell,
         dtype=np.int32 if narrow else np.int64)
     return spmm.hybrid_op_from_arrays(f.p, arrays, out_dim, in_dim)
+
+
+def slab(*ops) -> str:
+    """The slab of wide operators: "int32" when each holds int32 signed
+    coefficients, else "int64"."""
+    return "int32" if all(op.vals.dtype == torch.int32 for op in ops) \
+        else "int64"
+
+
+def slab_attrs(first, second) -> dict:
+    """layout.build's attribute `slab`: the slab of each direction (the
+    operators of the first product, then of the second)."""
+    return {"slab": (slab(*first), slab(*second))}
 
 
 def wide_matrix_from_coo(f: GFpWide, M) -> spmm.SpMatrix:

@@ -8,7 +8,7 @@ with the wide kernels (ops/wide_ops.py, models/lanczos_wide.py) and the
 exact wide all-reduce `psum_mod_wide` after each partial.  Each rank's
 block is built by the single-device wide layout builder
 (ops/wide_ops.py::make_wide_op), so the int32 signed-coefficient slab is
-chosen per block.
+chosen per block; layout.build's `slab` names each direction's.
 """
 
 from __future__ import annotations
@@ -41,7 +41,8 @@ def partition_matrix_wide(f: GFpWide, M: COOMatrix, right: bool, grid: Grid,
                           pad_multiple: int = 8) -> shard_lib.ShardedOps:
     """This rank's block of the wide-field matrix as wide HybridOps."""
     return shard_lib.partition(grid, M.i, M.j, np.asarray(M.x), M.nrows,
-                               M.ncols, right, _op_maker(f), pad_multiple)
+                               M.ncols, right, _op_maker(f), pad_multiple,
+                               span_attrs=wo.slab_attrs)
 
 
 def partition_matrix_overlap_wide(f: GFpWide, M: COOMatrix, right: bool,
@@ -51,7 +52,8 @@ def partition_matrix_overlap_wide(f: GFpWide, M: COOMatrix, right: bool,
     chunks (sharding.partition_overlap)."""
     return shard_lib.partition_overlap(
         grid, M.i, M.j, np.asarray(M.x), M.nrows, M.ncols, right,
-        _op_maker(f), pad_multiple, solver="ShardedBlockLanczosWide")
+        _op_maker(f), pad_multiple, solver="ShardedBlockLanczosWide",
+        span_attrs=wo.slab_attrs)
 
 
 class ShardedBlockLanczosWide(_ShardedSolver):

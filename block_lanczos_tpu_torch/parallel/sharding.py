@@ -343,17 +343,21 @@ def _to_device(op, device):
 
 
 def partition(grid, nnz_i, nnz_j, vals, nrows: int, ncols: int,
-              right: bool, build, pad_multiple: int = 8) -> ShardedOps:
+              right: bool, build, pad_multiple: int = 8,
+              span_attrs=None) -> ShardedOps:
     """Split the matrix over `grid` (parallel/mesh.py) and build this
     rank's block: build(out_idx, in_idx, vals, out_dim, in_dim) makes one
     local operator on the host (a field's single-device layout builder);
-    both are moved to grid.device."""
-    with profiling.span("layout.build"):
+    both are moved to grid.device.  span_attrs(first_ops, second_ops),
+    where given, names the layout.build span's attributes."""
+    with profiling.span("layout.build") as span:
         n_eff, m_eff, row_map, col_map, blk = _block(
             grid, nnz_i, nnz_j, vals, nrows, ncols, right, pad_multiple)
         band, mband = row_map.band, col_map.band
         first = build(blk.lo, blk.lk, blk.vals, mband, band)
         second = build(blk.lk, blk.lo, blk.vals, band, mband)
+        if span_attrs is not None:
+            span.set(**span_attrs((first,), (second,)))
     stats = PartitionStats(grid=grid.shape, shard_nnz=blk.shard_nnz,
                            row_balanced=not row_map.identity,
                            col_balanced=not col_map.identity,
@@ -401,13 +405,13 @@ def _chunk_stats(a: DirStats, b: DirStats) -> DirStats:
 
 def partition_overlap(grid, nnz_i, nnz_j, vals, nrows: int, ncols: int,
                       right: bool, build, pad_multiple: int = 8,
-                      solver: str = "ShardedBlockLanczos"
+                      solver: str = "ShardedBlockLanczos", span_attrs=None
                       ) -> OverlapShardedOps:
     """`partition` with each direction's output rows split in two (the
     split a multiple of pad_multiple).  Raises ValueError, naming the
     non-overlap `solver` to use instead, when a band is too small to
     split."""
-    with profiling.span("layout.build"):
+    with profiling.span("layout.build") as span:
         n_eff, m_eff, row_map, col_map, blk = _block(
             grid, nnz_i, nnz_j, vals, nrows, ncols, right, pad_multiple)
         band, mband = row_map.band, col_map.band
@@ -429,6 +433,8 @@ def partition_overlap(grid, nnz_i, nnz_j, vals, nrows: int, ncols: int,
 
         first_a, first_b = chunks(blk.lo, blk.lk, ha, mband, band)
         second_a, second_b = chunks(blk.lk, blk.lo, hb, band, mband)
+        if span_attrs is not None:
+            span.set(**span_attrs((first_a, first_b), (second_a, second_b)))
     stats = PartitionStats(
         grid=grid.shape, shard_nnz=blk.shard_nnz,
         row_balanced=not row_map.identity, col_balanced=not col_map.identity,

@@ -34,9 +34,13 @@ The solvers record these spans, each under the one it is indented under:
     checkpoint.save (in a block.callback that saves), checkpoint.load
 
 and the counters iterations_issued, iterations_done (the stopping probe
-included) and blocks (models/lanczos.py::blocked_solve_loop), and
+included) and blocks (models/lanczos.py::blocked_solve_loop),
 v0_draws_device, the v0 draws made on the card (ops/xoshiro.py::LaneDraw;
-the single-device solvers on CUDA: v0.draw's device "cuda").  Spans
+the single-device solvers on CUDA: v0.draw's device "cuda"), and
+wide_slab_int32_ops / wide_slab_int64_ops, the wide operators built on
+each slab (ops/wide_ops.py::make_wide_op); the wide solvers' layout.build
+names each direction's slab, "int32" or "int64", in its attribute slab
+(first product, second).  Spans
 never wait for the device: `block.issue` ends when the host has issued the
 block's launches, so a full launch queue shows inside it, and the device's
 time shows in `block.sync`.  Nothing is recorded finer than a block of
