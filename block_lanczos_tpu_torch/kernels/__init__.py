@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` (four narrow-field kernels on `modp.cuh`, four
 GF(2) kernels on `gf2.cuh`, four wide-field kernels on `modp64.cuh`, and
 `collectives.cu`: the mesh's exact all-reduces, whose pack and fold halves
-are six entry points of one source, and `xoshiro_fill.cu`: the solvers'
-initial block drawn on the card) is compiled by nvcc, at first use,
+are six entry points of one source, `xoshiro_fill.cu`: the solvers'
+initial block drawn on the card, and `gf2_final.cu`: the GF(2) solver's
+final unpack and check) is compiled by nvcc, at first use,
 into its own shared library with a plain C interface and loaded with
 ctypes:
 
@@ -113,11 +114,15 @@ SIGNATURES = {
     # s0, s1, s2, s3, count, m, field, p, mu, out, stream
     "xoshiro_fill": ("xoshiro_fill", (_P, _I, _U, _U, _U, _U, _L, _L, _I, _U,
                                       _U, _P, _P)),
+    # GF(2)'s final step on the card (ops/gf2.py::final_unpack): v, tmp,
+    # n_eff, m_eff, W, out, flags, stream
+    "final_unpack": ("final_unpack", (_P, _P, _L, _L, _I, _P, _P, _P)),
 }
 # exported C function -> its source stem, where that is not its own name
 SOURCES = {name: "collectives" for name in (
     "psum_mod_pack", "psum_mod_fold", "psum_mod_wide_pack",
     "psum_mod_wide_fold", "pxor_spread", "pxor_fold")}
+SOURCES["final_unpack"] = "gf2_final"
 # the source stems, each one library
 SOURCE_NAMES = tuple(dict.fromkeys(SOURCES.get(n, n) for n in SIGNATURES))
 

@@ -19,6 +19,9 @@ state of ops/semi_inverse.py, so the host runs up to K iterations per sync
 (models/lanczos.py::blocked_solve_loop); once a halt is latched v and p
 stay as they were (on a stop, the pre-update block) and the rest of the
 block recomputes the same values.  Zero padding rows stay zero throughout.
+On CUDA the solve ends on the card as well: one `final_unpack` launch
+(csrc/gf2_final.cu) unpacks v's bit block and decides the final check,
+and only the unpacked block (and, on a failed check, tmp's) is downloaded.
 """
 
 from __future__ import annotations
@@ -270,12 +273,13 @@ def orthogonalize_gf2(v, p_blk, Av, rhs, d, state) -> None:
 orthogonalize_gf2.launches = 0
 
 _WRAPPERS = (spmv_gf2, gram_gf2, semi_inverse_gf2, orthogonalize_gf2,
-             xoshiro_fill)
+             xoshiro_fill, gf2.final_unpack)
 
 
 def launch_counts() -> dict:
-    """{kernel name: launches} of the four GF(2) kernel wrappers and
-    xoshiro_fill (v0 drawn on the card, once a solve)."""
+    """{kernel name: launches} of the four GF(2) kernel wrappers,
+    xoshiro_fill (v0 drawn on the card, once a solve) and final_unpack (the
+    final step on the card: once a solve, twice when the check fails)."""
     return {w.__name__: w.launches for w in _WRAPPERS}
 
 
@@ -376,6 +380,9 @@ class BlockLanczosGF2:
         self._rng = Xoshiro256Plus() if seed is None else Xoshiro256Plus(seed)
         self._v0_draw = (LaneDraw(self.n_eff * self.n, self.device)
                          if self.device.type == "cuda" else None)
+        # the final step's unpack and check: on the card on CUDA
+        # (csrc/gf2_final.cu), in NumPy otherwise
+        self._final_on_card = self.device.type == "cuda"
 
     def initial_block(self) -> torch.Tensor:
         """v0 bits from the same xoshiro stream: random64() % 2 per entry,
@@ -436,6 +443,12 @@ class BlockLanczosGF2:
                     ws["grams"] = torch.empty((2 * n, W), dtype=torch.int32,
                                               device=self.device)
                     ws["si"] = gf2.empty_outputs(n, self.device)
+                if self._final_on_card:
+                    ws["unpacked"] = torch.empty((self.np_rows, n),
+                                                 dtype=torch.int32,
+                                                 device=self.device)
+                    ws["flags"] = torch.empty(2, dtype=torch.int32,
+                                              device=self.device)
 
             def inv_fail(iteration):
                 raise AssertionError(
@@ -452,26 +465,67 @@ class BlockLanczosGF2:
                 inv_fail=inv_fail if self.check_invariants else None)
             if launches is not None:
                 sp.set(**loop.solve_attrs(launches, launch_counts()))
-            v_nonzero = product_zero = vtM = None
+            tmp = None if loop.stopped_by_limit else ws["tmp"]
             with profiling.span("solve.final"):
-                with profiling.span("final.download"):
-                    v_words = v.cpu().numpy()
-                    tmp_words = (None if loop.stopped_by_limit
-                                 else ws["tmp"].cpu().numpy())
-                with profiling.span("final.unpack"):
-                    v_bits = gf2.unpack_bits_np(v_words, n)
-                    tmp_bits = (None if tmp_words is None
-                                else gf2.unpack_bits_np(tmp_words, n))
-                if tmp_bits is not None:
-                    v_nonzero, product_zero = final_check(
-                        v_bits, tmp_bits, self.n_eff, self.m_eff, verbose)
-                    if not product_zero:
-                        vtM = tmp_bits[:self.m_eff]
+                if self._final_on_card:
+                    kernel, v_nonzero, product_zero, vtM = \
+                        self._final_card(v, tmp, ws, verbose)
+                else:
+                    kernel, v_nonzero, product_zero, vtM = \
+                        self._final_host(v, tmp, verbose)
         if verbose:
             print(f"  - Terminated in {loop.elapsed:.1f}s after "
                   f"{loop.iterations} iterations")
-        return SolveResult(kernel=v_bits[:self.n_eff],
+        return SolveResult(kernel=kernel,
                            iterations=loop.iterations,
                            v_nonzero=v_nonzero, product_zero=product_zero,
                            elapsed=loop.elapsed,
                            stopped_by_limit=loop.stopped_by_limit, vtM=vtM)
+
+    def _final_host(self, v, tmp, verbose):
+        """The final step in NumPy: (kernel, v_nonzero, product_zero, vtM)
+        from v's and tmp's words downloaded and unpacked; tmp None (a solve
+        stopped by its limit) gives the kernel block alone."""
+        n = self.n
+        v_nonzero = product_zero = vtM = None
+        with profiling.span("final.download"):
+            v_words = v.cpu().numpy()
+            tmp_words = None if tmp is None else tmp.cpu().numpy()
+        with profiling.span("final.unpack", device="cpu"):
+            v_bits = gf2.unpack_bits_np(v_words, n)
+            tmp_bits = (None if tmp_words is None
+                        else gf2.unpack_bits_np(tmp_words, n))
+        if tmp_bits is not None:
+            v_nonzero, product_zero = final_check(
+                v_bits, tmp_bits, self.n_eff, self.m_eff, verbose)
+            if not product_zero:
+                vtM = tmp_bits[:self.m_eff]
+        return v_bits[:self.n_eff], v_nonzero, product_zero, vtM
+
+    def _final_card(self, v, tmp, ws, verbose):
+        """The final step on the card, as _final_host returns it: one
+        final_unpack launch writes v's bits into ws["unpacked"] and the
+        flags of a nonzero v and a nonzero tmp into ws["flags"], one read of
+        the flags decides the check, and one download brings the kernel
+        block.  tmp's bits (vtM) are unpacked and downloaded only when the
+        check fails."""
+        n, n_eff, m_eff = self.n, self.n_eff, self.m_eff
+        flags = ws["flags"]
+        v_nonzero = product_zero = vtM = None
+        with profiling.span("final.unpack", device="cuda"):
+            gf2.final_unpack(v, tmp, n_eff, m_eff, n, ws["unpacked"], flags)
+        profiling.count("final_unpack_device")
+        if tmp is not None:
+            # flags[0] (flags[1]) is nonzero iff a word of v (of tmp) is:
+            # as one-row blocks standing for v and vtM they give final_check
+            # its two answers, and its report
+            v_nonzero, product_zero = final_check(flags[:1], flags[1:], 1, 1,
+                                                  verbose)
+        with profiling.span("final.download"):
+            kernel = ws["unpacked"][:n_eff].cpu().numpy().view(np.uint32)
+            if tmp is not None and not product_zero:
+                bits = torch.empty((m_eff, n), dtype=torch.int32,
+                                   device=v.device)
+                gf2.final_unpack(tmp, None, m_eff, 0, n, bits, flags)
+                vtM = bits.cpu().numpy().view(np.uint32)
+        return kernel, v_nonzero, product_zero, vtM

@@ -11,8 +11,8 @@ few operations); NumPy callers convert with `.view(np.int32)` /
 `.view(np.uint32)`.  `>>` on int32 is arithmetic, so every bit extraction
 masks with `& 1` after the shift.
 
-Two hand-written CUDA kernels live here, each with its plain PyTorch
-version, which the wrapper takes for CPU tensors only:
+Three hand-written CUDA kernels have their wrappers here.  Two have a
+plain PyTorch version, which the wrapper takes for CPU tensors only:
   * `gram_gf2` (csrc/gram_gf2.cu): [v | Av]^T Av over GF(2), as the parity
     of a binary tensor-core product; `gram_gf2_tiles_np` mirrors its
     tiles, transposes and fragment layout in NumPy for the CPU tests;
@@ -20,6 +20,10 @@ version, which the wrapper takes for CPU tensors only:
     Gauss-Jordan, with the invariant checks and the orthogonalize
     right-hand side, and the solver state's stop / inv_ok latch;
     `semi_inverse_gf2_warp_np` mirrors its one-warp elimination.
+The third, `final_unpack` (csrc/gf2_final.cu), ends a solve on the card:
+it unpacks v's bit block and sets the final check's two flags; its NumPy
+mirror `final_unpack_np` follows the kernel's tiles and store order, and
+the solver's CPU path keeps `unpack_bits_np` and `final_check`.
 `orthogonalize_gf2_tiles_np` mirrors the tiles of the orthogonalize_gf2
 kernel (models/lanczos_gf2.py) on the binary tensor cores.
 The plain versions of the n x n products (`matmul_gf2`, `transpose_bits`)
@@ -619,6 +623,76 @@ def semi_inverse_gf2(grams: torch.Tensor, state: torch.Tensor,
 
 
 semi_inverse_gf2.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The final step on the card: v unpacked, v != 0 and v^T M == 0 as flags
+# ---------------------------------------------------------------------------
+
+FU_TILE = 128        # words of v a warp unpacks at a time (csrc/gf2_final.cu)
+
+
+def final_unpack(v: torch.Tensor, tmp: torch.Tensor | None, n_eff: int,
+                 m_eff: int, n: int, out: torch.Tensor,
+                 flags: torch.Tensor) -> None:
+    """Launch the final_unpack kernel (CUDA tensors only): out[:n_eff] <- the
+    bits of v's first n_eff rows ((n_eff, n) 0/1 int32, column c bit c % 32
+    of word c // 32: unpack_bits_np's block); flags[0] <- 1 if any word of
+    those rows is nonzero, flags[1] <- 1 if any word of tmp's first m_eff
+    rows is, else 0.  tmp None unpacks v alone (flags[1] stays 0).  v, tmp
+    and out must start on 16-byte boundaries (whole allocations do)."""
+    W = check_width(n)
+    if v.dim() != 2 or v.shape[1] != W or v.shape[0] < n_eff:
+        raise ValueError(f"final_unpack: v must be (>= {n_eff}, {W}) words")
+    if tmp is not None and (tmp.dim() != 2 or tmp.shape[1] != W
+                            or tmp.shape[0] < m_eff):
+        raise ValueError(f"final_unpack: tmp must be (>= {m_eff}, {W}) "
+                         "words")
+    if out.dim() != 2 or out.shape[0] < n_eff or out.shape[1] != n \
+            or flags.shape != (2,):
+        raise ValueError(f"final_unpack: out must be (>= {n_eff}, {n}) and "
+                         "flags (2,)")
+    kernels.check_operands("final_unpack", v, out, flags,
+                           *(() if tmp is None else (tmp,)))
+    kernels.launch("final_unpack", v.data_ptr(),
+                   None if tmp is None else tmp.data_ptr(), int(n_eff),
+                   0 if tmp is None else int(m_eff), W, out.data_ptr(),
+                   flags.data_ptr())
+    final_unpack.launches += 1
+
+
+final_unpack.launches = 0
+
+
+def final_unpack_np(v: np.ndarray, tmp: np.ndarray | None, n_eff: int,
+                    m_eff: int, n: int):
+    """csrc/gf2_final.cu in NumPy: (bits, flags), bits the (n_eff, n) uint32
+    block the kernel writes and flags its two int32 flags.  As the kernel:
+    v's first n_eff rows as flat words, a tile of FU_TILE words a warp,
+    lane l loading words 4l .. 4l + 3 (zero past the end) and, at store step
+    k, writing uint4 32 k + l of the tile's output: bits 4 (l % 8) ..
+    4 (l % 8) + 3 of the tile's word 4 k + l // 8."""
+    W = words(n)
+    v = np.ascontiguousarray(v).view(np.uint32)
+    nv = n_eff * W
+    flat = v[:n_eff].reshape(-1)
+    tiles = -(-nv // FU_TILE)
+    loaded = np.zeros(tiles * FU_TILE, np.uint32)
+    loaded[:nv] = flat
+    t, k, lane = np.meshgrid(np.arange(tiles), np.arange(FU_TILE // 4),
+                             np.arange(32), indexing="ij")
+    word = t * FU_TILE + 4 * k + (lane >> 3)
+    keep = word < nv
+    x = loaded[word[keep]] >> (4 * (lane[keep] & 7)).astype(np.uint32)
+    out = np.empty((nv * 8, 4), np.uint32)
+    store = (t * 8 * FU_TILE + 32 * k + lane)[keep]
+    out[store] = (x[:, None] >> np.arange(4, dtype=np.uint32)) & 1
+    flags = np.zeros(2, np.int32)
+    flags[0] = int(loaded.any())
+    if tmp is not None:
+        flags[1] = int(np.ascontiguousarray(tmp).view(np.uint32)[:m_eff]
+                       .any())
+    return out.reshape(n_eff, n), flags
 
 
 # ---------------------------------------------------------------------------

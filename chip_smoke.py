@@ -10,7 +10,8 @@ failure:
   0. print the card's name and power limit; require CUDA;
   1. build the CUDA kernels from block_lanczos_tpu_torch/csrc/ (four
      narrow-field, four bitsliced GF(2), four wide-field, the mesh's
-     collectives and xoshiro_fill, v0 on the card), and two builds
+     collectives, xoshiro_fill, v0 on the card, and gf2_final, GF(2)'s
+     final step), and two builds
      that phase 2 uses beside them (gram_wide recombining every 64 / 128
      rows; spmv_wide's gather-only floor);
   2. hold every kernel against its plain PyTorch version on the card, at
@@ -76,7 +77,11 @@ failure:
      bit, twice in a row from one generator whose host-advanced state must
      equal the NumPy draw's, at the benchmark's v0 shapes (GF(2) 500,000 x
      128, narrow 100,000 x 4 and x 32), a wide one at 2^61 - 1 and a count
-     below the kernel's lanes, each timed;
+     below the kernel's lanes, each timed; then final_unpack (GF(2)'s
+     final step on the card) against its NumPy mirror, bit for bit, with
+     tmp, without it and on tmp alone, padding rows of random words, at
+     n = 32, 128, 512 and the GF(2) cell's 500,000 x 128, timed there beside
+     the host path it replaces;
   3. solve the 9 goldens on the card (left_p2_n32 through the GF(2)
      solver): every kernel file must be byte-identical to its golden;
   4. the main path at full size: generate the bench matrix (300000 x
@@ -1510,6 +1515,74 @@ def check_xoshiro_fill(rec, dev):
                 "128; plain_ms is the host draw, pack included")
 
 
+# final_unpack's shapes (n, rows, n_eff, m_eff): small ones at three widths,
+# tmp absent or all padding (m_eff 0), and the GF(2) cell's 500,000 x 128
+FINAL_SHAPES = ((32, 8, 1, 1), (32, 4104, 4099, 3001), (128, 136, 129, 130),
+                (512, 4104, 4099, 3001), (128, 500_000, 499_992, 0),
+                (128, 500_000, 500_000, 499_000))
+
+
+def check_final_unpack(rec, rng, dev):
+    """final_unpack (GF(2)'s final step on the card, ops/gf2.py) against
+    its NumPy mirror, bit for bit, at FINAL_SHAPES with random words in
+    every row, padding included: with tmp and without it, and on tmp alone
+    (the failed check's vtM); timed at the GF(2) cell's 500,000 x 128 (event
+    ms of the launch, device ms back to back, the bytes bound) beside the
+    host path it replaces (download, unpack_bits_np, final_check)."""
+    import torch
+    from block_lanczos_tpu_torch.models.lanczos import final_check
+    from block_lanczos_tpu_torch.ops import gf2
+    for n, rows, n_eff, m_eff in FINAL_SHAPES:
+        W = n // 32
+        v, tmp = (rng.integers(0, 1 << 32, size=(rows, W), dtype=np.uint64)
+                  .astype(np.uint32).view(np.int32) for _ in range(2))
+        vd, td = torch.from_numpy(v).to(dev), torch.from_numpy(tmp).to(dev)
+        out = torch.empty((rows, n), dtype=torch.int32, device=dev)
+        flags = torch.empty(2, dtype=torch.int32, device=dev)
+        for t, td_ in ((tmp, td), (None, None)):
+            bits, want_flags = gf2.final_unpack_np(v, t, n_eff, m_eff, n)
+            gf2.final_unpack(vd, td_, n_eff, m_eff, n, out, flags)
+            rec.agree(f"n={n} {rows} rows, n_eff {n_eff}, m_eff {m_eff}"
+                      f"{'' if t is not None else ', no tmp'}",
+                      out[:n_eff], torch.from_numpy(bits.view(np.int32))
+                      .to(dev))
+            rec.agree(f"flags n={n} {rows} rows", flags,
+                      torch.from_numpy(want_flags).to(dev))
+        bits, want_flags = gf2.final_unpack_np(tmp, None, m_eff, 0, n)
+        gf2.final_unpack(td, None, m_eff, 0, n, out, flags)
+        rec.agree(f"vtM n={n} {rows} rows, m_eff {m_eff}", out[:m_eff],
+                  torch.from_numpy(bits.view(np.int32)).to(dev))
+        if (n, rows, m_eff) != (128, 500_000, 499_000):
+            continue
+        ev = median_ms(lambda: gf2.final_unpack(vd, td, n_eff, m_eff, n,
+                                                out, flags))
+        dms = per_launch_ms(lambda: gf2.final_unpack(vd, td, n_eff, m_eff, n,
+                                                     out, flags))
+        t0 = time.perf_counter()
+        kernel = out[:n_eff].cpu()
+        down_s = time.perf_counter() - t0
+        plain = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            vb = gf2.unpack_bits_np(vd.cpu().numpy(), n)
+            tb = gf2.unpack_bits_np(td.cpu().numpy(), n)
+            final_check(vb, tb, n_eff, m_eff, verbose=False)
+            plain.append(time.perf_counter() - t0)
+        assert np.array_equal(kernel.numpy().view(np.uint32), vb[:n_eff])
+        nbytes = (n_eff + m_eff) * W * 4 + n_eff * n * 4
+        rec.set_bound(nbytes, 0)
+        rec.ms, rec.plain_ms = ev, min(plain) * 1e3
+        rec.extra["device_ms"] = dms
+        rec.extra["download_ms"] = down_s * 1e3
+        print(f"  final_unpack n={n} {n_eff} x {n} (tmp {m_eff} rows): event "
+              f"{ev:.4f} ms, device {dms:.4f} ms a launch, bound "
+              f"{rec.bound_ms:.4f} ms ({rec.bound_by}); the block's download "
+              f"{down_s * 1e3:.1f} ms; host path (download, unpack, check) "
+              f"{min(plain):.4f} s", flush=True)
+    rec.note = ("ms, plain_ms, bound_ms at the GF(2) cell's 500,000 x 128; "
+                "plain_ms is the host path it replaces")
+
+
 def check_wide_kernels(recs, rng, dev, ws):
     """Phase 2 of the wide kernels, on the bench operators of the wide
     solver `ws` (2^61 - 1, n = 4): every kernel against its plain version
@@ -2410,6 +2483,9 @@ def main() -> int:
         "xoshiro_fill": KernelRecord(
             "xoshiro_fill", "block_lanczos_tpu_torch/csrc/xoshiro_fill.cu",
             "block_lanczos_tpu/utils/rng.py:49"),
+        "final_unpack": KernelRecord(
+            "final_unpack", "block_lanczos_tpu_torch/csrc/gf2_final.cu",
+            "block_lanczos_tpu/models/lanczos_gf2.py (host unpack)"),
     }
     rng = np.random.default_rng(2024)
 
@@ -2635,6 +2711,10 @@ def main() -> int:
     check_xoshiro_fill(recs["xoshiro_fill"], dev)
     torch.cuda.synchronize()
 
+    # GF(2)'s final step on the card
+    check_final_unpack(recs["final_unpack"], rng, dev)
+    torch.cuda.synchronize()
+
     # ---- phase 3: goldens on the card --------------------------------------
     print("phase 3: goldens on the card", flush=True)
     with open(os.path.join(GOLDEN, "MANIFEST.txt")) as fh:
@@ -2745,6 +2825,8 @@ def main() -> int:
     for name in ("gram_gf2", "semi_inverse_gf2", "orthogonalize_gf2"):
         assert gcounts[name] >= git, gcounts
     assert gcounts["xoshiro_fill"] == 1, gcounts    # v0 drawn on the card
+    # the final step on the card: a second launch unpacks vtM on a failure
+    assert gcounts["final_unpack"] == 1 + (not gres.product_zero), gcounts
 
     # ---- phase 7: GF(2) against the narrow kernels at p = 2 ----------------
     print("phase 7: 50 iterations of BlockLanczosGF2(n=64, dedup=False), of "
@@ -3072,6 +3154,7 @@ def main() -> int:
     # xoshiro_fill: phase 6's GF(2) solve's, the shape of its timed row
     # (phases 4 and 9 counted one each as well)
     counts["xoshiro_fill"] = gcounts["xoshiro_fill"]
+    counts["final_unpack"] = gcounts["final_unpack"]
     print(json.dumps({"kernels": [recs[k].as_json(counts[k]) for k in recs]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {

@@ -417,6 +417,8 @@ def test_kernel_constants_match_the_python():
     ("void gram_gf2_kernel<4>(int const*, ...)", "gram_gf2"),
     ("semi_inverse_gf2_kernel(int const*, int, ...)", "semi_inverse_gf2"),
     ("void orthogonalize_gf2_mma_kernel<8>(int*, ...)", "orthogonalize_gf2"),
+    ("final_unpack_kernel(unsigned int const*, long long, ...)",
+     "final_unpack"),
 ])
 def test_profile_solve_maps_gf2_kernels_to_wrappers(key, wrapper):
     from block_lanczos_tpu_torch.utils import profile_solve as ps

@@ -188,10 +188,11 @@ def test_kernel_build_needs_nvcc(monkeypatch):
     # the mesh's collectives: a pack and a fold each, one source
     mesh = {"psum_mod_pack", "psum_mod_fold", "psum_mod_wide_pack",
             "psum_mod_wide_fold", "pxor_spread", "pxor_fold"}
-    # v0 drawn on the card
+    # v0 drawn on the card; GF(2)'s final step, final_unpack in gf2_final.cu
     setup = {"xoshiro_fill"}
-    assert set(kernels.SIGNATURES) == fields | mesh | setup
-    assert set(kernels.SOURCE_NAMES) == fields | {"collectives"} | setup
+    assert set(kernels.SIGNATURES) == fields | mesh | setup | {"final_unpack"}
+    assert set(kernels.SOURCE_NAMES) == (fields | {"collectives"} | setup
+                                         | {"gf2_final"})
     for name in kernels.SIGNATURES:
         src = kernels.SOURCES.get(name, name)
         assert (kernels.CSRC / f"{src}.cu").exists()
