@@ -2,9 +2,12 @@
 inside the six solvers, on the CPU:
 
   * under `profiling.recording()` a solve of each field, on one device and
-    on a 1 x 1 gloo mesh, records every named span of its layout and its
-    solve, each child inside its parent and under the parent the contract
-    names, all spans of the solve sharing its id;
+    on a 1 x 1 gloo mesh, records exactly the named spans of its layout and
+    its solve, each child inside its parent and under the parent the
+    contract names, all spans of the solve sharing its id, each span with
+    exactly its contract's attributes (the `solve` span's
+    launches_per_iteration empty on the CPU, where no wrapper launches a
+    kernel);
   * the counters: iterations_done is the iterations + 1 (the stopping
     probe), blocks the on_iteration calls, and the `block` spans' and the
     `solve` span's attributes add up to them; with sync_every fixed,
@@ -60,6 +63,14 @@ MESH = {"narrow": {"final.gather", "block.agree"},
         "gf2": {"layout.dedup", "final.gather", "final.unpack",
                 "block.agree"},
         "wide": {"final.gather", "block.agree"}}
+# each span's attribute names (none where unnamed); the field's others below
+ATTRS = {"layout": {"field"}, "v0.draw": {"device"},
+         "block": {"issued", "done"},
+         "solve": {"field", "iterations", "iterations_issued",
+                   "iterations_done", "blocks", "launches_per_iteration"}}
+FIELD_ATTRS = {"narrow": {}, "gf2": {"final.unpack": {"device"}},
+               "wide": {"layout.build": {"slab"}}}
+MESH_ATTRS = {"narrow": {}, "gf2": {}, "wide": {"layout.build": {"slab"}}}
 
 
 def _matrix(field):
@@ -86,12 +97,12 @@ def _named(rec, name):
 
 
 def _check_tree(rec, expected):
-    """Every expected name recorded; each span inside its parent, under
-    the parent PARENT names, with its parent's solve id; one solve id for
-    the whole solve."""
+    """Exactly the expected names recorded; each span inside its parent,
+    under the parent PARENT names, with its parent's solve id; one solve id
+    for the whole solve."""
     by_id = {s.id: s for s in rec.spans}
-    assert expected <= {s.name for s in rec.spans}, \
-        expected - {s.name for s in rec.spans}
+    assert {s.name for s in rec.spans} == expected, \
+        {s.name for s in rec.spans} ^ expected
     for s in rec.spans:
         assert s.start_ns <= s.end_ns
         if s.parent is None:
@@ -106,6 +117,16 @@ def _check_tree(rec, expected):
     under = [s for s in rec.spans if s.name.split(".")[0] in
              ("solve", "v0", "block", "final")]
     assert {s.solve for s in under} == {solve.id}
+
+
+def _check_attrs(rec, field_attrs):
+    """Each span's attribute names those of ATTRS and the field's, and no
+    other; the `solve` span launches no wrapper on the CPU."""
+    want = dict(ATTRS, **field_attrs)
+    for s in rec.spans:
+        assert set(s.attrs) == want.get(s.name, set()), (s.name, s.attrs)
+    (solve,) = _named(rec, "solve")
+    assert set(solve.attrs["launches_per_iteration"]) == set()
 
 
 def _check_counters(rec, res, calls):
@@ -133,6 +154,7 @@ def test_one_device_solve_records_every_span_and_counter(field):
         res = s.solve(on_iteration=lambda *a: calls.append(a[1]))
     assert res.v_nonzero and res.product_zero
     _check_tree(rec, COMMON | FIELD[field])
+    _check_attrs(rec, FIELD_ATTRS[field])
     _check_counters(rec, res, len(calls))
 
 
@@ -151,6 +173,7 @@ def test_mesh_solve_records_every_span_and_counter(field, tmp_path):
         dist.destroy_process_group()
     assert res.v_nonzero and res.product_zero
     _check_tree(rec, COMMON - {"final.download"} | MESH[field])
+    _check_attrs(rec, MESH_ATTRS[field])
     _check_counters(rec, res, len(calls))
     # the single-device solver runs the same iterations
     with profiling.recording() as one:
