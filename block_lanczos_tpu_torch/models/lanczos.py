@@ -277,30 +277,6 @@ def multi_step(step: Callable[[], object], state: torch.Tensor):
     return run
 
 
-def start_blocks(solver, resume_state: dict | None):
-    """(v, p, the iteration it starts at) of a solver's solve(): v0 from
-    `solver.initial_block()` (span solve.v0) and p zero, or the blocks of
-    a resume_state through `solver._resume_block` (solve.resume)."""
-    if resume_state is None:
-        with profiling.span("solve.v0"):
-            v = solver.initial_block()
-        return v, torch.zeros_like(v), 0
-    with profiling.span("solve.resume"):
-        return (solver._resume_block(resume_state, "v"),
-                solver._resume_block(resume_state, "p"),
-                int(resume_state["iteration"]))
-
-
-def block_callback(solver, on_iteration, v, p_blk):
-    """blocked_solve_loop's on_iteration for solve()'s
-    `on_iteration(solver, iteration, v, p_blk, start)`; None without
-    one."""
-    if on_iteration is None:
-        return None
-    return lambda iteration, start: on_iteration(solver, iteration, v, p_blk,
-                                                 start)
-
-
 class LoopResult(NamedTuple):
     """What blocked_solve_loop returns: `iterations` as the reference
     counts them; `elapsed` the loop's seconds by perf_counter; `issued`
@@ -403,7 +379,174 @@ class SolveResult:
     vtM: np.ndarray | None = None
 
 
-class BlockLanczos:
+class LanczosSolver:
+    """The solve protocol of the port's six solvers, written once: solve()
+    runs v0 (or a resume), the blocked host loop and the final step under
+    their spans, on one device or on every rank of a mesh.
+
+    A solver sets `field` (the checkpoint manifest's), `device`, `n`,
+    `sync_every`, `check_invariants`, `expected_iterations` and
+    `_launch_counts` (its kernel wrappers' counter, read while recording),
+    and writes the hooks `_banner()` (the verbose header's first lines) and
+    `_resume_block`.  The base's other hooks serve the one-device prime
+    fields, and a solver overrides those that do not fit it:
+      - `_setup`, the constructors' tail;
+      - `_workspace()`, the iteration's buffers (ws) in `_residues`;
+      - `initial_block()`, drawn on the card on CUDA and by the field's
+        `_v0_host` elsewhere;
+      - `_stepper(v, p_blk, state, ws)`, the callable multi_step runs for
+        one iteration: a flat partial of the field's iteration_step, so
+        that the loop adds no frame of its own;
+      - `_invariant_failure(ws, iteration)`, which raises with the failed
+        check: the field's `_invariants` on the Grams;
+      - `_final(v, tmp, ws, verbose)`, the final step (tmp None when the
+        limit stopped the loop).
+    The mesh's driver (parallel/distributed.py::_ShardedSolver) overrides
+    all but `_invariant_failure` and sets `_agree`."""
+
+    kernel_dtype = np.uint32    # the prime fields' kernel block and vtM
+    _agree = None               # the mesh: the block time all ranks take
+    _invariants = staticmethod(check_invariants)    # the field's asserts
+    _residues = torch.int32                         # the blocks' dtype
+    _empty_outputs = staticmethod(empty_outputs)    # semi_inverse's
+
+    def _setup(self, right: bool, check_invariants: bool,
+               sync_every: int | None, nrows: int, ncols: int, fwd, bwd,
+               iteration, v0_modulus: int, v0_cols: int):
+        """The one-device constructors' tail, after the layout of an
+        nrows x ncols operator whose directions are fwd (M) and bwd (Mt):
+        the kernel side's dimensions (n_eff the kernel vector's), the two
+        ops in the iteration's order, the blocks' padded rows, the field's
+        iteration_step with its first argument bound (`iteration`), and
+        v0's generator with, on CUDA, its draw on the card (blocks of
+        v0_cols values a row, drawn mod v0_modulus)."""
+        self.right = bool(right)
+        self.check_invariants = bool(check_invariants)
+        self.sync_every = sync_every
+        self.n_eff, self.m_eff = (ncols, nrows) if right else (nrows, ncols)
+        self.first_op, self.second_op = (fwd, bwd) if right else (bwd, fwd)
+        self.np_rows = pad_rows(self.n_eff, PAD_MULTIPLE)
+        self.mp_rows = pad_rows(self.m_eff, PAD_MULTIPLE)
+        self.expected_iterations = 1 + self.m_eff // self.n
+        self._iteration = iteration
+        self._rng = Xoshiro256Plus()
+        self._v0_form = (v0_modulus, (self.np_rows, v0_cols))
+        self._v0_draw = (LaneDraw(self.n_eff * self.n, self.device)
+                         if self.device.type == "cuda" else None)
+
+    def initial_block(self) -> torch.Tensor:
+        """v0: the xoshiro256+ stream from its fixed seed, row-major over
+        n_eff * n entries (mod p; over GF(2) its bits, packed), zero-padded;
+        drawn on the card on CUDA, by the field's `_v0_host` otherwise."""
+        if self._v0_draw is None:
+            return self._v0_host()
+        with profiling.span("v0.draw", device="cuda"):
+            return self._v0_draw.block(self._rng, self.field, *self._v0_form)
+
+    def _workspace(self) -> dict:
+        """The iteration's buffers (iteration_step's `ws`): tmp, and on
+        CUDA the kernels' outputs av, grams and si."""
+        n, dev, dtype = self.n, self.device, self._residues
+        ws = {"tmp": torch.zeros((self.mp_rows, n), dtype=dtype, device=dev)}
+        if dev.type == "cuda":
+            ws["av"] = torch.empty((self.np_rows, n), dtype=dtype, device=dev)
+            ws["grams"] = torch.empty((2 * n, n), dtype=dtype, device=dev)
+            ws["si"] = self._empty_outputs(n, dev)
+        return ws
+
+    def _stepper(self, v, p_blk, state, ws):
+        """One iteration on the solve's blocks: one partial of the field's
+        iteration_step (partials of a partial flatten), read at each solve
+        so that the ops set on the solver are the ones it runs."""
+        return functools.partial(
+            self._iteration, self.mp_rows, self.np_rows,
+            self.check_invariants, self.first_op, self.second_op, v, p_blk,
+            state, ws)
+
+    def _invariant_failure(self, ws, iteration):
+        # reproduce the precise failing assertion on the host
+        n, grams, si = self.n, ws["grams"], ws["si"]
+        self._invariants(self.f.p, grams[:n], grams[n:], si.winv, si.d)
+
+    def _final(self, v, tmp, ws, verbose):
+        """The prime fields' final step on one device: (kernel, v_nonzero,
+        product_zero, vtM), final_check on the blocks (none without tmp),
+        the kernel block and, on a failed check, vtM downloaded as
+        kernel_dtype."""
+        v_nonzero = product_zero = vtM = None
+        if tmp is not None:
+            v_nonzero, product_zero = final_check(v, tmp, self.n_eff,
+                                                  self.m_eff, verbose)
+        with profiling.span("final.download"):
+            if product_zero is False:
+                vtM = tmp[:self.m_eff].cpu().numpy().astype(self.kernel_dtype)
+            kernel = v[:self.n_eff].cpu().numpy().astype(self.kernel_dtype)
+        return kernel, v_nonzero, product_zero, vtM
+
+    def solve(self, stop_after: int = -1, verbose: bool = False,
+              on_iteration: Callable | None = None,
+              resume_state: dict | None = None) -> SolveResult:
+        """Run to convergence (or `stop_after` iterations); on a mesh, on
+        every rank of the grid together.
+
+        `on_iteration(solver, iteration, v, p_blk, start)` fires once per
+        block of device-side iterations (adaptive, up to 1024 per block
+        under the default sync_every=None); construct with sync_every=1
+        for per-iteration callbacks.  On a mesh v and p_blk are this rank's
+        bands (`gather_rows` gives them whole; every rank must then call
+        it).  `resume_state` is a {v, p, iteration} dict in true row order
+        (NumPy or tensors, optionally with `rowmap`) of residues (int64 in
+        the wide field) or GF(2) words (uint32 or int32), e.g. from
+        convert.state_from_numpy.  The result's `kernel` and `vtM` are
+        uint64 in the wide field.
+        """
+        with profiling.span("solve", field=self.field) as sp:
+            # the wrappers' launch counters, read only while recording
+            launches = None if sp is profiling.NOOP else self._launch_counts()
+            if resume_state is None:
+                with profiling.span("solve.v0"):
+                    v = self.initial_block()
+                p_blk, start_iter = torch.zeros_like(v), 0
+            else:
+                with profiling.span("solve.resume"):
+                    v, p_blk = (self._resume_block(resume_state, name)
+                                for name in ("v", "p"))
+                    start_iter = int(resume_state["iteration"])
+            if verbose:
+                for line in self._banner():
+                    print(line)
+                print(f"  - Expecting {self.expected_iterations} iterations")
+                print("  - Main loop")
+            with profiling.span("solve.prepare"):
+                if self.device.type == "cuda":
+                    kernels.load_all()
+                state = new_state(self.device)
+                ws = self._workspace()
+            loop = blocked_solve_loop(
+                multi_step(self._stepper(v, p_blk, state, ws), state),
+                start_iter, stop_after, self.sync_every,
+                on_iteration=None if on_iteration is None else (
+                    lambda iteration, start: on_iteration(
+                        self, iteration, v, p_blk, start)),
+                inv_fail=(functools.partial(self._invariant_failure, ws)
+                          if self.check_invariants else None),
+                agree=self._agree)
+            if launches is not None:
+                sp.set(**loop.solve_attrs(launches, self._launch_counts()))
+            with profiling.span("solve.final"):
+                kernel, v_nonzero, product_zero, vtM = self._final(
+                    v, None if loop.stopped_by_limit else ws["tmp"], ws,
+                    verbose)
+        if verbose:
+            print(f"  - Terminated in {loop.elapsed:.1f}s after "
+                  f"{loop.iterations} iterations")
+        return SolveResult(kernel=kernel, iterations=loop.iterations,
+                           v_nonzero=v_nonzero, product_zero=product_zero,
+                           elapsed=loop.elapsed,
+                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)
+
+
+class BlockLanczos(LanczosSolver):
     """Single-device narrow-field solver (p <= 2^30 - 35).
 
     device=None runs on CUDA and raises when CUDA is absent; device="cpu"
@@ -411,6 +554,7 @@ class BlockLanczos:
     """
 
     field = "narrow"   # the checkpoint manifest's field
+    _launch_counts = staticmethod(launch_counts)
 
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  check_invariants: bool = True,
@@ -420,33 +564,17 @@ class BlockLanczos:
         self.n = int(n)
         if not 1 <= self.n <= MAX_N:
             raise ValueError(f"block width n must be in [1, {MAX_N}]")
-        self.right = bool(right)
-        self.check_invariants = bool(check_invariants)
-        self.sync_every = sync_every
         with profiling.span("layout", field=self.field):
             with profiling.span("layout.build"):
                 sp = spmm.SpMatrix.from_coo(self.f, M)
             with profiling.span("layout.upload"):
                 self.sp = sp.to(self.device)
-        # effective dimensions: the kernel vector lives on N_eff
-        self.n_eff = M.ncols if right else M.nrows
-        self.m_eff = M.nrows if right else M.ncols
-        self.first_op = self.sp.fwd if right else self.sp.bwd
-        self.second_op = self.sp.bwd if right else self.sp.fwd
-        self.np_rows = pad_rows(self.n_eff, PAD_MULTIPLE)
-        self.mp_rows = pad_rows(self.m_eff, PAD_MULTIPLE)
-        self.expected_iterations = 1 + self.m_eff // self.n
-        self._rng = Xoshiro256Plus()
-        self._v0_draw = (LaneDraw(self.n_eff * self.n, self.device)
-                         if self.device.type == "cuda" else None)
+        self._setup(right, check_invariants, sync_every, M.nrows, M.ncols,
+                    self.sp.fwd, self.sp.bwd,
+                    functools.partial(iteration_step, self.f), self.f.p,
+                    self.n)
 
-    def initial_block(self) -> torch.Tensor:
-        """v0: xoshiro row-major over n_eff*n entries, zero-padded; drawn
-        on the card on CUDA, in NumPy otherwise."""
-        if self._v0_draw is not None:
-            with profiling.span("v0.draw", device="cuda"):
-                return self._v0_draw.block(self._rng, self.field, self.f.p,
-                                           (self.np_rows, self.n))
+    def _v0_host(self) -> torch.Tensor:
         with profiling.span("v0.draw", device="cpu"):
             block = self._rng.fill_mod(self.n_eff * self.n, self.f.p)
         with profiling.span("v0.pack"):
@@ -455,83 +583,9 @@ class BlockLanczos:
         with profiling.span("v0.upload"):
             return torch.from_numpy(v0).to(self.device)
 
-    def workspace(self) -> dict:
-        """The iteration's buffers (iteration_step's `ws`): tmp, and on
-        CUDA the kernels' outputs av, grams and si."""
-        n, dev = self.n, self.device
-        ws = {"tmp": torch.zeros((self.mp_rows, n), dtype=torch.int32,
-                                 device=dev)}
-        if dev.type == "cuda":
-            ws["av"] = torch.empty((self.np_rows, n), dtype=torch.int32,
-                                   device=dev)
-            ws["grams"] = torch.empty((2 * n, n), dtype=torch.int32,
-                                      device=dev)
-            ws["si"] = empty_outputs(n, dev)
-        return ws
-
     def _resume_block(self, resume_state: dict, name: str) -> torch.Tensor:
         arr = resume_rows(resume_state, name, self.np_rows, self.n)
         return torch.from_numpy(arr.astype(np.int32)).to(self.device)
 
-    def solve(self, stop_after: int = -1, verbose: bool = False,
-              on_iteration: Callable | None = None,
-              resume_state: dict | None = None) -> SolveResult:
-        """Run to convergence (or `stop_after` iterations).
-
-        `on_iteration(solver, iteration, v, p_blk, start)` fires once per
-        block of device-side iterations (adaptive, up to 1024 per block
-        under the default sync_every=None); construct with sync_every=1
-        for per-iteration callbacks.  `resume_state` is a {v, p, iteration}
-        dict (NumPy or tensors, optionally with `rowmap`), e.g. from
-        convert.state_from_numpy.
-        """
-        with profiling.span("solve", field=self.field) as sp:
-            # the wrappers' launch counters, read only while recording
-            launches = None if sp is profiling.NOOP else launch_counts()
-            v, p_blk, start_iter = start_blocks(self, resume_state)
-            if verbose:
-                print("Block Lanczos")
-                print(f"  - Expecting {self.expected_iterations} iterations")
-                print("  - Main loop")
-            with profiling.span("solve.prepare"):
-                if self.device.type == "cuda":
-                    kernels.load_all()
-                state = new_state(self.device)
-                ws = self.workspace()
-            f = self.f
-
-            def inv_fail(iteration):
-                # reproduce the precise failing assertion on the host
-                n = self.n
-                grams, si = ws["grams"], ws["si"]
-                check_invariants(f.p, grams[:n], grams[n:], si.winv, si.d)
-
-            loop = blocked_solve_loop(
-                multi_step(functools.partial(
-                    iteration_step, f, self.mp_rows, self.np_rows,
-                    self.check_invariants, self.first_op, self.second_op, v,
-                    p_blk, state, ws), state),
-                start_iter, stop_after, self.sync_every,
-                on_iteration=block_callback(self, on_iteration, v, p_blk),
-                inv_fail=inv_fail if self.check_invariants else None)
-            if launches is not None:
-                sp.set(**loop.solve_attrs(launches, launch_counts()))
-            tmp = ws["tmp"]
-            v_nonzero = product_zero = None
-            vtM = None
-            with profiling.span("solve.final"):
-                if not loop.stopped_by_limit:
-                    v_nonzero, product_zero = final_check(
-                        v, tmp, self.n_eff, self.m_eff, verbose)
-                with profiling.span("final.download"):
-                    if product_zero is False:
-                        vtM = tmp[:self.m_eff].cpu().numpy().astype(
-                            np.uint32)
-                    kernel = v[:self.n_eff].cpu().numpy().astype(np.uint32)
-        if verbose:
-            print(f"  - Terminated in {loop.elapsed:.1f}s after "
-                  f"{loop.iterations} iterations")
-        return SolveResult(kernel=kernel, iterations=loop.iterations,
-                           v_nonzero=v_nonzero, product_zero=product_zero,
-                           elapsed=loop.elapsed,
-                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)
+    def _banner(self) -> list:
+        return ["Block Lanczos"]

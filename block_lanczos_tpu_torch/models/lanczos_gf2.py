@@ -28,28 +28,24 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
 
 import numpy as np
 import torch
 
 from block_lanczos_tpu_torch import kernels
-from block_lanczos_tpu_torch.models.lanczos import (PAD_MULTIPLE, SolveResult,
-                                                    block_callback,
-                                                    blocked_solve_loop,
-                                                    final_check, multi_step,
-                                                    pad_rows, resolve_device,
-                                                    resume_rows, start_blocks)
+from block_lanczos_tpu_torch.models.lanczos import (LanczosSolver,
+                                                    final_check,
+                                                    resolve_device,
+                                                    resume_rows)
 from block_lanczos_tpu_torch.ops import gf2
 from block_lanczos_tpu_torch.ops.gf2 import (WORD, colmask, gram_gf2,
                                              matmul_gf2, semi_inverse_gf2)
 from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
-                                                      STOP, new_state)
+                                                      STOP)
 from block_lanczos_tpu_torch.ops.spmm import _check_args, build_hybrid_arrays
-from block_lanczos_tpu_torch.ops.xoshiro import LaneDraw, xoshiro_fill
+from block_lanczos_tpu_torch.ops.xoshiro import xoshiro_fill
 from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
-from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
 
 # ---------------------------------------------------------------------------
@@ -319,7 +315,7 @@ def iteration_step(n: int, mp_rows: int, np_rows: int, check: bool,
 # Solver
 # ---------------------------------------------------------------------------
 
-class BlockLanczosGF2:
+class BlockLanczosGF2(LanczosSolver):
     """Single-device bitsliced GF(2) solver; the API mirrors BlockLanczos.
 
     Requires p == 2 and n % 32 == 0 (32 <= n <= 512 on CUDA).  Even entries
@@ -331,10 +327,10 @@ class BlockLanczosGF2:
     """
 
     field = "gf2"   # the checkpoint manifest's field
+    _launch_counts = staticmethod(launch_counts)
 
     def __init__(self, M: COOMatrix, n: int = 32, right: bool = False,
-                 pad_multiple: int = PAD_MULTIPLE,
-                 check_invariants: bool = True, seed=None,
+                 check_invariants: bool = True,
                  sync_every: int | None = None, dedup: bool = True,
                  device=None):
         self.device = resolve_device(device)
@@ -343,9 +339,6 @@ class BlockLanczosGF2:
         self.n = int(n)
         self.W = (gf2.check_width(self.n) if self.device.type == "cuda"
                   else gf2.words(self.n))
-        self.right = bool(right)
-        self.check_invariants = bool(check_invariants)
-        self.sync_every = sync_every
         with profiling.span("layout", field=self.field):
             odd = (np.asarray(M.x) & 1) == 1
             i, j = M.i[odd], M.j[odd]
@@ -370,28 +363,14 @@ class BlockLanczosGF2:
                             for bands in (fwd, bwd))
         self.dedup_dropped = (n_dup, n_empty)
         self.nnz = len(i)
-        self.n_eff = ncols_eff if right else nrows_eff
-        self.m_eff = nrows_eff if right else ncols_eff
-        self.np_rows = pad_rows(self.n_eff, pad_multiple)
-        self.mp_rows = pad_rows(self.m_eff, pad_multiple)
-        self.first_op = fwd if right else bwd
-        self.second_op = bwd if right else fwd
-        self.expected_iterations = 1 + self.m_eff // self.n
-        self._rng = Xoshiro256Plus() if seed is None else Xoshiro256Plus(seed)
-        self._v0_draw = (LaneDraw(self.n_eff * self.n, self.device)
-                         if self.device.type == "cuda" else None)
+        self._setup(right, check_invariants, sync_every, nrows_eff, ncols_eff,
+                    fwd, bwd, functools.partial(iteration_step, self.n), 2,
+                    self.W)
         # the final step's unpack and check: on the card on CUDA
         # (csrc/gf2_final.cu), in NumPy otherwise
         self._final_on_card = self.device.type == "cuda"
 
-    def initial_block(self) -> torch.Tensor:
-        """v0 bits from the same xoshiro stream: random64() % 2 per entry,
-        row-major over n_eff * n, packed and zero-padded; drawn and packed
-        on the card on CUDA, in NumPy otherwise."""
-        if self._v0_draw is not None:
-            with profiling.span("v0.draw", device="cuda"):
-                return self._v0_draw.block(self._rng, self.field, 2,
-                                           (self.np_rows, self.W))
+    def _v0_host(self) -> torch.Tensor:
         with profiling.span("v0.draw", device="cpu"):
             bits = self._rng.fill_mod(self.n_eff * self.n, 2)
         with profiling.span("v0.pack"):
@@ -406,81 +385,40 @@ class BlockLanczosGF2:
         words32 = np.ascontiguousarray(arr).astype(np.uint32).view(np.int32)
         return torch.from_numpy(words32).to(self.device)
 
-    def solve(self, stop_after: int = -1, verbose: bool = False,
-              on_iteration: Callable | None = None,
-              resume_state: dict | None = None) -> SolveResult:
-        """Run to convergence (or `stop_after` iterations).
+    def _banner(self) -> list:
+        lines = ["Block Lanczos [GF(2) bitsliced]"]
+        if any(self.dedup_dropped):
+            nd, ne = self.dedup_dropped
+            lines.append(f"  - GF(2) dedup: dropped {nd} duplicate + {ne} "
+                         "empty lines (operator rank restoration)")
+        return lines
 
-        `on_iteration(solver, iteration, v, p_blk, start)` fires once per
-        block of device-side iterations (adaptive, up to 1024 per block
-        under the default sync_every=None).  `resume_state` is a
-        {v, p, iteration} dict of word blocks (uint32 or int32, NumPy or
-        tensors, optionally with `rowmap`), e.g. from
-        convert.gf2_state_from_numpy.
-        """
-        n, W = self.n, self.W
-        with profiling.span("solve", field=self.field) as sp:
-            # the wrappers' launch counters, read only while recording
-            launches = None if sp is profiling.NOOP else launch_counts()
-            v, p_blk, start_iter = start_blocks(self, resume_state)
-            if verbose:
-                print("Block Lanczos [GF(2) bitsliced]")
-                if any(self.dedup_dropped):
-                    nd, ne = self.dedup_dropped
-                    print(f"  - GF(2) dedup: dropped {nd} duplicate + {ne} "
-                          "empty lines (operator rank restoration)")
-                print(f"  - Expecting {self.expected_iterations} iterations")
-                print("  - Main loop")
-            with profiling.span("solve.prepare"):
-                state = new_state(self.device)
-                ws = {"tmp": torch.zeros((self.mp_rows, W), dtype=torch.int32,
-                                         device=self.device)}
-                if self.device.type == "cuda":
-                    kernels.load_all()
-                    ws["av"] = torch.empty((self.np_rows, W),
-                                           dtype=torch.int32,
-                                           device=self.device)
-                    ws["grams"] = torch.empty((2 * n, W), dtype=torch.int32,
-                                              device=self.device)
-                    ws["si"] = gf2.empty_outputs(n, self.device)
-                if self._final_on_card:
-                    ws["unpacked"] = torch.empty((self.np_rows, n),
-                                                 dtype=torch.int32,
-                                                 device=self.device)
-                    ws["flags"] = torch.empty(2, dtype=torch.int32,
-                                              device=self.device)
+    def _workspace(self) -> dict:
+        """iteration_step's buffers, and on the card the final step's
+        unpacked block and flags."""
+        n, W, dev = self.n, self.W, self.device
+        ws = {"tmp": torch.zeros((self.mp_rows, W), dtype=torch.int32,
+                                 device=dev)}
+        if dev.type == "cuda":
+            ws["av"] = torch.empty((self.np_rows, W), dtype=torch.int32,
+                                   device=dev)
+            ws["grams"] = torch.empty((2 * n, W), dtype=torch.int32,
+                                      device=dev)
+            ws["si"] = gf2.empty_outputs(n, dev)
+        if self._final_on_card:
+            ws["unpacked"] = torch.empty((self.np_rows, n), dtype=torch.int32,
+                                         device=dev)
+            ws["flags"] = torch.empty(2, dtype=torch.int32, device=dev)
+        return ws
 
-            def inv_fail(iteration):
-                raise AssertionError(
-                    f"device invariant check failed (GF2) at iteration "
-                    f"~{iteration}")
+    def _invariant_failure(self, ws, iteration):
+        raise AssertionError(f"device invariant check failed (GF2) at "
+                             f"iteration ~{iteration}")
 
-            loop = blocked_solve_loop(
-                multi_step(functools.partial(
-                    iteration_step, n, self.mp_rows, self.np_rows,
-                    self.check_invariants, self.first_op, self.second_op, v,
-                    p_blk, state, ws), state),
-                start_iter, stop_after, self.sync_every,
-                on_iteration=block_callback(self, on_iteration, v, p_blk),
-                inv_fail=inv_fail if self.check_invariants else None)
-            if launches is not None:
-                sp.set(**loop.solve_attrs(launches, launch_counts()))
-            tmp = None if loop.stopped_by_limit else ws["tmp"]
-            with profiling.span("solve.final"):
-                if self._final_on_card:
-                    kernel, v_nonzero, product_zero, vtM = \
-                        self._final_card(v, tmp, ws, verbose)
-                else:
-                    kernel, v_nonzero, product_zero, vtM = \
-                        self._final_host(v, tmp, verbose)
-        if verbose:
-            print(f"  - Terminated in {loop.elapsed:.1f}s after "
-                  f"{loop.iterations} iterations")
-        return SolveResult(kernel=kernel,
-                           iterations=loop.iterations,
-                           v_nonzero=v_nonzero, product_zero=product_zero,
-                           elapsed=loop.elapsed,
-                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)
+    def _final(self, v, tmp, ws, verbose):
+        if self._final_on_card:
+            return self._final_card(v, tmp, ws, verbose)
+        return self._final_host(v, tmp, verbose)
 
     def _final_host(self, v, tmp, verbose):
         """The final step in NumPy: (kernel, v_nonzero, product_zero, vtM)

@@ -21,30 +21,22 @@ through every kernel.
 from __future__ import annotations
 
 import functools
-from typing import Callable
 
 import numpy as np
 import torch
 
 from block_lanczos_tpu_torch import kernels
-from block_lanczos_tpu_torch.models.lanczos import (PAD_MULTIPLE,
-                                                    SolveResult,
-                                                    block_callback,
-                                                    blocked_solve_loop,
-                                                    final_check, multi_step,
-                                                    pad_rows,
+from block_lanczos_tpu_torch.models.lanczos import (LanczosSolver,
                                                     resolve_device,
-                                                    resume_rows,
-                                                    start_blocks)
+                                                    resume_rows)
 from block_lanczos_tpu_torch.ops import gfp_wide as gw
 from block_lanczos_tpu_torch.ops import wide_ops as wo
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.ops.semi_inverse import (FROZEN, INV_OK, K_DONE,
-                                                      STOP, new_state)
-from block_lanczos_tpu_torch.ops.xoshiro import LaneDraw, xoshiro_fill
+                                                      STOP)
+from block_lanczos_tpu_torch.ops.xoshiro import xoshiro_fill
 from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
-from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
 MAX_N = wo.MAX_N
 
@@ -162,7 +154,7 @@ def check_invariants(p: int, vtAv, vtAAv, winv, d):
 # The solver
 # ---------------------------------------------------------------------------
 
-class BlockLanczosWide:
+class BlockLanczosWide(LanczosSolver):
     """Single-device wide-field solver (odd primes 3 <= p < 2^62); the API
     mirrors BlockLanczos.
 
@@ -171,6 +163,11 @@ class BlockLanczosWide:
     """
 
     field = "wide"   # the checkpoint manifest's field
+    kernel_dtype = np.uint64
+    _launch_counts = staticmethod(launch_counts)
+    _invariants = staticmethod(check_invariants)
+    _residues = torch.int64
+    _empty_outputs = staticmethod(wo.empty_outputs)
 
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  check_invariants: bool = True,
@@ -180,9 +177,6 @@ class BlockLanczosWide:
         self.n = int(n)
         if not 1 <= self.n <= MAX_N:
             raise ValueError(f"block width n must be in [1, {MAX_N}]")
-        self.right = bool(right)
-        self.check_invariants = bool(check_invariants)
-        self.sync_every = sync_every
         with profiling.span("layout", field=self.field):
             with profiling.span("layout.build") as build:
                 sp = wo.wide_matrix_from_coo(self.f, M)
@@ -192,25 +186,13 @@ class BlockLanczosWide:
             with profiling.span("layout.upload"):
                 self.sp = sp.to(self.device)
         self.nnz = M.nnz
-        self.n_eff = M.ncols if right else M.nrows
-        self.m_eff = M.nrows if right else M.ncols
-        self.first_op = self.sp.fwd if right else self.sp.bwd
-        self.second_op = self.sp.bwd if right else self.sp.fwd
-        self.np_rows = pad_rows(self.n_eff, PAD_MULTIPLE)
-        self.mp_rows = pad_rows(self.m_eff, PAD_MULTIPLE)
-        self.expected_iterations = 1 + self.m_eff // self.n
-        self._rng = Xoshiro256Plus()
-        self._v0_draw = (LaneDraw(self.n_eff * self.n, self.device)
-                         if self.device.type == "cuda" else None)
+        self._setup(right, check_invariants, sync_every, M.nrows, M.ncols,
+                    self.sp.fwd, self.sp.bwd,
+                    functools.partial(iteration_step, self.f), self.f.p,
+                    self.n)
 
-    def initial_block(self) -> torch.Tensor:
-        """v0: xoshiro random64() % p row-major over n_eff*n entries (all
-        62 bits kept), zero-padded; drawn on the card on CUDA, in NumPy
-        otherwise."""
-        if self._v0_draw is not None:
-            with profiling.span("v0.draw", device="cuda"):
-                return self._v0_draw.block(self._rng, self.field, self.f.p,
-                                           (self.np_rows, self.n))
+    def _v0_host(self) -> torch.Tensor:
+        # random64() % p: all 62 bits kept
         with profiling.span("v0.draw", device="cpu"):
             block = self._rng.fill_mod64(self.n_eff * self.n, self.f.p)
         with profiling.span("v0.pack"):
@@ -226,75 +208,5 @@ class BlockLanczosWide:
                              f"[0, p)")
         return torch.from_numpy(arr.astype(np.int64)).to(self.device)
 
-    def solve(self, stop_after: int = -1, verbose: bool = False,
-              on_iteration: Callable | None = None,
-              resume_state: dict | None = None) -> SolveResult:
-        """Run to convergence (or `stop_after` iterations).
-
-        `on_iteration(solver, iteration, v, p_blk, start)` fires once per
-        block of device-side iterations (adaptive, up to 1024 per block
-        under the default sync_every=None); construct with sync_every=1
-        for per-iteration callbacks.  `resume_state` is a {v, p, iteration}
-        dict of int64 residues (NumPy or tensors, optionally with
-        `rowmap`), e.g. from convert.wide_state_from_numpy.  The result's
-        `kernel` and `vtM` are uint64.
-        """
-        f = self.f
-        with profiling.span("solve", field=self.field) as sp:
-            # the wrappers' launch counters, read only while recording
-            launches = None if sp is profiling.NOOP else launch_counts()
-            v, p_blk, start_iter = start_blocks(self, resume_state)
-            if verbose:
-                print("Block Lanczos [wide field]")
-                print(f"  - Expecting {self.expected_iterations} iterations")
-                print("  - Main loop")
-            with profiling.span("solve.prepare"):
-                state = new_state(self.device)
-                ws = {"tmp": torch.zeros((self.mp_rows, self.n),
-                                         dtype=torch.int64,
-                                         device=self.device)}
-                if self.device.type == "cuda":
-                    kernels.load_all()
-                    ws["av"] = torch.empty((self.np_rows, self.n),
-                                           dtype=torch.int64,
-                                           device=self.device)
-                    ws["grams"] = torch.empty((2 * self.n, self.n),
-                                              dtype=torch.int64,
-                                              device=self.device)
-                    ws["si"] = wo.empty_outputs(self.n, self.device)
-
-            def inv_fail(iteration):
-                # reproduce the precise failing assertion on the host
-                n = self.n
-                grams, si = ws["grams"], ws["si"]
-                check_invariants(f.p, grams[:n], grams[n:], si.winv, si.d)
-
-            loop = blocked_solve_loop(
-                multi_step(functools.partial(
-                    iteration_step, f, self.mp_rows, self.np_rows,
-                    self.check_invariants, self.first_op, self.second_op, v,
-                    p_blk, state, ws), state),
-                start_iter, stop_after, self.sync_every,
-                on_iteration=block_callback(self, on_iteration, v, p_blk),
-                inv_fail=inv_fail if self.check_invariants else None)
-            if launches is not None:
-                sp.set(**loop.solve_attrs(launches, launch_counts()))
-            tmp = ws["tmp"]
-            v_nonzero = product_zero = None
-            vtM = None
-            with profiling.span("solve.final"):
-                if not loop.stopped_by_limit:
-                    v_nonzero, product_zero = final_check(
-                        v, tmp, self.n_eff, self.m_eff, verbose)
-                with profiling.span("final.download"):
-                    if product_zero is False:
-                        vtM = tmp[:self.m_eff].cpu().numpy().astype(
-                            np.uint64)
-                    kernel = v[:self.n_eff].cpu().numpy().astype(np.uint64)
-        if verbose:
-            print(f"  - Terminated in {loop.elapsed:.1f}s after "
-                  f"{loop.iterations} iterations")
-        return SolveResult(kernel=kernel, iterations=loop.iterations,
-                           v_nonzero=v_nonzero, product_zero=product_zero,
-                           elapsed=loop.elapsed,
-                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)
+    def _banner(self) -> list:
+        return ["Block Lanczos [wide field]"]

@@ -21,10 +21,11 @@ started (collectives' `start`) before chunk B's SpMV and finished after
 it, five all-reduces an iteration where the plain step has three; on a
 card NCCL runs A's on its own stream while B's SpMV runs.  There is
 no root: each rank draws the same xoshiro v0 and keeps its band, and the
-final kernel is gathered through the band maps at the end.  The host loop
-is the single-device one (blocked_solve_loop); the adaptive block length
-is agreed over the grid (the slowest rank's time), so that all ranks
-sync after the same iterations.  Bit-exact for ANY grid: mod-p sums are
+final kernel is gathered through the band maps at the end.  solve() is
+the single-device solvers' (models/lanczos.py::LanczosSolver, its host
+loop blocked_solve_loop) with this module's hooks; the adaptive block
+length is agreed over the grid (the slowest rank's time), so that all
+ranks sync after the same iterations.  Bit-exact for ANY grid: mod-p sums are
 exact and order-independent.
 
 `ShardedBlockLanczosWide` (distributed_wide.py) and
@@ -35,25 +36,18 @@ other fields' kernels and collectives.
 from __future__ import annotations
 
 import functools
-from typing import Callable
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from block_lanczos_tpu_torch import kernels
 from block_lanczos_tpu_torch.models import lanczos as single
-from block_lanczos_tpu_torch.models.lanczos import (SolveResult,
-                                                    block_callback,
-                                                    blocked_solve_loop,
-                                                    final_check, multi_step,
-                                                    resume_rows,
-                                                    start_blocks)
+from block_lanczos_tpu_torch.models.lanczos import (LanczosSolver,
+                                                    final_check, resume_rows)
 from block_lanczos_tpu_torch.ops import spmm
 from block_lanczos_tpu_torch.ops.dense import gram_mod
 from block_lanczos_tpu_torch.ops.gfp import GFp
 from block_lanczos_tpu_torch.ops.semi_inverse import (MAX_N, empty_outputs,
-                                                      new_state,
                                                       semi_inverse)
 from block_lanczos_tpu_torch.parallel import collectives, multihost
 from block_lanczos_tpu_torch.parallel import sharding as shard_lib
@@ -73,6 +67,24 @@ def agree_max(x: float, grid: Grid) -> float:
     return float(t.item())
 
 
+def launch_counts() -> dict:
+    """{kernel name: launches} of the fifteen kernels a mesh runs: the
+    three fields' four each and the three collectives (and xoshiro_fill,
+    which only the single-device solvers launch)."""
+    from block_lanczos_tpu_torch.models import lanczos_gf2, lanczos_wide
+    out = single.launch_counts()
+    out.update(lanczos_gf2.launch_counts())
+    out.update(lanczos_wide.launch_counts())
+    out.update(collectives.launch_counts())
+    return out
+
+
+def reset_launch_counts() -> None:
+    from block_lanczos_tpu_torch.models import lanczos_gf2, lanczos_wide
+    for mod in (single, lanczos_gf2, lanczos_wide, collectives):
+        mod.reset_launch_counts()
+
+
 def _chunk_views(block: torch.Tensor, split: int | None) -> list:
     """The row chunks of a workspace block the step writes and sums: the
     block itself, or its rows [0, split) and [split, ...) (contiguous
@@ -80,21 +92,27 @@ def _chunk_views(block: torch.Tensor, split: int | None) -> list:
     return [block] if split is None else [block[:split], block[split:]]
 
 
-class _ShardedSolver:
-    """The mesh driver shared by the three fields: v0 and resume bands,
-    the workspace's bound collectives, the two reduced products (whole, or
-    in two row chunks with overlap), the blocked host loop, the final
-    gather and check.  A field sets `label`, `overlap_mark` (the verbose
-    header's, with overlap) and `field` (the checkpoint manifest's) and writes
-    `_v0`, `_state_block`, `_workspace`, `_spmv`, `_step`, `_final` and
-    `_invariant_failure`."""
+class _ShardedSolver(LanczosSolver):
+    """The mesh's hooks of the solve protocol (models/lanczos.py::
+    LanczosSolver), shared by the three fields: v0 and resume bands, the
+    workspace's bound collectives, the two reduced products (whole, or in
+    two row chunks with overlap), the block length agreed over the grid,
+    the final gather and the prime fields' check.  A field sets `label`,
+    `overlap_mark` (the verbose header's, with overlap) and `field` (the
+    checkpoint manifest's) and writes `_v0`, `_state_block`, `_workspace`,
+    `_spmv` and `_step` (the wide field its `_invariants`; GF(2) its own
+    `_invariant_failure` and `_final_gathered`)."""
 
     label = ""
     overlap_mark = ""
+    _launch_counts = staticmethod(launch_counts)
 
-    def _setup(self, grid: Grid, ops, n: int, check_invariants: bool,
-               sync_every: int | None, overlap: bool):
+    def _setup(self, grid: Grid, ops, n: int, right: bool,
+               check_invariants: bool, sync_every: int | None,
+               overlap: bool):
         self.overlap = bool(overlap)
+        self.right = bool(right)
+        self._rng = Xoshiro256Plus()
         self.grid = grid
         self.device = grid.device
         self.ops = ops
@@ -171,61 +189,38 @@ class _ShardedSolver:
         """A cols-split block (tmp) in true order, on every rank."""
         return self.col_map.gather(fetch_global(t, self.grid.cols_group))
 
-    # -- the loop ---------------------------------------------------------
+    # -- the solve's hooks -----------------------------------------------
 
-    def solve(self, stop_after: int = -1, verbose: bool = False,
-              on_iteration: Callable | None = None,
-              resume_state: dict | None = None) -> SolveResult:
-        """Run to convergence (or `stop_after` iterations), on every rank
-        of the grid together.
+    def _banner(self) -> list:
+        R, C = self.grid.shape
+        mark = self.overlap_mark if self.overlap else ""
+        return [f"Block Lanczos [{self.label}sharded {R}x{C}{mark}]",
+                self.ops.stats.summary()]
 
-        `on_iteration(solver, iteration, v, p_blk, start)` fires on every
-        rank once per block of iterations (construct with sync_every=1 for
-        every iteration), with this rank's bands of v and p
-        (`gather_rows` gives them whole; every rank must then call it).
-        `resume_state` is a {v, p, iteration} dict in TRUE row order
-        (optionally with `rowmap`), as the single-device solvers take it.
-        """
-        with profiling.span("solve", field=self.field) as sp:
-            # the wrappers' launch counters, read only while recording
-            launches = None if sp is profiling.NOOP else launch_counts()
-            v, p_blk, start_iter = start_blocks(self, resume_state)
-            if verbose:
-                R, C = self.grid.shape
-                mark = self.overlap_mark if self.overlap else ""
-                print(f"Block Lanczos [{self.label}sharded {R}x{C}{mark}]")
-                print(self.ops.stats.summary())
-                print(f"  - Expecting {self.expected_iterations} iterations")
-                print("  - Main loop")
-            with profiling.span("solve.prepare"):
-                if self.device.type == "cuda":
-                    kernels.load_all()
-                state = new_state(self.device)
-                ws = self._workspace()
-            loop = blocked_solve_loop(
-                multi_step(functools.partial(self._step, v, p_blk, state, ws),
-                           state),
-                start_iter, stop_after, self.sync_every,
-                on_iteration=block_callback(self, on_iteration, v, p_blk),
-                inv_fail=((lambda it: self._invariant_failure(ws, it))
-                          if self.check_invariants else None),
-                agree=lambda t: agree_max(t, self.grid))
-            if launches is not None:
-                sp.set(**loop.solve_attrs(launches, launch_counts()))
-            with profiling.span("solve.final"):
-                with profiling.span("final.gather"):
-                    v_true = self.gather_rows(v)
-                    tmp_true = (None if loop.stopped_by_limit
-                                else self.gather_cols(ws["tmp"]))
-                kernel, v_nonzero, product_zero, vtM = self._final(
-                    v_true, tmp_true, verbose)
-        if verbose:
-            print(f"  - Terminated in {loop.elapsed:.1f}s after "
-                  f"{loop.iterations} iterations")
-        return SolveResult(kernel=kernel, iterations=loop.iterations,
-                           v_nonzero=v_nonzero, product_zero=product_zero,
-                           elapsed=loop.elapsed,
-                           stopped_by_limit=loop.stopped_by_limit, vtM=vtM)
+    def _stepper(self, v, p_blk, state, ws):
+        return functools.partial(self._step, v, p_blk, state, ws)
+
+    def _agree(self, t: float) -> float:
+        return agree_max(t, self.grid)
+
+    def _final(self, v, tmp, ws, verbose):
+        """v and tmp gathered whole on every rank, then checked."""
+        with profiling.span("final.gather"):
+            v_true = self.gather_rows(v)
+            tmp_true = None if tmp is None else self.gather_cols(tmp)
+        return self._final_gathered(v_true, tmp_true, verbose)
+
+    def _final_gathered(self, v_true, tmp_true, verbose):
+        """The prime fields' check of the gathered blocks: (kernel,
+        v_nonzero, product_zero, vtM) as kernel_dtype."""
+        v_nonzero = product_zero = vtM = None
+        if tmp_true is not None:
+            v_nonzero, product_zero = final_check(
+                v_true, tmp_true, self.n_eff, self.m_eff, verbose)
+            if product_zero is False:
+                vtM = tmp_true[:self.m_eff].astype(self.kernel_dtype)
+        return (v_true[:self.n_eff].astype(self.kernel_dtype), v_nonzero,
+                product_zero, vtM)
 
 
 class ShardedBlockLanczos(_ShardedSolver):
@@ -248,13 +243,12 @@ class ShardedBlockLanczos(_ShardedSolver):
         if not 1 <= int(n) <= MAX_N:
             raise ValueError(f"block width n must be in [1, {MAX_N}]")
         self.f = GFp.make(M.prime)
-        self.right = bool(right)
-        self._rng = Xoshiro256Plus()
         part = (shard_lib.partition_matrix_overlap if overlap
                 else shard_lib.partition_matrix)
         with profiling.span("layout", field=self.field):
             ops = part(self.f, M, right, grid, pad_multiple)
-        self._setup(grid, ops, n, check_invariants, sync_every, overlap)
+        self._setup(grid, ops, n, right, check_invariants, sync_every,
+                    overlap)
 
     def _v0(self) -> np.ndarray:
         """v0 over TRUE kernel rows (the sequential xoshiro block, bit-exact
@@ -295,37 +289,3 @@ class ShardedBlockLanczos(_ShardedSolver):
                           out=ws.get("si"))
         single.orthogonalize(v, p_blk, av, si.rhs, si.d, p, state)
         ws.update(grams=grams, si=si)
-
-    def _invariant_failure(self, ws, iteration):
-        # reproduce the precise failing assertion on the host
-        n, grams, si = self.n, ws["grams"], ws["si"]
-        single.check_invariants(self.f.p, grams[:n], grams[n:], si.winv,
-                                si.d)
-
-    def _final(self, v_true, tmp_true, verbose):
-        v_nonzero = product_zero = vtM = None
-        if tmp_true is not None:
-            v_nonzero, product_zero = final_check(
-                v_true, tmp_true, self.n_eff, self.m_eff, verbose)
-            if product_zero is False:
-                vtM = tmp_true[:self.m_eff].astype(np.uint32)
-        return (v_true[:self.n_eff].astype(np.uint32), v_nonzero,
-                product_zero, vtM)
-
-
-def launch_counts() -> dict:
-    """{kernel name: launches} of the fifteen kernels a mesh runs: the
-    three fields' four each and the three collectives (and xoshiro_fill,
-    which only the single-device solvers launch)."""
-    from block_lanczos_tpu_torch.models import lanczos_gf2, lanczos_wide
-    out = single.launch_counts()
-    out.update(lanczos_gf2.launch_counts())
-    out.update(lanczos_wide.launch_counts())
-    out.update(collectives.launch_counts())
-    return out
-
-
-def reset_launch_counts() -> None:
-    from block_lanczos_tpu_torch.models import lanczos_gf2, lanczos_wide
-    for mod in (single, lanczos_gf2, lanczos_wide, collectives):
-        mod.reset_launch_counts()

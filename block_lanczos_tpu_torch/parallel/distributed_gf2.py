@@ -27,7 +27,6 @@ from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
 from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
-from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
 
 def _odd_entries(M: COOMatrix, right: bool, dedup: bool):
@@ -98,15 +97,14 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
                              "n % 32 == 0")
         W = (gf2.check_width(int(n)) if grid.device.type == "cuda"
              else gf2.words(int(n)))
-        self.right = bool(right)
-        self._rng = Xoshiro256Plus()
         part = (partition_matrix_overlap_gf2 if overlap
                 else partition_matrix_gf2)
         with profiling.span("layout", field=self.field):
             ops, self.dedup_dropped = part(M, right, grid, W, pad_multiple,
                                            dedup)
         self.W = W
-        self._setup(grid, ops, n, check_invariants, sync_every, overlap)
+        self._setup(grid, ops, n, right, check_invariants, sync_every,
+                    overlap)
 
     def _v0(self) -> np.ndarray:
         with profiling.span("v0.draw", device="cpu"):
@@ -150,7 +148,7 @@ class ShardedBlockLanczosGF2(_ShardedSolver):
         raise AssertionError("device invariant check failed (GF2, sharded) "
                              f"at iteration ~{iteration}")
 
-    def _final(self, v_true, tmp_true, verbose):
+    def _final_gathered(self, v_true, tmp_true, verbose):
         with profiling.span("final.unpack"):
             v_bits = gf2.unpack_bits_np(v_true, self.n)
             tmp_bits = (None if tmp_true is None

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from block_lanczos_tpu_torch.models import lanczos_wide as lw
-from block_lanczos_tpu_torch.models.lanczos import final_check, resume_rows
+from block_lanczos_tpu_torch.models.lanczos import resume_rows
 from block_lanczos_tpu_torch.ops import wide_ops as wo
 from block_lanczos_tpu_torch.ops.gfp_wide import GFpWide
 from block_lanczos_tpu_torch.parallel import collectives
@@ -26,7 +26,6 @@ from block_lanczos_tpu_torch.parallel.distributed import _ShardedSolver
 from block_lanczos_tpu_torch.parallel.mesh import Grid, make_mesh
 from block_lanczos_tpu_torch.utils import profiling
 from block_lanczos_tpu_torch.utils.mmio import COOMatrix
-from block_lanczos_tpu_torch.utils.rng import Xoshiro256Plus
 
 
 def _op_maker(f: GFpWide):
@@ -62,6 +61,8 @@ class ShardedBlockLanczosWide(_ShardedSolver):
 
     label = "wide field, "
     field = "wide"
+    kernel_dtype = np.uint64
+    _invariants = staticmethod(lw.check_invariants)
 
     def __init__(self, M: COOMatrix, n: int = 1, right: bool = False,
                  grid: Grid | None = None, pad_multiple: int = 8,
@@ -71,13 +72,12 @@ class ShardedBlockLanczosWide(_ShardedSolver):
         if not 1 <= int(n) <= lw.MAX_N:
             raise ValueError(f"block width n must be in [1, {lw.MAX_N}]")
         self.f = GFpWide.make(M.prime)
-        self.right = bool(right)
-        self._rng = Xoshiro256Plus()
         part = (partition_matrix_overlap_wide if overlap
                 else partition_matrix_wide)
         with profiling.span("layout", field=self.field):
             ops = part(self.f, M, right, grid, pad_multiple)
-        self._setup(grid, ops, n, check_invariants, sync_every, overlap)
+        self._setup(grid, ops, n, right, check_invariants, sync_every,
+                    overlap)
 
     def _v0(self) -> np.ndarray:
         with profiling.span("v0.draw", device="cpu"):
@@ -119,17 +119,3 @@ class ShardedBlockLanczosWide(_ShardedSolver):
                                   out=ws.get("si"))
         lw.orthogonalize_wide(v, p_blk, av, si.rhs, si.d, f, state)
         ws.update(grams=grams, si=si)
-
-    def _invariant_failure(self, ws, iteration):
-        n, grams, si = self.n, ws["grams"], ws["si"]
-        lw.check_invariants(self.f.p, grams[:n], grams[n:], si.winv, si.d)
-
-    def _final(self, v_true, tmp_true, verbose):
-        v_nonzero = product_zero = vtM = None
-        if tmp_true is not None:
-            v_nonzero, product_zero = final_check(
-                v_true, tmp_true, self.n_eff, self.m_eff, verbose)
-            if product_zero is False:
-                vtM = tmp_true[:self.m_eff].astype(np.uint64)
-        return (v_true[:self.n_eff].astype(np.uint64), v_nonzero,
-                product_zero, vtM)
