@@ -401,7 +401,7 @@ class LanczosSolver:
         check: the field's `_invariants` on the Grams;
       - `_final(v, tmp, ws, verbose)`, the final step (tmp None when the
         limit stopped the loop).
-    The mesh's driver (parallel/distributed.py::_ShardedSolver) overrides
+    The mesh's base (parallel/distributed.py::_ShardedSolver) overrides
     all but `_invariant_failure` and sets `_agree`."""
 
     kernel_dtype = np.uint32    # the prime fields' kernel block and vtM
